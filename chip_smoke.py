@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and eval path once on one CUDA card.
+"""Drive the PyTorch port's serving, eval and training paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -8,21 +8,38 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. card: require CUDA; print the device name and nvidia-smi's name and
    power limit;
 2. build the CUDA kernels from ``fcn8s_tensorflow_tpu_torch/csrc`` (nvcc,
-   sm_90a) and print the build time;
-3. each kernel against its plain PyTorch twin on the card at the main
-   path's shapes (batch 8 x 512x1024, 20 classes, bf16), with median times
-   from CUDA events;
+   sm_90a, one process per source) and print the build time;
+3. the eval-path kernels (K4f, K1, K5) against their plain PyTorch twins on
+   the card at the serving shapes (batch 8 x 512x1024, 20 classes, bf16),
+   with median times from CUDA events;
 4. the card against the CPU: a narrow fp32 model (TF32 off) gives the same
    logits, loss and ids on both;
 5. serving at full VGG-16 width: ``FCN8s`` -> ``InferenceService`` ->
    ``make_server`` on a thread, answering /predict, /overlay, /healthz,
    /stats, concurrent and undecodable requests;
 6. ``FCN8s.evaluate`` at full width over three synthetic batches;
-7. times: predict latency at batch 1 and 8, the forward and the eval step.
+7. times: predict latency at batch 1 and 8, the forward and the eval step;
+8. the training kernels (K4a, K4b, K3, CE grad) against their twins at the
+   train shapes (batch 8 x 1024x512, bench.py's, 20 classes, bf16): the
+   pool pair bit-exact on tie-heavy inputs at all five pool inputs, and
+   against ``F.max_pool2d``'s gradient;
+9. the card against the CPU for training: three Adam ``train_step``s of a
+   narrow fp32 model (TF32 off) from the same weights;
+10. ``FCN8s.train`` at full width: 2 epochs x 4 steps with keep_prob 0.5
+    and two validation batches per epoch, then ``predict`` on the new
+    weights;
+11. a learnable batch: 8 steps on one fixed batch lower the loss;
+12. the weighted train path: ``ignore_label`` and ``class_weights`` (K3);
+13. train-step times: host clock, images/s, the CUDA-event split into
+    forward, backward and optimizer, peak memory, fc6's share, and
+    ``gradient_accumulation=2``.
 
-Kernel launch counts are zeroed just before phase 5 and read after phase 6;
-every kernel of the path must have launched. The line before the last is
-``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
+Kernel launch counts are zeroed just before each path is driven and read
+just after it: serving + evaluation (phases 5-6), training (phase 10) and
+the weighted training (phase 12); every kernel of a path must have
+launched. The line before the last is ``{"kernels": [...]}`` (``launches``
+from the path named in ``path``); the last is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -39,6 +56,7 @@ import urllib.request
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from PIL import Image
 
 from fcn8s_tensorflow_tpu_torch import bridge
@@ -46,18 +64,25 @@ from fcn8s_tensorflow_tpu_torch.engine.model import FCN8s
 from fcn8s_tensorflow_tpu_torch.engine.serving import InferenceService, make_server
 from fcn8s_tensorflow_tpu_torch.kernels import build
 from fcn8s_tensorflow_tpu_torch.labels import TRAINIDS_TO_RGBA_DICT
-from fcn8s_tensorflow_tpu_torch.models.fcn8s import apply_fcn8s
+from fcn8s_tensorflow_tpu_torch.models.fcn8s import apply_fcn8s, decoder_l2_loss
 from fcn8s_tensorflow_tpu_torch.ops import kernels as K
+from fcn8s_tensorflow_tpu_torch.ops import pool as P
 from fcn8s_tensorflow_tpu_torch.ops.metrics import empty_metrics_state
 from fcn8s_tensorflow_tpu_torch.ops.nn import max_pool_2x2
 from fcn8s_tensorflow_tpu_torch.ops.pool import maxpool2x2_nhwc
+from fcn8s_tensorflow_tpu_torch.parallel import steps as S
 from fcn8s_tensorflow_tpu_torch.parallel.steps import eval_step
 
-BATCH, H, W, C = 8, 512, 1024, 20
+BATCH, H, W, C = 8, 512, 1024, 20  # serving and eval: Cityscapes' landscape at half size
+TH, TW = 1024, 512  # training: bench.py's main config (H=1024, W=512)
 POOL_INPUTS = [(64, H, W), (128, H // 2, W // 2), (256, H // 4, W // 4),
                (512, H // 8, W // 8), (512, H // 16, W // 16)]  # (C, H, W) per VGG block
+TRAIN_POOL_INPUTS = [(ch, h * TH // H, w * TW // W) for ch, h, w in POOL_INPUTS]
 WRAPPERS = {"maxpool2x2_nhwc": maxpool2x2_nhwc, "ce_sum_per_sample": K.ce_sum_per_sample,
-            "confusion_matrix_accumulate": K.confusion_matrix_accumulate}
+            "confusion_matrix_accumulate": K.confusion_matrix_accumulate,
+            "maxpool2x2_code_nhwc": P.maxpool2x2_code_nhwc,
+            "maxpool2x2_bwd_nhwc": P.maxpool2x2_bwd_nhwc,
+            "ce_sum_weighted": K.ce_sum_weighted, "ce_grad": K.ce_grad}
 SOURCES = {
     "maxpool2x2_nhwc": ("fcn8s_tensorflow_tpu_torch/csrc/maxpool2x2.cu",
                         "fcn8s_tensorflow_tpu/ops/pallas_pool.py:96"),
@@ -65,6 +90,16 @@ SOURCES = {
                           "fcn8s_tensorflow_tpu/ops/pallas_kernels.py:211"),
     "confusion_matrix_accumulate": ("fcn8s_tensorflow_tpu_torch/csrc/confmat.cu",
                                     "fcn8s_tensorflow_tpu/ops/pallas_kernels.py:69"),
+    "maxpool2x2_code_nhwc": ("fcn8s_tensorflow_tpu_torch/csrc/maxpool2x2.cu",
+                             "fcn8s_tensorflow_tpu/ops/pallas_pool.py:44"),
+    "maxpool2x2_bwd_nhwc": ("fcn8s_tensorflow_tpu_torch/csrc/maxpool2x2.cu",
+                            "fcn8s_tensorflow_tpu/ops/pallas_pool.py:73"),
+    "ce_sum_weighted": ("fcn8s_tensorflow_tpu_torch/csrc/ce_sum.cu",
+                        "fcn8s_tensorflow_tpu/ops/pallas_kernels.py:130"),
+    # no pallas_call: the hand form of the custom-VJP bodies _ce_sum_sample_bwd (:267)
+    # and _ce_sum_bwd (:190), which XLA fused
+    "ce_grad": ("fcn8s_tensorflow_tpu_torch/csrc/ce_grad.cu",
+                "fcn8s_tensorflow_tpu/ops/pallas_kernels.py:267"),
 }
 
 
@@ -339,6 +374,347 @@ def phase_times(model: FCN8s, dev, smi: str) -> None:
           f"(CUDA events); eval step batch 8 {ev:.2f} ms (host clock)")
 
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def _ties(shape, dev, g):
+    """bf16 channels_last values on a coarse grid: most 2x2 windows hold ties."""
+    x = torch.round(torch.randn(shape, generator=g, device=dev) * 2).to(torch.bfloat16)
+    return x.contiguous(memory_format=torch.channels_last)
+
+
+def _bf16_ulps(got: torch.Tensor, want: torch.Tensor, wg: torch.Tensor) -> tuple[float, bool]:
+    """(max |got - want| in bf16 ulps of the larger magnitude, whether every
+    element is within one ulp plus 2**-20 * |w * g|). The second term is
+    for the label class where softmax is near 1: softmax - 1 cancels, and
+    both sides carry their fp32 softmax error (a few 2**-24 * |w * g|) into
+    a tiny result."""
+    g, w = got.float(), want.float()
+    top = torch.maximum(g.abs(), w.abs()).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    diff = (g - w).abs()
+    return float((diff / ulp).max()), bool((diff <= ulp + 2.0 ** -20 * wg.abs()).all())
+
+
+def phase_train_kernels(dev) -> dict:
+    """K4a, K4b, K3 and the CE grad against their twins at the train shapes;
+    returns {name: {max_abs_err, ms, plain_ms, ...}} (the pool pair's times
+    sum the five pool inputs)."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    out = {}
+    sums = {"a": 0.0, "a_plain": 0.0, "b": 0.0, "b_plain": 0.0}
+    for c, h, w in TRAIN_POOL_INPUTS:
+        x = _ties((BATCH, c, h, w), dev, g)
+        y, code = P.maxpool2x2_code_nhwc(x)
+        y_t, code_t = P.maxpool2x2_code_plain(x)
+        check(torch.equal(y, y_t) and torch.equal(code, code_t),
+              f"K4a differs from its twin at {tuple(x.shape)}")
+        dy = torch.randn(y.shape, generator=g, device=dev).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        dx = P.maxpool2x2_bwd_nhwc(dy, code)
+        check(torch.equal(dx, P.maxpool2x2_bwd_plain(dy, code)),
+              f"K4b differs from its twin at {tuple(x.shape)}")
+        xr = x.detach().clone().requires_grad_()
+        F.max_pool2d(xr, 2, 2).backward(dy)
+        check(torch.equal(dx, xr.grad),
+              f"K4b differs from F.max_pool2d's gradient at {tuple(x.shape)}")
+        ties = float((code != 0).float().mean())
+        t = {"a": cuda_ms(lambda: P.maxpool2x2_code_nhwc(x)),
+             "a_plain": cuda_ms(lambda: P.maxpool2x2_code_plain(x)),
+             "b": cuda_ms(lambda: P.maxpool2x2_bwd_nhwc(dy, code)),
+             "b_plain": cuda_ms(lambda: P.maxpool2x2_bwd_plain(dy, code))}
+        print(f"K4a/K4b {tuple(x.shape)} bf16 (code != 0 on {ties:.3f}): K4a {t['a']:.4f} ms "
+              f"(plain {t['a_plain']:.4f}), K4b {t['b']:.4f} ms (plain {t['b_plain']:.4f}); "
+              f"y, code and dx bit-exact, dx = F.max_pool2d's gradient")
+        sums = {k: sums[k] + t[k] for k in sums}
+        del x, y, code, y_t, code_t, dy, dx, xr
+    out["maxpool2x2_code_nhwc"] = {"max_abs_err": 0.0, "ms": sums["a"], "plain_ms": sums["a_plain"],
+                                   "shapes": len(TRAIN_POOL_INPUTS)}
+    out["maxpool2x2_bwd_nhwc"] = {"max_abs_err": 0.0, "ms": sums["b"], "plain_ms": sums["b_plain"],
+                                  "shapes": len(TRAIN_POOL_INPUTS)}
+
+    # K3: a 255 label share, class-weight-style weights, zero weights
+    p = BATCH * TH * TW
+    logits = (torch.randn((p, C), generator=g, device=dev) * 3).to(torch.bfloat16)
+    labels = torch.randint(0, C, (p,), generator=g, device=dev, dtype=torch.uint8)
+    labels[::13] = 255
+    cw = torch.rand(C, generator=g, device=dev) * 2
+    cw[4] = 0.0
+    weights = torch.where(labels == 255, 0.0, cw[labels.long().clamp(max=C - 1)])
+    s_k = K.ce_sum_weighted(logits, labels, weights)
+    s_t = K.ce_sum_weighted_plain(logits, labels, weights)
+    err = abs(float(s_k) - float(s_t))
+    check(err <= 1e-5 * abs(float(s_t)), f"K3 {float(s_k)} vs twin {float(s_t)}")
+    check(torch.equal(s_k, K.ce_sum_weighted(logits, labels, weights)),
+          "K3 is not run-to-run identical")
+    k_ms = cuda_ms(lambda: K.ce_sum_weighted(logits, labels, weights))
+    p_ms = cuda_ms(lambda: K.ce_sum_weighted_plain(logits, labels, weights))
+    print(f"K3 ce_sum_weighted ({p}, {C}) bf16 + uint8 + fp32 weights: kernel {k_ms:.4f} ms, "
+          f"plain {p_ms:.4f} ms, |diff| {err:.6g} of {float(s_t):.9g} (rtol 1e-5), "
+          f"run-to-run identical")
+    out["ce_sum_weighted"] = {"max_abs_err": err, "rel_err": err / abs(float(s_t)), "ms": k_ms,
+                              "plain_ms": p_ms}
+
+    # CE grad, both weight modes; g on the device as autograd hands it over
+    grad_out = torch.tensor(1.0 / p, device=dev)
+    mask = torch.ones(BATCH, device=dev)
+    mask[BATCH // 2] = 0.0
+    worst = {"err": 0.0, "ulps": 0.0}
+    times = {}
+    for mode, (w_, pps) in {"per-sample": (mask, TH * TW), "per-pixel": (weights, None)}.items():
+        d_k = K.ce_grad(logits, labels, w_, grad_out, pps)
+        d_t = K.ce_grad_plain(logits, labels, w_, grad_out, pps)
+        wg = (w_.repeat_interleave(pps) if pps else w_)[:, None] * grad_out
+        ulps, close = _bf16_ulps(d_k, d_t, wg)
+        check(close, f"CE grad ({mode}) is {ulps} bf16 ulps from its twin")
+        del wg
+        zero = (w_ == 0).repeat_interleave(pps) if pps else (w_ == 0)
+        check(bool((d_k[zero] == 0).all()), f"CE grad ({mode}) is not zero where the weight is")
+        worst = {"err": max(worst["err"], float((d_k.float() - d_t.float()).abs().max())),
+                 "ulps": max(worst["ulps"], ulps)}
+        times[mode] = (cuda_ms(lambda: K.ce_grad(logits, labels, w_, grad_out, pps)),
+                       cuda_ms(lambda: K.ce_grad_plain(logits, labels, w_, grad_out, pps)))
+        print(f"CE grad {mode} ({p}, {C}) bf16: kernel {times[mode][0]:.4f} ms, plain "
+              f"{times[mode][1]:.4f} ms, {ulps:.3g} bf16 ulp from the twin at most (bound: one "
+              f"ulp + 2^-20 |w g|), exact zeros at zero weight")
+        del d_k, d_t
+    out["ce_grad"] = {"max_abs_err": worst["err"], "max_bf16_ulps": worst["ulps"],
+                      "ms": times["per-sample"][0], "plain_ms": times["per-sample"][1],
+                      "per_pixel_ms": times["per-pixel"][0],
+                      "per_pixel_plain_ms": times["per-pixel"][1]}
+    return out
+
+
+def phase_train_card_vs_cpu(dev) -> None:
+    """Three TF1-Adam train steps of a narrow fp32 model (TF32 off) on the
+    card and on the CPU from the same weights. Losses agree to rtol 1e-4.
+    Adam's update is about lr * sign(g) wherever |g| >> eps, so the updates
+    are compared where the CPU's first gradient is clear of zero (|g| >
+    1e-3 * max|g| of its leaf): there they agree to 1e-2 * lr, where fp32
+    summation-order noise (~1e-5 relative) moves them by ~1e-4 * lr; a
+    near-zero gradient's sign is noise, so elsewhere only Adam's bound
+    (|update| <= lr per step) is held."""
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    kw = dict(width_mult=1 / 32, fc_channels=32, compute_dtype=torch.float32)
+    tree = bridge.to_numpy(FCN8s(num_classes=C, seed=2, **kw).params)
+    rng = np.random.default_rng(5)
+    images = torch.from_numpy(rng.integers(0, 256, (2, 128, 256, 3), dtype=np.uint8))
+    labels = torch.from_numpy(rng.integers(0, C, (2, 128, 256), dtype=np.uint8))
+    mask = torch.ones(2)
+    lr, steps = 1e-3, 3
+    grads0 = S.loss_and_grads(S.create_train_state(bridge.to_port(tree), S.make_optimizer()).params,
+                              images, labels, mask, seed=0, step=0, l2_rate=0.01, keep_prob=1.0,
+                              compute_dtype=torch.float32)[1]
+    runs = {}
+    for d in ("cpu", dev):
+        opt = S.make_optimizer("adam")
+        state = S.create_train_state(bridge.to_port(tree, device=d), opt)
+        losses = []
+        for _ in range(steps):
+            state, loss = S.train_step(state, images.to(d), labels.to(d), mask.to(d), 0, lr, 0.01,
+                                       1.0, optimizer=opt, num_classes=C,
+                                       compute_dtype=torch.float32)
+            losses.append(float(loss))
+        runs[str(d)] = (losses, [t.detach().cpu() for t in bridge.param_leaves(state.params)])
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    (l_cpu, p_cpu), (l_gpu, p_gpu) = runs["cpu"], runs[str(dev)]
+    check(all(math.isclose(a, b, rel_tol=1e-4) for a, b in zip(l_cpu, l_gpu)),
+          f"train losses: CPU {l_cpu}, card {l_gpu}")
+    p0 = bridge.param_leaves(bridge.to_port(tree))
+    worst, clear_share, n = 0.0, 0, 0
+    for a, b, start, g in zip(p_cpu, p_gpu, p0, grads0):
+        diff = ((b - start.detach()) - (a - start.detach())).abs()
+        check(float(diff.max()) <= 2 * steps * lr, "card update beyond Adam's bound")
+        clear = g.abs() > 1e-3 * g.abs().max()
+        if bool(clear.any()):
+            worst = max(worst, float(diff[clear].max()))
+        clear_share, n = clear_share + int(clear.sum()), n + clear.numel()
+    check(worst <= 1e-2 * lr, f"card updates differ from the CPU's by {worst} where |g| is clear")
+    print(f"train card vs CPU (fp32, TF32 off, 3 Adam steps, 2x128x256): losses {l_gpu} vs "
+          f"{l_cpu}; max update diff {worst:.3g} (= {worst / lr:.3g} lr) on the "
+          f"{clear_share / n:.4f} of params whose first gradient is clear of zero")
+
+
+def _synthetic(rng, n):
+    """n random images and id maps at the train shape."""
+    return (rng.integers(0, 256, (n, TH, TW, 3), dtype=np.uint8),
+            rng.integers(0, C, (n, TH, TW), dtype=np.uint8))
+
+
+def zero_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def phase_train(dev) -> tuple[FCN8s, dict]:
+    """``FCN8s.train`` at full width and bench.py's shape; returns the model
+    and the launch counts of the run."""
+    model = FCN8s(num_classes=C, device=dev, seed=3)
+    rng = np.random.default_rng(6)
+
+    def stream():
+        while True:
+            yield _synthetic(rng, BATCH)
+
+    w0 = model.params["encoder"]["conv1_1"]["weight"].detach().clone()
+    conversions = P.MaxPool2x2.dy_conversions
+    zero_counts()
+    t0 = time.perf_counter()
+    model.train(stream(), epochs=2, steps_per_epoch=4, learning_rate_schedule=lambda s: 1e-4,
+                keep_prob=0.5, l2_regularization=0.0, metrics={"loss", "mean_iou"},
+                eval_dataset="val", val_generator=stream(), val_steps=2, eval_frequency=1,
+                record_summaries=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    want = {"maxpool2x2_code_nhwc": 40, "maxpool2x2_bwd_nhwc": 40, "ce_sum_per_sample": 12,
+            "ce_grad": 8, "ce_sum_weighted": 0, "maxpool2x2_nhwc": 20,
+            "confusion_matrix_accumulate": 4}
+    check(counts == want, f"train launched {counts}, expected {want}")
+    check(math.isfinite(model.training_loss), f"training loss {model.training_loss}")
+    check(not torch.equal(model.params["encoder"]["conv1_1"]["weight"], w0), "params did not move")
+    images = _synthetic(rng, 2)[0]
+    with torch.inference_mode():
+        logits = apply_fcn8s(bridge.cast_params(model.params, torch.bfloat16),
+                             torch.from_numpy(images).to(dev), logits_dtype=torch.bfloat16)
+        want_ids = torch.argmax(logits, dim=-1).cpu().numpy()
+    check(np.array_equal(model.predict(images), want_ids),
+          "predict after train is not the new weights'")
+    print(f"FCN8s.train at full width, 8 steps of ({BATCH}, {TH}, {TW}, 3) + 2 x 2 val batches in "
+          f"{seconds:.2f} s: training loss {model.training_loss:.5f}, eval {model.metric_values}; "
+          f"launches {counts}; dy layout conversions in the pool backward: "
+          f"{P.MaxPool2x2.dy_conversions - conversions}; predict after train = the new weights")
+    return model, counts
+
+
+def phase_learnable(dev) -> None:
+    """Labels that are a function of the image (64x64 colour blocks, one
+    colour per class): 8 steps at full width and keep_prob 1 on one fixed
+    batch bring the loss below the first step's."""
+    rng = np.random.default_rng(7)
+    palette = rng.integers(0, 256, (C, 3), dtype=np.uint8)
+    blocks = rng.integers(0, C, (BATCH, TH // 64, TW // 64))
+    labels = np.repeat(np.repeat(blocks, 64, axis=1), 64, axis=2).astype(np.uint8)
+    images = palette[labels]
+    model = FCN8s(num_classes=C, device=dev, seed=4)
+    opt = model.optimizer
+    state = S.create_train_state(model.params, opt)
+    im, lb = torch.from_numpy(images).to(dev), torch.from_numpy(labels).to(dev)
+    mask = torch.ones(BATCH, device=dev)
+    losses = []
+    for _ in range(8):
+        state, loss = S.train_step(state, im, lb, mask, 0, 1e-4, 0.0, 1.0, optimizer=opt,
+                                   num_classes=C)
+        losses.append(loss)
+    losses = [float(v) for v in losses]
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"the loss did not fall on a learnable batch: {losses}")
+    print(f"learnable batch (full width, keep_prob 1, lr 1e-4): "
+          f"losses {[round(v, 5) for v in losses]}")
+    model.close()
+
+
+def phase_weighted(dev, model: FCN8s) -> dict:
+    """Two steps with ``ignore_label=255`` on a fresh model, then two with
+    ``class_weights`` on ``model``: each pair launches K3 and the CE grad
+    twice and K1 never. Returns the counts of the four steps."""
+    rng = np.random.default_rng(8)
+
+    def stream(ignore):
+        while True:
+            images, labels = _synthetic(rng, BATCH)
+            if ignore:
+                labels[rng.random(labels.shape) < 0.1] = 255
+            yield images, labels
+
+    ignoring = FCN8s(num_classes=C, device=dev, seed=5, ignore_label=255)
+    total = dict.fromkeys(WRAPPERS, 0)
+    cw = np.linspace(0.5, 2.0, C).astype(np.float32)
+    for m, kw, ignore in ((ignoring, {}, True), (model, {"class_weights": cw}, False)):
+        zero_counts()
+        m.train(stream(ignore), epochs=1, steps_per_epoch=2, learning_rate_schedule=lambda s: 1e-4,
+                keep_prob=0.5, record_summaries=False, **kw)
+        counts = read_counts()
+        check(counts["ce_sum_weighted"] == 2 and counts["ce_grad"] == 2
+              and counts["ce_sum_per_sample"] == 0, f"weighted train launched {counts}")
+        check(math.isfinite(m.training_loss), f"weighted training loss {m.training_loss}")
+        print(f"weighted train ({'ignore_label=255' if ignore else 'class_weights'}): loss "
+              f"{m.training_loss:.5f}; launches {counts}")
+        total = {k: total[k] + counts[k] for k in total}
+    ignoring.close()
+    return total
+
+
+def phase_train_times(dev, model: FCN8s, smi: str) -> None:
+    """The full-width train step at batch 8 x 1024x512, bf16, keep_prob 0.5."""
+    rng = np.random.default_rng(9)
+    images, labels = _synthetic(rng, BATCH)
+    im, lb = torch.from_numpy(images).to(dev), torch.from_numpy(labels).to(dev)
+    mask = torch.ones(BATCH, device=dev)
+    state, opt = model.state, model.optimizer
+
+    def step(accum=1):
+        S.train_step(state, im, lb, mask, 0, 1e-4, 0.0, 0.5, optimizer=opt, num_classes=C,
+                     grad_accum=accum)
+
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = host_ms(step, reps=5, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    accum_ms = host_ms(lambda: step(2), reps=5, warmup=1)
+
+    leaves = bridge.param_leaves(state.params)
+    split = {"forward": [], "backward": [], "optimizer": []}
+    for i in range(6):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        run = bridge.cast_params(state.params, torch.bfloat16)
+        logits = apply_fcn8s(run, im, keep_prob=0.5, deterministic=False,
+                             generator=S.dropout_generator(dev, 0, state.step),
+                             logits_dtype=torch.bfloat16)
+        loss = K.softmax_cross_entropy(logits, lb, mask) + 0.0 * decoder_l2_loss(
+            state.params["decoder"])
+        ev[1].record()
+        grads = torch.autograd.grad(loss, leaves)
+        ev[2].record()
+        opt.apply(state.params, grads, state.opt_state, 1e-4)
+        ev[3].record()
+        torch.cuda.synchronize()
+        if i:  # the first is a warm-up
+            for k, (a, b) in zip(split, zip(ev, ev[1:])):
+                split[k].append(a.elapsed_time(b))
+        del run, logits, loss, grads
+    split = {k: statistics.median(v) for k, v in split.items()}
+
+    fc6 = state.params["encoder"]["fc6"]
+    x = torch.randn((BATCH, fc6["weight"].shape[1], TH // 32, TW // 32), device=dev,
+                    dtype=torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    x.requires_grad_()
+    w6 = fc6["weight"].detach().to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    w6.requires_grad_()
+    b6 = fc6["bias"].detach().to(torch.bfloat16).requires_grad_()
+    out = F.conv2d(x, w6, b6, padding=3)
+    dout = torch.randn_like(out)
+    fc6_fwd = cuda_ms(lambda: F.conv2d(x, w6, b6, padding=3), reps=10)
+    fc6_bwd = cuda_ms(lambda: torch.autograd.grad(out, (x, w6, b6), dout, retain_graph=True),
+                      reps=10)
+    print(f"train times on {smi}: step {step_ms:.2f} ms (host clock, median of 5), "
+          f"{BATCH / step_ms * 1e3:.2f} images/s at batch {BATCH} x {TH}x{TW} bf16 keep_prob 0.5; "
+          f"CUDA-event split forward {split['forward']:.2f} ms, "
+          f"backward {split['backward']:.2f} ms, "
+          f"optimizer {split['optimizer']:.2f} ms; peak memory {peak:.2f} GiB "
+          f"(max_memory_allocated); gradient_accumulation=2 step {accum_ms:.2f} ms "
+          f"({BATCH / accum_ms * 1e3:.2f} images/s); "
+          f"fc6 (7x7, 512->4096) forward {fc6_fwd:.2f} ms, "
+          f"backward {fc6_bwd:.2f} ms = {(fc6_fwd + fc6_bwd) / step_ms:.1%} of the step")
+
+
 def main() -> None:
     smi = phase_card()
     dev = torch.device("cuda", 0)
@@ -346,18 +722,33 @@ def main() -> None:
     measured = phase_kernels(dev)
     phase_card_vs_cpu(dev)
     model = FCN8s(num_classes=C, device=dev)  # full VGG-16 width, bf16, seeded init
-    for fn in WRAPPERS.values():
-        fn.launches = 0
+    zero_counts()
     phase_serving(model)
     phase_evaluate(model)
-    launches = {name: fn.launches for name, fn in WRAPPERS.items()}
-    for name, n in launches.items():
-        check(n > 0, f"{name} was never launched on the main path")
+    serve_counts = read_counts()
+    for name in ("maxpool2x2_nhwc", "ce_sum_per_sample", "confusion_matrix_accumulate"):
+        check(serve_counts[name] > 0, f"{name} was never launched on the serve + eval path")
     phase_times(model, dev, smi)
     model.close()
+    del model
+    torch.cuda.empty_cache()
+
+    measured.update(phase_train_kernels(dev))
+    phase_train_card_vs_cpu(dev)
+    trained, train_counts = phase_train(dev)
+    phase_learnable(dev)
+    weighted_counts = phase_weighted(dev, trained)
+    phase_train_times(dev, trained, smi)
+    trained.close()
+    paths = {"serve+eval": serve_counts, "train": train_counts, "train weighted": weighted_counts}
+    source_path = {"maxpool2x2_nhwc": "serve+eval", "ce_sum_per_sample": "serve+eval",
+                   "confusion_matrix_accumulate": "serve+eval", "maxpool2x2_code_nhwc": "train",
+                   "maxpool2x2_bwd_nhwc": "train", "ce_grad": "train",
+                   "ce_sum_weighted": "train weighted"}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],
-         "launches": launches[name], **measured[name]} for name in WRAPPERS]}))
+         "launches": paths[source_path[name]][name], "path": source_path[name], **measured[name]}
+        for name in WRAPPERS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -21,6 +21,16 @@ enum DType : int { kFloat32 = 0, kBFloat16 = 1, kUInt8 = 2, kInt32 = 3 };
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
+// fp32 -> T, rounding to nearest even (what PyTorch's .to(torch.bfloat16) does)
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
 constexpr int kThreads = 256;
 
 // Block-wide sum of one float per thread; the result is valid in thread 0.

@@ -1,22 +1,38 @@
-"""A slim ``FCN8s`` facade for serving and evaluation on one card.
+"""A slim ``FCN8s`` facade for training, serving and evaluation on one card.
 
-Port of the inference half of ``fcn8s_tensorflow_tpu/engine/model.py``:
-construction from a seed or from a JAX param tree, ``predict`` (stride-32
-padding and crop back, on-device overlay), ``evaluate`` and ``close``, with
-the JAX facade's argument names. Training, checkpoints, tiling, TTA, EMA,
-int8 and spatial partitioning belong to later parts of the port: their
-arguments are accepted and raise ``NotImplementedError`` when set.
+Port of ``fcn8s_tensorflow_tpu/engine/model.py``: construction from a seed
+or from a JAX param tree, ``train`` (LR schedule, dropout, L2, gradient
+accumulation, class weights, ignore_label, periodic evaluation, best-value
+bookkeeping, a JSONL train log, prefetch), ``predict`` (stride-32 padding
+and crop back, on-device overlay), ``evaluate`` and ``close``, with the JAX
+facade's argument names. Checkpoints, summaries, tiling, TTA, EMA, int8,
+device augmentation, the plateau and early-stopping observers and spatial
+partitioning belong to later parts of the port: their arguments are
+accepted and raise ``NotImplementedError`` when set.
 """
 
 from __future__ import annotations
+
+import json
+import time
+from collections import deque
 
 import numpy as np
 import torch
 
 from .. import bridge
+from ..data.prefetch import DevicePrefetcher, host_tensors, to_device
 from ..models.fcn8s import decoder_variant, init_fcn8s
 from ..ops.metrics import empty_metrics_state, finalize_metrics
-from ..parallel.steps import eval_step, predict_step
+from ..parallel.steps import (
+    Optimizer,
+    TrainState,
+    create_train_state,
+    eval_step,
+    make_optimizer,
+    predict_step,
+    train_step,
+)
 
 _ALLOWED_METRICS = {"loss", "mean_iou", "accuracy"}
 
@@ -27,55 +43,105 @@ def _not_ported(what: str):
 
 class FCN8s:
     """FCN-8s semantic segmentation on one device (``device``, default the
-    CPU). Parameters are held in fp32 (``self.params``, the port's tree) and
-    once more in ``compute_dtype`` for the forward.
+    CPU). Parameters are held in fp32 (``self.params``, the port's tree,
+    whose leaves require grad) and, for inference, once more in
+    ``compute_dtype`` (rebuilt whenever training moved the masters).
 
     Arguments follow the JAX facade: ``num_classes``; ``width_mult`` and
     ``fc_channels`` for width-scaled test models; ``variant`` 'fcn8s',
     'fcn16s' or 'fcn32s'; ``compute_dtype`` (bf16 by default);
     ``bilinear_deconv_init``; ``seed`` for the fresh init, drawn from a
     ``torch.Generator`` (not JAX's stream: use ``from_params`` to load the
-    JAX package's weights)."""
+    JAX package's weights), and for the training dropout draws; ``remat``
+    (checkpoint each encoder block and the head in training);
+    ``ignore_label`` (pixels of that GT id get no loss and no gradient);
+    ``optimizer`` ('adam' — TF1-exact, the default — 'adamw', 'momentum',
+    'sgd', or an ``Optimizer`` from ``parallel.steps.make_optimizer``) with
+    ``optimizer_kwargs`` and ``clip_norm``."""
 
     def __init__(self, num_classes: int, *, width_mult: float = 1.0,
                  fc_channels: int | None = None, variant: str = "fcn8s",
                  compute_dtype=torch.bfloat16, bilinear_deconv_init: bool = False,
-                 seed: int = 0, device="cpu"):
+                 seed: int = 0, device="cpu", remat: bool = False, ignore_label: int | None = None,
+                 optimizer="adam", optimizer_kwargs: dict | None = None,
+                 clip_norm: float | None = None):
         gen = torch.Generator().manual_seed(seed)
         tree = init_fcn8s(gen, num_classes, bilinear_deconv_init=bilinear_deconv_init,
                           width_mult=width_mult, fc_channels=fc_channels, variant=variant)
         self._setup(tree, width_mult=width_mult, fc_channels=fc_channels,
-                    compute_dtype=compute_dtype, device=device)
+                    compute_dtype=compute_dtype, device=device, seed=seed, remat=remat,
+                    ignore_label=ignore_label, optimizer=optimizer,
+                    optimizer_kwargs=optimizer_kwargs, clip_norm=clip_norm)
 
     @classmethod
     def from_params(cls, tree: dict, *, width_mult: float = 1.0, fc_channels: int | None = None,
-                    compute_dtype=torch.bfloat16, device="cpu") -> "FCN8s":
+                    compute_dtype=torch.bfloat16, device="cpu", seed: int = 0,
+                    remat: bool = False, ignore_label: int | None = None, optimizer="adam",
+                    optimizer_kwargs: dict | None = None,
+                    clip_norm: float | None = None) -> "FCN8s":
         """A model on the weights of a JAX-layout param tree (numpy arrays,
         e.g. ``init_fcn8s`` of the JAX package through ``np.asarray``).
         ``width_mult``/``fc_channels`` only describe the tree in
-        ``model_config``; the shapes come from the tree."""
+        ``model_config``; the shapes come from the tree. The other arguments
+        are the constructor's."""
         model = cls.__new__(cls)
         model._setup(tree, width_mult=width_mult, fc_channels=fc_channels,
-                     compute_dtype=compute_dtype, device=device)
+                     compute_dtype=compute_dtype, device=device, seed=seed, remat=remat,
+                     ignore_label=ignore_label, optimizer=optimizer,
+                     optimizer_kwargs=optimizer_kwargs, clip_norm=clip_norm)
         return model
 
-    def _setup(self, tree, *, width_mult, fc_channels, compute_dtype, device):
+    def _setup(self, tree, *, width_mult, fc_channels, compute_dtype, device, seed, remat,
+               ignore_label, optimizer, optimizer_kwargs, clip_norm):
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
         self.params = bridge.to_port(tree, device=self.device)
-        self._run_params = bridge.cast_params(self.params, compute_dtype)
         self.num_classes = int(tree["decoder"]["fc7_1x1"]["bias"].shape[0])
         self.variant = decoder_variant(tree["decoder"])
+        self.remat = remat
+        self.ignore_label = ignore_label
+        self._train_seed = seed
+        if isinstance(optimizer, str):
+            self.optimizer = make_optimizer(optimizer, clip_norm=clip_norm,
+                                            **(optimizer_kwargs or {}))
+        elif isinstance(optimizer, Optimizer):
+            self.optimizer = optimizer
+        else:
+            raise TypeError("optimizer must be a name or an Optimizer from make_optimizer")
         self.model_config = {
             "num_classes": self.num_classes,
             "width_mult": width_mult,
             "fc_channels": fc_channels,
             "variant": self.variant,
-            "ignore_label": None,
+            "ignore_label": ignore_label,
             "compute_dtype": str(compute_dtype).removeprefix("torch."),
+            "optimizer": optimizer if isinstance(optimizer, str) else "custom",
+            "optimizer_kwargs": optimizer_kwargs,
+            "clip_norm": clip_norm,
         }
+        # the optimizer state (Adam's two moments, 1 GB at full width) is
+        # allocated by the first train(), so a serving model never holds it
+        self.state = TrainState(step=0, params=self.params, opt_state=None)
+        for t in bridge.param_leaves(self.params):
+            t.requires_grad_(True)
+        self._refresh_run_params()
+        self._class_weights = None
+        self._grad_accum = 1
+        self._train_stream = None
+        self.variables_updated = False
+        self.eval_dataset = None
         self.metric_names = []
         self.metric_values = []
+        self.best_metric_values = []
+        self.training_loss = None
+        self.best_training_loss = 99999999.9
+        self.g_step = 0
+
+    def _refresh_run_params(self) -> None:
+        """(Re)build the compute-dtype tree that predict and evaluate read,
+        from the current masters. Stale after any optimizer step."""
+        with torch.no_grad():
+            self._run_params = bridge.cast_params(self.params, self.compute_dtype)
 
     # ------------------------------------------------------------------
     def _overlay_lut(self, color_map) -> np.ndarray:
@@ -94,6 +160,21 @@ class FCN8s:
         if labels.ndim == 4:
             return np.argmax(labels, axis=-1).astype(np.uint8)
         return labels.astype(np.uint8)
+
+    @staticmethod
+    def _pad_batch_dim(*arrays, multiple: int):
+        """Pad the batch dim up to a multiple of ``multiple`` by repeating the
+        last sample; returns (padded_arrays..., sample_mask), the mask 0 on
+        the padding, which keeps loss and gradient exactly the short
+        batch's."""
+        n = arrays[0].shape[0]
+        pad = (-n) % multiple
+        mask = np.ones((n + pad,), np.float32)
+        if pad:
+            mask[n:] = 0.0
+            arrays = tuple(np.concatenate([a, np.repeat(a[-1:], pad, axis=0)], axis=0)
+                           for a in arrays)
+        return (*arrays, mask)
 
     @staticmethod
     def _prepare_images(images):
@@ -145,24 +226,200 @@ class FCN8s:
         _not_ported("predict_tta")
 
     # ------------------------------------------------------------------
+    def train(self, train_generator, epochs, steps_per_epoch, learning_rate_schedule,
+              keep_prob=0.5, l2_regularization=0.0, eval_dataset="train", eval_frequency=5,
+              val_generator=None, val_steps=None, metrics={}, save_during_training=False,
+              save_dir=None, save_best_only=True, save_tags=["default"], save_name="",
+              save_frequency=5, saver="saved_model", monitor="loss", record_summaries=True,
+              summaries_frequency=10, summaries_dir=None, summaries_name=None,
+              training_loss_display_averaging=3, device_augment=None, prefetch=2,
+              gradient_accumulation=1, spatial_partition=False, ema_decay=None,
+              class_weights=None, early_stopping=None, reduce_lr_on_plateau=None,
+              train_log=None):
+        """Train the model, with the JAX facade's signature and validation
+        order. The generator yields (images, ground_truth), GT one-hot
+        (N, H, W, C) or id maps (N, H, W); ``learning_rate_schedule`` is a
+        ``step -> float`` callable re-evaluated every step; ``metrics``
+        (a subset of {'loss', 'mean_iou', 'accuracy'}) are evaluated every
+        ``eval_frequency`` epochs on ``eval_dataset`` 'train' (sharing the
+        training stream) or 'val' (``val_steps`` batches of
+        ``val_generator``). ``keep_prob`` and ``l2_regularization`` feed the
+        loss; ``gradient_accumulation=A`` splits each batch (padded with
+        masked samples to a multiple of A) into A microbatches;
+        ``class_weights`` ((num_classes,), non-negative) makes the loss the
+        weighted mean and persists for later ``evaluate`` calls;
+        ``prefetch`` is the depth of the background input pipeline (0:
+        synchronous). The loss is read back from the card only every
+        ``summaries_frequency`` steps and at each epoch's end
+        (``training_loss`` averages the last
+        ``training_loss_display_averaging`` steps). ``train_log`` appends
+        one JSON record per epoch.
+
+        Not ported yet (``NotImplementedError``): ``save_during_training``,
+        ``record_summaries`` (the JAX default True first requires
+        ``summaries_dir``, as there; pass ``record_summaries=False``),
+        ``device_augment``, ``ema_decay``, ``spatial_partition``,
+        ``early_stopping`` and ``reduce_lr_on_plateau``."""
+        metrics = set(metrics)  # the reference's default `{}` is a dict literal
+        if not metrics <= _ALLOWED_METRICS:
+            raise ValueError(f"metrics must be a subset of {_ALLOWED_METRICS}, got {metrics}")
+        if monitor not in _ALLOWED_METRICS:
+            raise ValueError(f"monitor must be one of {_ALLOWED_METRICS}, got '{monitor}'")
+        if eval_dataset not in {"train", "val"}:
+            raise ValueError("eval_dataset must be 'train' or 'val'")
+        if eval_dataset == "val" and (val_generator is None or val_steps is None):
+            raise ValueError("eval_dataset == 'val' requires val_generator and val_steps")
+        if save_during_training and save_dir is None:
+            raise ValueError("save_during_training requires save_dir")
+        if monitor != "loss" and monitor not in metrics:
+            raise ValueError(f"monitor '{monitor}' requires it to be in metrics {metrics}")
+        if ema_decay is not None and not (0.0 < float(ema_decay) < 1.0):
+            raise ValueError(f"ema_decay must be in (0, 1), got {ema_decay}")
+        if save_during_training:
+            _not_ported("train(save_during_training=True)")
+        if ema_decay is not None:
+            _not_ported("train(ema_decay=...)")
+        if early_stopping is not None:
+            _not_ported("train(early_stopping=...)")
+        if reduce_lr_on_plateau is not None:
+            _not_ported("train(reduce_lr_on_plateau=...)")
+        if class_weights is not None:
+            cw = tuple(float(w) for w in np.asarray(class_weights).reshape(-1))
+            if len(cw) != self.num_classes:
+                raise ValueError(f"class_weights must have length num_classes="
+                                 f"{self.num_classes}, got {len(cw)}")
+            if any(w < 0 for w in cw):
+                raise ValueError("class_weights must be non-negative")
+            self._class_weights = torch.tensor(cw, dtype=torch.float32, device=self.device)
+        else:
+            self._class_weights = None
+        if gradient_accumulation < 1:
+            raise ValueError(f"gradient_accumulation must be >= 1, got {gradient_accumulation}")
+        self._grad_accum = gradient_accumulation
+        if spatial_partition:
+            _not_ported("train(spatial_partition=True)")
+        if device_augment is not None:
+            _not_ported("train(device_augment=...)")
+        self.eval_dataset = eval_dataset
+        self._initialize_metrics(metrics)
+        if record_summaries:
+            if summaries_dir is None:
+                raise ValueError("record_summaries requires summaries_dir")
+            _not_ported("train(record_summaries=True)")
+
+        if self.state.opt_state is None:
+            self.state = create_train_state(self.params, self.optimizer)
+            self.state.step = self.g_step
+        g_step = self.state.step
+        learning_rate = float(learning_rate_schedule(g_step))
+        loss_history = deque(maxlen=training_loss_display_averaging)
+        train_stream = self._make_train_stream(train_generator, prefetch)
+        try:
+            for epoch in range(1, epochs + 1):
+                for step_i in range(steps_per_epoch):
+                    im_d, lb_d, mask_d = next(train_stream)
+                    self.state, loss = train_step(
+                        self.state, im_d, lb_d, mask_d, self._train_seed, learning_rate,
+                        l2_regularization, keep_prob, optimizer=self.optimizer,
+                        num_classes=self.num_classes, compute_dtype=self.compute_dtype,
+                        remat=self.remat, grad_accum=self._grad_accum,
+                        ignore_label=self.ignore_label, class_weights=self._class_weights)
+                    g_step += 1
+                    self.variables_updated = True
+                    loss_history.append(loss)  # a device scalar: no sync
+                    # read the loss back only on the display cadence and at the
+                    # epoch's end, so the host runs ahead of the card between
+                    if g_step % summaries_frequency == 0 or step_i == steps_per_epoch - 1:
+                        self.training_loss = float(torch.stack(list(loss_history)).mean())
+                    learning_rate = float(learning_rate_schedule(g_step))
+                self.g_step = g_step
+                epoch_lr = learning_rate  # what the train log of the JAX facade records
+                print(f"Epoch {epoch}/{epochs}: training loss {self.training_loss}, "
+                      f"learning rate {epoch_lr:.3g}")
+
+                evaluated = bool(metrics and eval_frequency and epoch % eval_frequency == 0)
+                if evaluated:
+                    self._refresh_run_params()
+                    if eval_dataset == "train":
+                        self._evaluate(train_stream, steps_per_epoch, device_stream=True)
+                    else:
+                        self._evaluate(val_generator, val_steps)
+
+                if self.training_loss is not None and self.training_loss < self.best_training_loss:
+                    self.best_training_loss = self.training_loss
+                for i, name in enumerate(self.metric_names):
+                    if i < len(self.metric_values):
+                        better = (self.metric_values[i] < self.best_metric_values[i]
+                                  if name == "loss"
+                                  else self.metric_values[i] > self.best_metric_values[i])
+                        if better:
+                            self.best_metric_values[i] = self.metric_values[i]
+
+                if train_log:
+                    record = {"epoch": epoch, "global_step": g_step,
+                              "training_loss": self.training_loss, "learning_rate": epoch_lr,
+                              "time": time.time()}
+                    if evaluated and self.metric_values:
+                        record.update({f"eval_{n}": float(v) for n, v in
+                                       zip(self.metric_names, self.metric_values)})
+                    with open(train_log, "a") as log_f:
+                        log_f.write(json.dumps(record) + "\n")
+        finally:
+            self._close_train_stream()
+            self._refresh_run_params()
+
+    def _make_train_stream(self, train_generator, prefetch: int):
+        """Iterator of device (images, label_ids, mask) triples. The host
+        part converts labels to uint8 ids and pads the batch to a multiple
+        of the gradient accumulation (masked samples). With ``prefetch > 0``
+        a background thread runs it ``prefetch`` batches ahead, in pinned
+        memory; with 0 it runs in the caller, synchronously."""
+        self._close_train_stream()
+        accum = self._grad_accum
+
+        def host_pipeline():
+            while True:
+                images, labels = next(train_generator)
+                label_ids = self._labels_to_ids(np.asarray(labels))
+                yield self._pad_batch_dim(np.asarray(images), label_ids, multiple=accum)
+
+        if prefetch and prefetch > 0:
+            self._train_stream = DevicePrefetcher(host_pipeline(), self.device, depth=prefetch)
+            return self._train_stream
+        pin = self.device.type == "cuda"
+        return (to_device(host_tensors(batch, pin), self.device) for batch in host_pipeline())
+
+    def _close_train_stream(self) -> None:
+        if self._train_stream is not None:
+            self._train_stream.close()
+            self._train_stream = None
+
+    # ------------------------------------------------------------------
     def _initialize_metrics(self, metrics) -> None:
         self.metric_names = [m for m in ("loss", "mean_iou", "accuracy") if m in metrics]
         self.metric_values = []
+        self.best_metric_values = [99999999.9 if n == "loss" else -1.0 for n in self.metric_names]
 
     @torch.inference_mode()
-    def _evaluate(self, data_generator, num_batches):
+    def _evaluate(self, data_generator, num_batches, device_stream=False):
         """Reset the accumulators, run ``eval_step`` on ``num_batches``
-        (images, labels) pairs from ``data_generator``, finalize, print."""
+        batches, finalize, print. ``data_generator`` yields host (images,
+        labels) pairs, or with ``device_stream`` the training stream's device
+        (images, label_ids, mask) triples."""
         state = empty_metrics_state(self.num_classes, device=self.device)
         for _ in range(num_batches):
-            images, labels = next(data_generator)
-            label_ids = self._labels_to_ids(np.asarray(labels))
-            # one card runs a short batch as it is, so every sample counts;
-            # batch padding (mask 0) comes with the multi-device path
-            mask = np.ones(len(label_ids), np.float32)
-            state = eval_step(self._run_params, state, self._to_device(np.asarray(images)),
-                              self._to_device(label_ids), self._to_device(mask),
-                              num_classes=self.num_classes, compute_dtype=self.compute_dtype)
+            if device_stream:
+                im_d, lb_d, mask_d = next(data_generator)
+            else:
+                images, labels = next(data_generator)
+                label_ids = self._labels_to_ids(np.asarray(labels))
+                # one card runs a short batch as it is, so every sample counts
+                mask = np.ones(len(label_ids), np.float32)
+                im_d, lb_d, mask_d = (self._to_device(np.asarray(images)),
+                                      self._to_device(label_ids), self._to_device(mask))
+            state = eval_step(self._run_params, state, im_d, lb_d, mask_d,
+                              num_classes=self.num_classes, compute_dtype=self.compute_dtype,
+                              ignore_label=self.ignore_label, class_weights=self._class_weights)
         self.metrics_state = state
         values = {k: float(v) for k, v in finalize_metrics(state).items()}
         self.metric_values = [values[name] for name in self.metric_names]
@@ -174,9 +431,10 @@ class FCN8s:
         """Evaluate on ``num_batches`` batches of (images, labels) from
         ``data_generator``; labels are id maps or one-hot. Returns
         {'loss', 'mean_iou', 'accuracy'} floats; the running confusion
-        matrix stays in ``self.metrics_state``. ``l2_regularization`` is
-        accepted for parity and, as in the JAX facade, does not change the
-        reported loss."""
+        matrix stays in ``self.metrics_state``. The loss honours
+        ``ignore_label`` and the class weights of the last ``train``.
+        ``l2_regularization`` is accepted for parity and, as in the JAX
+        facade, does not change the reported loss."""
         metrics = set(metrics)
         if not metrics <= _ALLOWED_METRICS:
             raise ValueError(f"metrics must be a subset of {_ALLOWED_METRICS}")
@@ -191,6 +449,8 @@ class FCN8s:
         return self._evaluate(data_generator, num_batches)
 
     def close(self):
-        """Release the device tensors (the reference closes its session)."""
-        self.params = self._run_params = None
+        """Stop the input pipeline and release the device tensors (the
+        reference closes its session)."""
+        self._close_train_stream()
+        self.params = self._run_params = self.state = None
         print("The session has been closed.")

@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``).
 
-The sources have a plain C interface and include no PyTorch header, so one
-``nvcc`` call compiles them for Hopper (``sm_90a``) into a shared library in
-seconds; ``ctypes`` loads it. The library is built at first use into
+The sources have a plain C interface and include no PyTorch header, so
+``nvcc`` compiles them for Hopper (``sm_90a``) in seconds, one process per
+source started together, and links the objects into one shared library that
+``ctypes`` loads. The library is built at first use into
 ``build/torch_kernels/`` beside the package, under a name that carries the
 hash of the sources and the flags, so an edited source rebuilds and an
 unchanged one is reused. Nothing here runs at import time: the CPU tests
@@ -23,7 +24,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 # dtype codes of csrc/common.cuh
 FLOAT32, BFLOAT16, UINT8, INT32 = 0, 1, 2, 3
@@ -31,7 +32,11 @@ FLOAT32, BFLOAT16, UINT8, INT32 = 0, 1, 2, 3
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     "fcn8s_maxpool2x2_nhwc": [_P, _P, _I64, _I64, _I64, _I64, _I, _P],
+    "fcn8s_maxpool2x2_code_nhwc": [_P, _P, _P, _I64, _I64, _I64, _I64, _I, _P],
+    "fcn8s_maxpool2x2_bwd_nhwc": [_P, _P, _P, _I64, _I64, _I64, _I64, _I, _P],
     "fcn8s_ce_sum_per_sample": [_P, _P, _P, _P, _P, _I, _I64, _I, _I64, _I, _I, _P],
+    "fcn8s_ce_sum_weighted": [_P, _P, _P, _P, _P, _I, _I64, _I, _I, _I, _P],
+    "fcn8s_ce_grad": [_P, _P, _P, _P, _P, _I64, _I, _I64, _I, _I, _I, _P],
     "fcn8s_confmat_accumulate": [_P, _P, _P, _P, _I64, _I, _I64, _I, _I, _P],
 }
 
@@ -66,12 +71,28 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC_DIR.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    # one nvcc per source, all started together; then one link
+    compiles = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for src, obj in zip(sources, objects)]
+    failures = []
+    for proc in compiles:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failures.append(f"{' '.join(proc.args)} ({proc.returncode}):\n{log}")
+    tmp = out.with_name(f"{tag}.tmp.so")
+    if not failures:
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            failures.append(f"link ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if failures:
+        raise RuntimeError("nvcc failed: " + "\n".join(failures))
     os.replace(tmp, out)  # atomic: a concurrent process sees a whole library or none
     return out
 

@@ -4,7 +4,7 @@ pool3 is scaled by 1e-4 and pool4 by 1e-2 (the paper's at-once trick),
 three 1x1 score convs map the taps to ``num_classes`` channels, and the
 subpixel deconvs (``ops/subpixel.py``) upsample 2x, 2x and 8x. The fcn16s
 and fcn32s variants share the code path through ``_DECODER_SPECS``.
-``decoder_l2_loss`` comes with the training path.
+``decoder_l2_loss`` is the L2 term of the training loss.
 
 Params are the port's tree (``bridge.to_port``); images are NHWC and logits
 come back NHWC, like the JAX functions, while everything in between runs as
@@ -128,12 +128,28 @@ def apply_fcn8s_decoder(params: dict, pool3, pool4, fc7_out, *, compute_dtype=to
     return finish(x, "fc7_pool4_pool3_deconv", 8)
 
 
-def apply_fcn8s(params: dict, images: torch.Tensor, *, compute_dtype=torch.bfloat16,
-                logits_dtype=torch.float32, packed_final: bool = False) -> torch.Tensor:
-    """End-to-end forward at ``keep_prob=1``: NHWC images (H, W divisible by
-    32) -> NHWC logits, as ``apply_fcn8s(..., deterministic=True)`` of the
-    JAX package (see ``apply_fcn8s_decoder`` for ``packed_final``)."""
-    pool3, pool4, fc7_out = apply_vgg16(params["encoder"], images, compute_dtype=compute_dtype)
+def apply_fcn8s(params: dict, images: torch.Tensor, *, keep_prob: float = 1.0,
+                generator: torch.Generator | None = None, deterministic: bool = True,
+                compute_dtype=torch.bfloat16, logits_dtype=torch.float32, remat: bool = False,
+                packed_final: bool = False) -> torch.Tensor:
+    """End-to-end forward: NHWC images (H, W divisible by 32) -> NHWC
+    logits, as ``apply_fcn8s`` of the JAX package. ``params`` are what
+    ``bridge.cast_params`` gives. ``keep_prob``/``generator``/
+    ``deterministic``/``remat`` are the encoder's (``apply_vgg16``);
+    ``packed_final`` is the decoder's (``apply_fcn8s_decoder``)."""
+    pool3, pool4, fc7_out = apply_vgg16(params["encoder"], images, keep_prob=keep_prob,
+                                        generator=generator, deterministic=deterministic,
+                                        compute_dtype=compute_dtype, remat=remat)
     return apply_fcn8s_decoder(params["decoder"], pool3, pool4, fc7_out,
                                compute_dtype=compute_dtype, logits_dtype=logits_dtype,
                                packed_final=packed_final)
+
+
+def decoder_l2_loss(decoder_params: dict) -> torch.Tensor:
+    """TF-style L2 over the decoder's master kernels, biases exempt:
+    ``sum(w**2) / 2`` per kernel, summed in fp32 (the caller multiplies the
+    rate in). Every FCN variant's kernel set is covered; the sum of squares
+    does not depend on the port's OIHW layout of the 1x1 convs."""
+    kernels = (layer["kernel"] if "kernel" in layer else layer["weight"]
+               for layer in decoder_params.values())
+    return sum(0.5 * torch.sum(w.float() * w.float()) for w in kernels)

@@ -1,13 +1,19 @@
-"""The eval path's CUDA kernels, K1 (per-sample CE sum) and K5 (confusion
-matrix), with their plain twins and dispatch.
+"""The loss and metric CUDA kernels, with their plain twins, dispatch and
+autograd.
 
 Port of ``fcn8s_tensorflow_tpu/ops/pallas_kernels.py``:
 
 * ``ce_sum_per_sample`` (K1 forward, ``csrc/ce_sum.cu``) replaces
   ``_lse_sum_kernel`` plus the XLA label pick of ``_ce_sample_impl``;
-  ``softmax_cross_entropy_per_sample`` is the per-sample branch of
-  ``softmax_cross_entropy_pallas`` around it. The backward, the dense
-  per-pixel-weight kernel (K3) and the masked path come with training.
+* ``ce_sum_weighted`` (K3 forward, the same row loop in ``csrc/ce_sum.cu``)
+  replaces ``_ce_fwd_kernel`` of ``_ce_sum_impl``;
+* ``ce_grad`` (``csrc/ce_grad.cu``) is the hand-written form of the
+  custom-VJP bodies ``_ce_sum_sample_bwd`` and ``_ce_sum_bwd``, which had no
+  ``pallas_call`` (XLA fused them): one kernel for both weight modes;
+* ``softmax_cross_entropy`` and ``masked_softmax_cross_entropy`` are the
+  public losses around them (``softmax_cross_entropy_pallas``,
+  ``masked_softmax_cross_entropy_pallas``), differentiable through
+  ``_CESum``;
 * ``confusion_matrix_accumulate`` (K5, ``csrc/confmat.cu``) replaces
   ``_confmat_kernel`` / ``confusion_matrix_pallas``.
 
@@ -23,7 +29,7 @@ import torch
 
 from .. import kernels
 from ..kernels import build
-from .losses import softmax_cross_entropy_with_ids
+from .losses import softmax_cross_entropy_with_ids, valid_pixel_weights
 
 _ID_DTYPES = (torch.uint8, torch.int32)
 _CE_BLOCK = 256
@@ -35,6 +41,13 @@ def _check_per_sample(p: int, mask: torch.Tensor, pps: int, name: str) -> None:
                     f"{name}: mask must be a contiguous (N,) float32 tensor")
     kernels.require(pps > 0 and p > 0 and p == mask.numel() * pps,
                     f"{name}: {p} pixels do not split into {mask.numel()} samples of {pps}")
+
+
+def _check_logits(flat_logits: torch.Tensor, name: str) -> None:
+    kernels.require(flat_logits.dim() == 2 and flat_logits.is_contiguous(),
+                    f"{name}: logits must be a contiguous (P, C) tensor")
+    kernels.require(flat_logits.dtype in (torch.bfloat16, torch.float32),
+                    f"{name}: logits must be bf16 or fp32, got {flat_logits.dtype}")
 
 
 def _check_ids(t: torch.Tensor, p: int, what: str, name: str) -> None:
@@ -65,10 +78,7 @@ def ce_sum_per_sample(flat_logits: torch.Tensor, labels: torch.Tensor, mask: tor
     if flat_logits.device.type == "cpu":
         return ce_sum_per_sample_plain(flat_logits, labels, mask, pps)
     name = "ce_sum_per_sample"
-    kernels.require(flat_logits.dim() == 2 and flat_logits.is_contiguous(),
-                    f"{name}: logits must be a contiguous (P, C) tensor")
-    kernels.require(flat_logits.dtype in (torch.bfloat16, torch.float32),
-                    f"{name}: logits must be bf16 or fp32, got {flat_logits.dtype}")
+    _check_logits(flat_logits, name)
     p, c = flat_logits.shape
     _check_ids(labels, p, "labels", name)
     _check_per_sample(p, mask, pps, name)
@@ -89,23 +99,177 @@ def ce_sum_per_sample(flat_logits: torch.Tensor, labels: torch.Tensor, mask: tor
 ce_sum_per_sample.launches = 0
 
 
-def softmax_cross_entropy_per_sample(logits: torch.Tensor, label_ids: torch.Tensor,
-                                     sample_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Mean softmax CE over (N, ..., C) logits with (N, ...) integer labels
-    and an optional (N,) 0/1 ``sample_mask``, normalised by
-    ``max(sum(mask) * pixels_per_sample, 1)`` — the per-sample branch of
-    ``softmax_cross_entropy_pallas``. Returns an fp32 0-d tensor."""
+# ---------------------------------------------------------------------------
+# K3: per-pixel-weight CE sum
+# ---------------------------------------------------------------------------
+
+
+def _check_pixel_weights(weights: torch.Tensor, p: int, name: str) -> None:
+    kernels.require(weights.dim() == 1 and weights.numel() == p and weights.is_contiguous()
+                    and weights.dtype == torch.float32,
+                    f"{name}: weights must be a contiguous ({p},) float32 tensor")
+
+
+def ce_sum_weighted_plain(flat_logits: torch.Tensor, labels: torch.Tensor,
+                          weights: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K3: ``sum_p w_p * (lse_p - pick_p)`` in fp32, a label
+    outside [0, C) picking nothing."""
+    return (softmax_cross_entropy_with_ids(flat_logits, labels) * weights).sum()
+
+
+def ce_sum_weighted(flat_logits: torch.Tensor, labels: torch.Tensor,
+                    weights: torch.Tensor) -> torch.Tensor:
+    """K3 forward: the fp32 0-d sum ``sum_p w_p * (lse_p - pick_p)`` over
+    ``flat_logits`` (P, C) bf16/fp32, labels (P,) uint8/int32 and per-pixel
+    ``weights`` (P,) fp32. K1's row loop with a per-pixel weight;
+    deterministic like K1."""
+    if flat_logits.device.type == "cpu":
+        return ce_sum_weighted_plain(flat_logits, labels, weights)
+    name = "ce_sum_weighted"
+    _check_logits(flat_logits, name)
+    p, c = flat_logits.shape
+    _check_ids(labels, p, "labels", name)
+    _check_pixel_weights(weights, p, name)
+    dev = kernels.require_cuda(flat_logits, labels, weights)
+    n_blocks = min(-(-p // _CE_BLOCK), _CE_MAX_BLOCKS)
+    partials = torch.empty(n_blocks, dtype=torch.float32, device=dev)
+    out = torch.empty((), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = build.library().fcn8s_ce_sum_weighted(
+            flat_logits.data_ptr(), labels.data_ptr(), weights.data_ptr(), partials.data_ptr(),
+            out.data_ptr(), n_blocks, p, c, kernels.dtype_code(flat_logits),
+            kernels.dtype_code(labels), kernels.stream_handle(dev))
+    build.check(rc, name)
+    ce_sum_weighted.launches += 1
+    return out
+
+
+ce_sum_weighted.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# CE grad: the backward of K1 and K3
+# ---------------------------------------------------------------------------
+
+
+def ce_grad_plain(flat_logits: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
+                  g: torch.Tensor, pps: int | None = None) -> torch.Tensor:
+    """Plain twin of the CE-grad kernel: JAX's two VJP bodies in torch.
+    With ``pps``, ``_ce_sum_sample_bwd``: ``(softmax - onehot) * g`` times
+    the per-sample ``weights[p // pps]``; without, ``_ce_sum_bwd``:
+    ``(softmax - onehot) * w_p * g``. fp32 arithmetic, stored in the logits'
+    dtype; a label outside [0, C) one-hots to zeros."""
+    logits = flat_logits.float()
+    c = logits.shape[1]
+    softmax = torch.softmax(logits, dim=1)
+    onehot = (labels.long()[:, None] == torch.arange(c, device=logits.device)).float()
+    if pps is None:
+        d = (softmax - onehot) * weights[:, None] * g.float()
+    else:
+        d = ((softmax - onehot) * g.float()).view(weights.numel(), pps, c) * weights[:, None, None]
+    return d.reshape(flat_logits.shape).to(flat_logits.dtype)
+
+
+def ce_grad(flat_logits: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
+            g: torch.Tensor, pps: int | None = None) -> torch.Tensor:
+    """The CE-grad kernel: ``dlogits[p, c] = (softmax(l_p)_c - [c == label_p])
+    * w_p * g``, fp32 arithmetic stored once in the logits' dtype. ``weights``
+    is K1's per-sample mask (N,) with ``pps`` pixels per sample, or K3's
+    per-pixel weights (P,) with ``pps=None``. ``g`` is a one-element fp32
+    tensor on the device (the upstream gradient), read there, so the
+    backward never syncs. A pixel of weight 0 gets exact zeros."""
+    if flat_logits.device.type == "cpu":
+        return ce_grad_plain(flat_logits, labels, weights, g, pps)
+    name = "ce_grad"
+    _check_logits(flat_logits, name)
+    p, c = flat_logits.shape
+    _check_ids(labels, p, "labels", name)
+    if pps is None:
+        _check_pixel_weights(weights, p, name)
+    else:
+        _check_per_sample(p, weights, pps, name)
+    kernels.require(g.numel() == 1 and g.dtype == torch.float32 and g.is_contiguous(),
+                    f"{name}: g must be a one-element float32 tensor")
+    dev = kernels.require_cuda(flat_logits, labels, weights, g)
+    out = torch.empty_like(flat_logits)
+    with torch.cuda.device(dev):
+        rc = build.library().fcn8s_ce_grad(
+            flat_logits.data_ptr(), labels.data_ptr(), weights.data_ptr(), g.data_ptr(),
+            out.data_ptr(), p, c, 1 if pps is None else pps, int(pps is None),
+            kernels.dtype_code(flat_logits), kernels.dtype_code(labels),
+            kernels.stream_handle(dev))
+    build.check(rc, name)
+    ce_grad.launches += 1
+    return out
+
+
+ce_grad.launches = 0
+
+
+class _CESum(torch.autograd.Function):
+    """``sum_p w_p * CE_p`` with the CE-grad kernel as its backward: K1
+    forward when ``pps`` is given (per-sample weights), K3 forward when it
+    is None (per-pixel weights). The counterpart of JAX's custom VJPs
+    ``_ce_sum_sample`` and ``_ce_sum``; only the logits get a gradient."""
+
+    @staticmethod
+    def forward(ctx, flat_logits, labels, weights, pps):
+        ctx.save_for_backward(flat_logits, labels, weights)
+        ctx.pps = pps
+        if pps is None:
+            return ce_sum_weighted(flat_logits, labels, weights)
+        return ce_sum_per_sample(flat_logits, labels, weights, pps)
+
+    @staticmethod
+    def backward(ctx, g):
+        flat_logits, labels, weights = ctx.saved_tensors
+        return ce_grad(flat_logits, labels, weights, g.contiguous(), ctx.pps), None, None, None
+
+
+def softmax_cross_entropy(logits: torch.Tensor, label_ids: torch.Tensor,
+                          pixel_weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Weighted-mean softmax CE over (N, ..., C) logits with (N, ...)
+    integer labels, differentiable through the CE-grad kernel; returns an
+    fp32 0-d tensor. The port of ``softmax_cross_entropy_pallas``, with its
+    normalisation contracts:
+
+    * ``pixel_weights`` None or (N,) (a per-sample mask): K1, divided by
+      ``max(sum(mask) * pixels_per_sample, 1)``;
+    * any other weight, broadcast to the label shape (per pixel): K3,
+      divided by ``max(sum(w), 1)``.
+
+    The TPU's chunk-divisibility fallback has no counterpart: the kernels
+    take any pixel count. A label outside [0, C) picks nothing and one-hots
+    to zeros in the gradient."""
     c = logits.shape[-1]
-    batch = label_ids.shape[0]
     flat = logits.reshape(-1, c)
-    pps = flat.shape[0] // batch
-    mask = (torch.ones(batch, dtype=torch.float32, device=logits.device) if sample_mask is None
-            else sample_mask.float())
     labels = label_ids.reshape(-1)
     if labels.dtype not in _ID_DTYPES:
         labels = labels.to(torch.int32)
-    total = ce_sum_per_sample(flat, labels, mask, pps)
-    return total / torch.clamp(mask.sum() * pps, min=1.0)
+    batch = label_ids.shape[0]
+    if pixel_weights is None or (pixel_weights.dim() == 1 and pixel_weights.shape[0] == batch):
+        pps = flat.shape[0] // batch
+        mask = (torch.ones(batch, dtype=torch.float32, device=logits.device)
+                if pixel_weights is None else pixel_weights.float())
+        total = _CESum.apply(flat, labels, mask, pps)
+        return total / torch.clamp(mask.sum() * pps, min=1.0)
+    w = pixel_weights.float()
+    w = w.reshape(w.shape + (1,) * (label_ids.dim() - w.dim())).expand(label_ids.shape)
+    weights = w.reshape(-1).contiguous()
+    total = _CESum.apply(flat, labels, weights, None)
+    return total / torch.clamp(weights.sum(), min=1.0)
+
+
+def masked_softmax_cross_entropy(logits: torch.Tensor, label_ids: torch.Tensor,
+                                 sample_mask: torch.Tensor, ignore_label: int) -> torch.Tensor:
+    """Mean softmax CE over valid pixels: the contract of
+    ``masked_softmax_cross_entropy_pallas`` without its neutral-row trick (a
+    TPU fusion workaround). K3 with ``valid_pixel_weights``: the value is
+    the ``sample_mask``-weighted mean over pixels whose label is not
+    ``ignore_label``; an ignored pixel adds exactly 0.0 and gets an exactly
+    zero gradient; an all-ignored batch gives 0."""
+    return softmax_cross_entropy(logits, label_ids,
+                                 valid_pixel_weights(label_ids, sample_mask, ignore_label))
 
 
 # ---------------------------------------------------------------------------

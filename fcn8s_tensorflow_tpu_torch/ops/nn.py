@@ -1,4 +1,4 @@
-"""Core NN ops: SAME convolution and the plain 2x2 max pool.
+"""Core NN ops: SAME convolution, the plain 2x2 max pool and dropout.
 
 Port of ``fcn8s_tensorflow_tpu/ops/nn.py``. Activations inside the port are
 NCHW-shaped tensors in ``torch.channels_last`` memory, which is the JAX
@@ -10,7 +10,6 @@ same memory without a copy.
 The transposed convolution is not ported: every deconv of the model runs
 through ``ops/subpixel.py``, and ``nn.ConvTranspose2d`` would be wrong anyway
 (its kernel is the spatial flip of JAX's lhs-dilated cross-correlation).
-Dropout waits for the training path.
 """
 
 from __future__ import annotations
@@ -53,3 +52,25 @@ def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     (``ceil_mode``), matching ``lax.reduce_window(..., padding='SAME')``.
     NaN propagates like ``lax.max``. The plain twin of the K4f kernel."""
     return F.max_pool2d(x, kernel_size=2, stride=2, ceil_mode=True)
+
+
+def dropout_mask(shape, keep_prob: float, generator: torch.Generator) -> torch.Tensor:
+    """A bool keep-mask of NCHW ``shape`` (channels_last memory, like the
+    activations), each unit kept with probability ``keep_prob``, drawn from
+    ``generator`` on its device. Drawn apart from ``dropout`` so that a
+    recomputed forward (remat) can apply the same mask again."""
+    n, c, h, w = shape
+    u = torch.rand((n, h, w, c), generator=generator, device=generator.device)
+    return nchw(u < keep_prob)
+
+
+def dropout(x: torch.Tensor, keep_prob: float, mask: torch.Tensor) -> torch.Tensor:
+    """Inverted dropout as TF's ``tf.nn.dropout`` (the JAX package's
+    ``dropout``): kept units are divided by ``max(keep_prob, 1e-8)``, that
+    scale rounded to ``x.dtype`` first, and dropped units are exact zeros.
+    At ``keep_prob >= 1`` it is the identity, as JAX's bernoulli(1.0) is."""
+    if keep_prob >= 1.0:
+        return x
+    kp = torch.tensor(keep_prob, dtype=torch.float32)
+    scale = (1.0 / torch.clamp(kp, min=1e-8)).to(x.dtype)  # a 0-d CPU tensor acts as a scalar
+    return torch.where(mask, x * scale, 0.0)

@@ -10,8 +10,10 @@ followed by a depth-to-space:
                                                   (k-1-crop) + s*dx - px]
 
 with crop = ceil(s/2) and taps outside [0, 2s) zero. ``subpixel_weight``
-does that tap algebra once, when the weights are loaded (eager PyTorch has
-no jit to fold it per call), and the forward is one cuDNN convolution.
+does that tap algebra with views, flips and slice copies, so it is
+differentiable and moves nothing through the host: ``bridge.cast_params``
+runs it once for inference and, under autograd, on every train step (as
+JAX derives the kernel on every call). The forward is one cuDNN convolution.
 ``nn.ConvTranspose2d`` is deliberately not used: it is the adjoint of a
 convolution, so its kernel is the spatial flip of JAX's lhs-dilated
 cross-correlation (``fcn8s_tensorflow_tpu/ops/nn.py::conv2d_transpose``).
@@ -44,7 +46,10 @@ def _subpixel_kernel(kernel: torch.Tensor, s: int) -> torch.Tensor:
             sel_x = np.nonzero((ix >= 0) & (ix < k))[0]
             if sel_y.size == 0 or sel_x.size == 0:
                 continue
-            block = kernel[torch.as_tensor(iy[sel_y])][:, torch.as_tensor(ix[sel_x])]  # (ny, nx, I, O)
+            # iy and ix fall by one per phase, so the selected taps are a
+            # reversed slice of the kernel
+            iy_sel, ix_sel = iy[sel_y], ix[sel_x]
+            block = kernel[iy_sel[-1]:iy_sel[0] + 1].flip(0)[:, ix_sel[-1]:ix_sel[0] + 1].flip(1)
             new[dy + 1, dx + 1][:, sel_y[0]:sel_y[-1] + 1, sel_x[0]:sel_x[-1] + 1] = (
                 block.permute(2, 0, 1, 3))
     return new.reshape(3, 3, in_ch, s * s * out_ch)
@@ -60,7 +65,7 @@ def subpixel_weight(kernel: torch.Tensor, bias: torch.Tensor | None, s: int):
 def conv2d_transpose_subpixel(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
                               *, stride: int, packed: bool = False) -> torch.Tensor:
     """The stride-``stride`` deconv of NCHW (channels_last) ``x``, given the
-    cached ``subpixel_weight`` form of its kernel and bias.
+    ``subpixel_weight`` form of its kernel and bias.
 
     Returns NCHW channels_last ``(n, O, h*s, w*s)``, or with ``packed=True``
     the depth-to-space skipped: ``(n, h, w, s, s, O)``, where output pixel

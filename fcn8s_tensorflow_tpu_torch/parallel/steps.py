@@ -1,34 +1,268 @@
-"""The eval and predict steps. Port of ``eval_step`` and ``predict_step`` of
+"""The train, eval and predict steps and the optimizers. Port of
 ``fcn8s_tensorflow_tpu/parallel/steps.py``.
 
 One card needs no mesh or sharding, and eager PyTorch needs no compiled
 executable per shape, so each step is a plain function of (params, device
-tensors). The train step and the TTA step come with later parts of the
-port. ``params`` are the compute-dtype params of ``bridge.cast_params``.
+tensors). ``eval_step``/``predict_step`` take the compute-dtype params of
+``bridge.cast_params``; ``train_step`` takes a ``TrainState`` over the fp32
+masters and derives that cast inside autograd on every step. The TTA step
+comes with a later part of the port.
+
+JAX's arrays are immutable and its optimizer returns new trees; here the
+optimizer updates the params and its moments IN PLACE under
+``torch.no_grad`` (no second copy of 134 M parameters), and ``TrainState``
+is a mutable record that ``train_step`` advances and returns.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Any
+
 import numpy as np
 import torch
 
-from ..models.fcn8s import apply_fcn8s
-from ..ops.kernels import softmax_cross_entropy_per_sample
+from .. import bridge
+from ..models.fcn8s import apply_fcn8s, decoder_l2_loss
+from ..ops.kernels import softmax_cross_entropy
+from ..ops.losses import class_pixel_weights, valid_pixel_weights
 from ..ops.metrics import update_metrics_state
+
+OPTIMIZERS = ("adam", "adamw", "momentum", "sgd")
+
+
+@dataclasses.dataclass
+class ScaleByAdamTF1State:
+    """Adam's step count and first/second moments, one per param leaf."""
+
+    count: int
+    mu: list
+    nu: list
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The carried training state: ``step`` is the reference's
+    ``global_step`` (it drives the LR schedule and the dropout draws),
+    ``params`` the fp32 master tree, ``opt_state`` the optimizer's."""
+
+    step: int
+    params: dict
+    opt_state: Any
+
+
+class Optimizer:
+    """One of ``make_optimizer``'s four update rules, applied in the order
+    of the JAX package's optax chain: global-norm clip, scaling (Adam's or
+    the momentum trace), decoupled weight decay, then the learning rate,
+    which is an argument of every ``apply`` (``_set_lr``'s counterpart)."""
+
+    def __init__(self, name: str, clip_norm: float | None, hyper: dict):
+        self.name, self.clip_norm, self.hyper = name, clip_norm, hyper
+
+    def init(self, params: dict):
+        """Zeroed state for the leaves of ``params``."""
+        leaves = bridge.param_leaves(params)
+        if self.name in ("adam", "adamw"):
+            return ScaleByAdamTF1State(count=0, mu=[torch.zeros_like(t) for t in leaves],
+                                       nu=[torch.zeros_like(t) for t in leaves])
+        if self.name == "momentum":
+            return [torch.zeros_like(t) for t in leaves]
+        return None
+
+    @torch.no_grad()
+    def apply(self, params: dict, grads: list, state, learning_rate: float) -> None:
+        """One update of ``params`` and ``state`` in place from ``grads``
+        (aligned with ``bridge.param_leaves(params)``)."""
+        leaves = bridge.param_leaves(params)
+        if self.clip_norm is not None:  # optax.clip_by_global_norm
+            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            keep = g_norm < self.clip_norm
+            grads = [torch.where(keep, g, (g / g_norm) * self.clip_norm) for g in grads]
+        if self.name in ("adam", "adamw"):
+            updates = self._adam_tf1(grads, state)
+            if self.name == "adamw":  # optax.add_decayed_weights
+                wd = self.hyper.get("weight_decay", 1e-4)
+                updates = [u.add_(p * wd) for u, p in zip(updates, leaves)]
+        elif self.name == "momentum":  # optax.trace: t = g + decay * t
+            decay = self.hyper.get("momentum", 0.9)
+            for t, g in zip(state, grads):
+                t.mul_(decay).add_(g)
+            updates = ([g + decay * t for g, t in zip(grads, state)]
+                       if self.hyper.get("nesterov", False) else state)
+        else:
+            updates = grads
+        lr = -learning_rate  # optax.scale_by_learning_rate, then apply_updates
+        for p, u in zip(leaves, updates):
+            p.add_(u * lr)
+
+    def _adam_tf1(self, grads: list, state: ScaleByAdamTF1State) -> list:
+        """``scale_by_adam_tf1``: TF1's ``AdamOptimizer`` rule, written out
+        because ``torch.optim.Adam`` (like optax) adds eps to the
+        bias-corrected sqrt(v_hat), which fails the one-step TF parity:
+
+            lr_scale = sqrt(1 - b2^t) / (1 - b1^t)
+            update   = lr_scale * m_t / (sqrt(v_t) + eps)
+
+        The scalar is computed in fp32, as JAX computes it."""
+        b1, b2 = self.hyper.get("b1", 0.9), self.hyper.get("b2", 0.999)
+        eps = self.hyper.get("eps", 1e-8)
+        state.count += 1
+        t = torch.tensor(float(state.count), dtype=torch.float32)
+        f32 = dict(dtype=torch.float32)
+        lr_scale = float(torch.sqrt(1.0 - torch.pow(torch.tensor(b2, **f32), t))
+                         / (1.0 - torch.pow(torch.tensor(b1, **f32), t)))
+        updates = []
+        for m, v, g in zip(state.mu, state.nu, grads):
+            m.mul_(b1).add_(g * (1 - b1))
+            v.mul_(b2).add_(g * (1 - b2) * g)
+            updates.append((m * lr_scale) / (v.sqrt() + eps))
+        return updates
+
+
+def make_optimizer(name: str = "adam", clip_norm: float | None = None, **hyper) -> Optimizer:
+    """The train-step optimizer, as in the JAX package: ``"adam"`` (TF1-exact
+    Adam; ``b1``, ``b2``, ``eps``), ``"adamw"`` (the same plus decoupled
+    ``weight_decay``, default 1e-4, scaled by the learning rate),
+    ``"momentum"`` (``momentum`` default 0.9, ``nesterov`` default False:
+    ``accum = momentum * accum + g; w -= lr * accum``) or ``"sgd"``.
+    ``clip_norm`` clips the raw gradient's global norm first. Unknown names
+    and kwargs raise ``ValueError``."""
+    name = name.lower()
+    if name not in OPTIMIZERS:
+        raise ValueError(f"unknown optimizer '{name}'; one of {OPTIMIZERS}")
+    allowed = {"adam": {"b1", "b2", "eps"},
+               "adamw": {"b1", "b2", "eps", "weight_decay"},
+               "momentum": {"momentum", "nesterov"},
+               "sgd": set()}[name]
+    if not set(hyper) <= allowed:
+        raise ValueError(
+            f"unknown kwargs for optimizer '{name}': "
+            f"{sorted(set(hyper) - allowed)} (accepted: {sorted(allowed)})")
+    return Optimizer(name, clip_norm, hyper)
+
+
+def create_train_state(params: dict, optimizer: Optimizer) -> TrainState:
+    """Step 0 over ``params`` (the fp32 master tree, whose leaves now
+    require grad) with a zeroed optimizer state."""
+    for t in bridge.param_leaves(params):
+        t.requires_grad_(True)
+    return TrainState(step=0, params=params, opt_state=optimizer.init(params))
+
+
+def dropout_generator(device, seed: int, step: int, microbatch: int | None = None):
+    """The dropout draw of one step (and grad-accum microbatch), derived from
+    (seed, step[, microbatch]) alone: the counterpart of JAX's
+    ``fold_in(rng, state.step)``, so a run restarted at step k draws the
+    same masks as the uninterrupted run."""
+    key = [seed, step] + ([] if microbatch is None else [microbatch])
+    draw = int(np.random.SeedSequence(key).generate_state(1, np.uint64)[0] >> np.uint64(1))
+    return torch.Generator(device=device).manual_seed(draw)
+
+
+def loss_and_grads(params: dict, images: torch.Tensor, label_ids: torch.Tensor,
+                   sample_mask: torch.Tensor, *, seed: int, step: int, l2_rate: float,
+                   keep_prob: float, compute_dtype=torch.bfloat16, remat: bool = False,
+                   grad_accum: int = 1, ignore_label: int | None = None, class_weights=None):
+    """The loss and the gradient of every leaf of ``params`` (in
+    ``bridge.param_leaves`` order): the value-and-grad half of
+    ``train_step``. See ``train_step`` for the arguments."""
+    weighted = ignore_label is not None or class_weights is not None
+    leaves = bridge.param_leaves(params)
+
+    def pixel_weights(lb, mk):
+        if class_weights is not None:
+            return class_pixel_weights(lb, mk, class_weights, ignore_label)
+        return valid_pixel_weights(lb, mk, ignore_label)
+
+    def loss_for(im, lb, mk, generator):
+        run = bridge.cast_params(params, compute_dtype)  # inside autograd, every call
+        logits = apply_fcn8s(run, im, keep_prob=keep_prob, generator=generator,
+                             deterministic=False, compute_dtype=compute_dtype,
+                             logits_dtype=compute_dtype, remat=remat)
+        ce = softmax_cross_entropy(logits, lb, pixel_weights(lb, mk) if weighted else mk)
+        reg = torch.tensor(l2_rate, dtype=torch.float32) * decoder_l2_loss(params["decoder"])
+        return ce + reg
+
+    if grad_accum <= 1:
+        loss = loss_for(images, label_ids, sample_mask,
+                        dropout_generator(images.device, seed, step))
+        return loss.detach(), list(torch.autograd.grad(loss, leaves))
+
+    n = images.shape[0]
+    if n % grad_accum:
+        raise ValueError(f"batch {n} not divisible by grad_accum={grad_accum}")
+    b = n // grad_accum
+    # weight each microbatch by its real-sample share (with ignore_label /
+    # class_weights, its pixel-weight share): the weighted sum of the
+    # microbatch means is the full-batch mean, and the L2 term rides along
+    # exactly since the weights sum to 1
+    with torch.no_grad():
+        if weighted:
+            counts = pixel_weights(label_ids, sample_mask).reshape(grad_accum, -1).sum(dim=1)
+        else:
+            counts = sample_mask.float().reshape(grad_accum, b).sum(dim=1)
+        shares = counts / torch.clamp(counts.sum(), min=1.0)
+    grads = [torch.zeros_like(t) for t in leaves]
+    total = torch.zeros((), dtype=torch.float32, device=images.device)
+    for i in range(grad_accum):
+        part = slice(i * b, (i + 1) * b)
+        loss_i = loss_for(images[part], label_ids[part], sample_mask[part],
+                          dropout_generator(images.device, seed, step, i))
+        g_i = torch.autograd.grad(loss_i, leaves)
+        with torch.no_grad():
+            for acc, g in zip(grads, g_i):
+                acc.add_(g.mul_(shares[i]))
+            total = total + shares[i] * loss_i.detach()
+    return total, grads
+
+
+def train_step(state: TrainState, images: torch.Tensor, label_ids: torch.Tensor,
+               sample_mask: torch.Tensor, seed: int, learning_rate: float, l2_rate: float,
+               keep_prob: float, *, optimizer: Optimizer, num_classes: int,
+               compute_dtype=torch.bfloat16, remat: bool = False, grad_accum: int = 1,
+               ignore_label: int | None = None, class_weights=None):
+    """One optimization step; returns ``(state, loss)`` with ``state``
+    advanced in place and ``loss`` a 0-d fp32 device tensor (no sync).
+
+    ``images`` NHWC uint8, ``label_ids`` NHW uint8/int32, ``sample_mask``
+    (N,) float 0/1, zero for batch-padding samples: the masked mean makes
+    the gradient exactly the short-batch gradient. Loss = mean softmax CE +
+    ``l2_rate * decoder_l2_loss``. The CE runs through the kernels (K1 with
+    the sample mask; K3 with per-pixel weights when ``ignore_label`` or
+    ``class_weights``, an (num_classes,) vector, is set), each with the
+    CE-grad kernel as its backward. Dropout draws come from (``seed``,
+    ``state.step``). ``grad_accum=A`` splits the batch into A microbatches
+    weighted by their real-sample (or pixel-weight) share. ``num_classes``
+    is kept for the JAX signature; the logits carry it."""
+    del num_classes
+    loss, grads = loss_and_grads(
+        state.params, images, label_ids, sample_mask, seed=seed, step=state.step,
+        l2_rate=l2_rate, keep_prob=keep_prob, compute_dtype=compute_dtype, remat=remat,
+        grad_accum=grad_accum, ignore_label=ignore_label, class_weights=class_weights)
+    optimizer.apply(state.params, grads, state.opt_state, learning_rate)
+    state.step += 1
+    return state, loss
 
 
 def eval_step(params: dict, metrics_state: dict, images: torch.Tensor, label_ids: torch.Tensor,
               sample_mask: torch.Tensor, *, num_classes: int, compute_dtype=torch.bfloat16,
               ignore_label: int | None = None, class_weights=None) -> dict:
     """Forward-only metric accumulation at keep_prob=1: the forward in
-    ``compute_dtype`` with logits kept in it, the per-sample CE through the
-    K1 kernel with ``sample_mask``, the argmax, and the confusion matrix
-    through the K5 kernel. Updates ``metrics_state`` in place and returns it."""
-    if ignore_label is not None or class_weights is not None:
-        raise NotImplementedError("eval_step: ignore_label and class_weights are not ported yet")
+    ``compute_dtype`` with logits kept in it, the CE through K1 with
+    ``sample_mask`` (through K3 with the pixel weights of ``ignore_label`` /
+    ``class_weights``, as the train step), the argmax, and the confusion
+    matrix through K5, where an ignored id drops out (it matches no class).
+    Updates ``metrics_state`` in place and returns it."""
     logits = apply_fcn8s(params, images, compute_dtype=compute_dtype,
                          logits_dtype=compute_dtype)
-    loss = softmax_cross_entropy_per_sample(logits, label_ids, sample_mask)
+    if class_weights is not None:
+        weights = class_pixel_weights(label_ids, sample_mask, class_weights, ignore_label)
+    elif ignore_label is not None:
+        weights = valid_pixel_weights(label_ids, sample_mask, ignore_label)
+    else:
+        weights = sample_mask
+    loss = softmax_cross_entropy(logits, label_ids, weights)
     pred = torch.argmax(logits, dim=-1).to(torch.int32)
     return update_metrics_state(metrics_state, loss=loss, pred_ids=pred, gt_ids=label_ids,
                                 num_classes=num_classes, sample_mask=sample_mask)

@@ -14,7 +14,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch.nn.functional as F  # noqa: E402
+
 from fcn8s_tensorflow_tpu_torch.ops import kernels as K  # noqa: E402
+from fcn8s_tensorflow_tpu_torch.ops import pool as P  # noqa: E402
 from fcn8s_tensorflow_tpu_torch.ops.losses import softmax_cross_entropy_with_ids  # noqa: E402
 from fcn8s_tensorflow_tpu_torch.ops.nn import max_pool_2x2  # noqa: E402
 from fcn8s_tensorflow_tpu_torch.ops.pool import maxpool2x2_nhwc  # noqa: E402
@@ -104,3 +107,140 @@ def test_confmat_kernel_equals_twin(dev, c):
     got = K.confusion_matrix_accumulate(zeros.clone(), pred, gt, mask, pps)
     want = K.confusion_matrix_accumulate_plain(zeros.clone(), pred, gt, mask, pps)
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# K4a / K4b: the pool's training pair
+# ---------------------------------------------------------------------------
+
+
+def _ties(shape, dev, dtype):
+    """Values on a coarse grid, so most windows hold ties."""
+    x = torch.round(torch.randn(shape, device=dev) * 2).to(dtype)
+    return x.contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 64, 32, 64), (1, 3, 6, 10), (3, 12, 4, 2)])
+def test_pool_pair_kernels_equal_twins_and_max_pool2d_grad(dev, dtype, shape):
+    """Vectorised (C % 8 == 0) and scalar (odd C) channel runs on tie-heavy
+    inputs: y and the code bit-exact against the twin, dx bit-exact against
+    the twin and against F.max_pool2d's autograd gradient."""
+    x = _ties(shape, dev, dtype)
+    n = P.maxpool2x2_code_nhwc.launches
+    y, code = P.maxpool2x2_code_nhwc(x)
+    assert P.maxpool2x2_code_nhwc.launches == n + 1
+    y_t, code_t = P.maxpool2x2_code_plain(x)
+    assert torch.equal(y, y_t) and torch.equal(code, code_t)
+    assert torch.equal(y, max_pool_2x2(x))
+    dy = torch.randn(y.shape, device=dev).to(dtype).contiguous(memory_format=torch.channels_last)
+    dx = P.maxpool2x2_bwd_nhwc(dy, code)
+    assert dx.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(dx, P.maxpool2x2_bwd_plain(dy, code))
+    xr = x.detach().clone().requires_grad_()
+    F.max_pool2d(xr, 2, 2).backward(dy)
+    assert torch.equal(dx, xr.grad)
+
+
+def test_pool_function_runs_the_pair_and_counts_layout_conversions(dev):
+    x = _ties((2, 16, 8, 8), dev, torch.bfloat16).requires_grad_()
+    a, b, f = (P.maxpool2x2_code_nhwc.launches, P.maxpool2x2_bwd_nhwc.launches,
+               P.maxpool2x2_nhwc.launches)
+    conversions = P.MaxPool2x2.dy_conversions
+    y = P.maxpool2x2(x)
+    (y.float() * torch.arange(y.numel(), device=dev).view(y.shape)).sum().backward()  # NCHW dy
+    assert P.maxpool2x2_code_nhwc.launches == a + 1 and P.maxpool2x2_bwd_nhwc.launches == b + 1
+    assert P.MaxPool2x2.dy_conversions == conversions + 1
+    with torch.no_grad():
+        P.maxpool2x2(x)
+    assert P.maxpool2x2_nhwc.launches == f + 1
+
+
+def test_pool_pair_64bit_indexing(dev):
+    """A (1, 128, 2, w) bf16 input of more than 2**32 elements takes the
+    pair's 64-bit index path; dx puts dy at each window's first maximum."""
+    c = 128
+    w = BIG // (2 * c) // 2 * 2
+    x = torch.empty((1, c, 2, w), dtype=torch.bfloat16, device=dev,
+                    memory_format=torch.channels_last).normal_()
+    y, code = P.maxpool2x2_code_nhwc(x)
+    taps = torch.stack([x[:, :, 0, 0::2], x[:, :, 0, 1::2], x[:, :, 1, 0::2], x[:, :, 1, 1::2]])
+    assert torch.equal(y[:, :, 0], taps.amax(0))
+    del taps
+    dx = P.maxpool2x2_bwd_nhwc(torch.ones_like(y), code)
+    assert int(dx.sum(dtype=torch.float64)) == y.numel()
+    assert torch.equal(dx[:, :, 1, 1::2], (code[:, :, 0] == 3).to(dx.dtype))
+
+
+# ---------------------------------------------------------------------------
+# K3 and the CE grad
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("logit_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("label_dtype", [torch.uint8, torch.int32])
+def test_ce_weighted_kernel_matches_twin(dev, logit_dtype, label_dtype):
+    p, c = 3 * 4096, 20
+    logits = (torch.randn(p, c, device=dev) * 4).to(logit_dtype)
+    labels = torch.randint(0, c, (p,), device=dev).to(label_dtype)
+    labels[::101] = 255  # out of range: picks nothing
+    weights = torch.rand(p, device=dev) * 2
+    weights[::7] = 0.0
+    got = K.ce_sum_weighted(logits, labels, weights)
+    want = K.ce_sum_weighted_plain(logits, labels, weights)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0.0)
+    assert torch.equal(got, K.ce_sum_weighted(logits, labels, weights))  # deterministic
+
+
+def _within_one_bf16_ulp(got, want, wg):
+    """|got - want| within one bf16 ulp of the larger magnitude, plus 2**-20
+    * |w * g|: at the label class softmax - 1 cancels when softmax is near
+    1, and both sides then carry their fp32 softmax error (a few 2**-24 *
+    |w * g|, which the cancellation does not shrink) into a tiny result."""
+    g, w = got.float(), want.float()
+    top = torch.maximum(g.abs(), w.abs()).clamp(min=2.0**-126)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    return bool(((g - w).abs() <= ulp + 2.0**-20 * wg.abs()).all())
+
+
+@pytest.mark.parametrize("per_pixel", [False, True])
+@pytest.mark.parametrize("logit_dtype", [torch.bfloat16, torch.float32])
+def test_ce_grad_kernel_matches_twin(dev, per_pixel, logit_dtype):
+    n, pps, c = 3, 4096, 20
+    logits = (torch.randn(n * pps, c, device=dev) * 4).to(logit_dtype)
+    labels = torch.randint(0, c, (n * pps,), device=dev, dtype=torch.uint8)
+    labels[::97] = 255
+    if per_pixel:
+        weights, arg = torch.rand(n * pps, device=dev) * 2, None
+        weights[::5] = 0.0
+    else:
+        weights, arg = torch.tensor([1.0, 0.0, 2.0], device=dev), pps
+    g = torch.tensor(0.37, device=dev)
+    got = K.ce_grad(logits, labels, weights, g, arg)
+    want = K.ce_grad_plain(logits, labels, weights, g, arg)
+    assert got.dtype == logit_dtype and got.shape == logits.shape
+    wg = (weights if per_pixel else weights.repeat_interleave(pps))[:, None] * g
+    if logit_dtype == torch.bfloat16:
+        assert _within_one_bf16_ulp(got, want, wg)
+    else:
+        # fp32: the kernel's online exp-sum and expf round differently from
+        # torch.softmax, by a few fp32 ulps of the O(1) softmax terms, which
+        # the w * g <= 0.74 factor carries into the result
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    zero = (weights == 0) if per_pixel else (weights == 0).repeat_interleave(pps)
+    assert bool((got[zero] == 0).all()) and bool((got[~zero] != 0).any())
+
+
+def test_ce_grad_64bit_indexing(dev):
+    """(P, 20) bf16 logits of more than 2**32 elements: the gradient of the
+    last rows (past element 2**31) matches the twin on them."""
+    c = 20
+    p = BIG // c
+    logits = torch.empty((p, c), dtype=torch.bfloat16, device=dev).normal_(0.0, 3.0)
+    labels = torch.randint(0, c, (p,), device=dev, dtype=torch.uint8)
+    weights = torch.ones(p, device=dev)
+    g = torch.tensor(1.0, device=dev)
+    got = K.ce_grad(logits, labels, weights, g)
+    tail = slice(p - 4096, p)
+    assert _within_one_bf16_ulp(got[tail], K.ce_grad_plain(logits[tail], labels[tail],
+                                                           weights[tail], g), g.expand(1, 1))

@@ -184,9 +184,6 @@ def test_steps_raise_for_what_is_not_ported(rng):
     images = torch.from_numpy(_images(rng, n=1))
     with pytest.raises(NotImplementedError):
         t_predict(params, images, quantized=True)
-    with pytest.raises(NotImplementedError):
-        t_eval(params, t_empty(C), images, torch.zeros(1, 64, 64, dtype=torch.uint8),
-               torch.ones(1), num_classes=C, ignore_label=255)
 
 
 # ---------------------------------------------------------------------------

@@ -3,11 +3,15 @@
 The same numpy inputs go through the JAX function (Pallas kernels in
 interpret mode, as tests/test_pallas.py runs them) and through the port's
 wrapper, which on a CPU tensor takes its kernel's plain twin. Tolerances:
-pools, the subpixel tap algebra and confusion matrices are exact (pure
-selection / integer counting); float convolutions and the CE sum differ
-only in summation order, so they are held to rtol 1e-5.
+pools (forward, code and gradient), the subpixel tap algebra and confusion
+matrices are exact (pure selection / integer counting); float convolutions
+and the CE sums differ only in summation order, so they are held to rtol
+1e-5, and CE gradients to rtol 1e-4 / atol 1e-6 (as tests/test_pallas.py
+holds the Pallas CE against XLA); bf16 CE gradients to one bf16 rounding
+(rtol 1e-2).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,17 +21,28 @@ torch.set_num_threads(2)
 
 from fcn8s_tensorflow_tpu.ops import metrics as jmetrics  # noqa: E402
 from fcn8s_tensorflow_tpu.ops import nn as jnn  # noqa: E402
+from fcn8s_tensorflow_tpu.ops import pallas_kernels as pk  # noqa: E402
 from fcn8s_tensorflow_tpu.ops import subpixel as jsub  # noqa: E402
+from fcn8s_tensorflow_tpu.ops.losses import (  # noqa: E402
+    masked_mean_softmax_cross_entropy,
+    valid_pixel_weights,
+)
 from fcn8s_tensorflow_tpu.ops.pallas_kernels import (  # noqa: E402
     confusion_matrix_pallas,
+    masked_softmax_cross_entropy_pallas,
     softmax_cross_entropy_pallas,
 )
-from fcn8s_tensorflow_tpu.ops.pallas_pool import max_pool_2x2_pallas  # noqa: E402
+from fcn8s_tensorflow_tpu.ops.pallas_pool import _fwd_impl, max_pool_2x2_pallas  # noqa: E402
 from fcn8s_tensorflow_tpu_torch.ops import kernels as K  # noqa: E402
 from fcn8s_tensorflow_tpu_torch.ops import metrics as tmetrics  # noqa: E402
 from fcn8s_tensorflow_tpu_torch.ops import subpixel as tsub  # noqa: E402
 from fcn8s_tensorflow_tpu_torch.ops.nn import nchw, nhwc  # noqa: E402
-from fcn8s_tensorflow_tpu_torch.ops.pool import maxpool2x2_nhwc  # noqa: E402
+from fcn8s_tensorflow_tpu_torch.ops.pool import (  # noqa: E402
+    maxpool2x2,
+    maxpool2x2_bwd_nhwc,
+    maxpool2x2_code_nhwc,
+    maxpool2x2_nhwc,
+)
 
 
 def _pool(x_nhwc: np.ndarray) -> np.ndarray:
@@ -135,7 +150,7 @@ def test_ce_matches_pallas_with_mask_and_out_of_range_label(rng, label_dtype):
     mask = np.array([1.0, 0.0, 1.0], np.float32)
     want = float(softmax_cross_entropy_pallas(
         jnp.asarray(logits), jnp.asarray(labels), jnp.asarray(mask), interpret=True))
-    got = K.softmax_cross_entropy_per_sample(
+    got = K.softmax_cross_entropy(
         torch.from_numpy(logits), torch.from_numpy(labels), torch.from_numpy(mask))
     assert got.dtype == torch.float32 and got.dim() == 0
     np.testing.assert_allclose(float(got), want, rtol=1e-5)
@@ -147,7 +162,7 @@ def test_ce_without_mask_matches_mean_ce(rng):
     labels = rng.integers(0, c, (2, 16, 16)).astype(np.int32)
     want = float(softmax_cross_entropy_pallas(jnp.asarray(logits), jnp.asarray(labels),
                                               interpret=True))
-    got = K.softmax_cross_entropy_per_sample(torch.from_numpy(logits), torch.from_numpy(labels))
+    got = K.softmax_cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels))
     np.testing.assert_allclose(float(got), want, rtol=1e-5)
 
 
@@ -255,3 +270,207 @@ def test_metrics_match_jax(rng):
     tf, jf = tmetrics.finalize_metrics(ts), jmetrics.finalize_metrics(js)
     for key in ("loss", "mean_iou", "accuracy"):
         np.testing.assert_allclose(float(tf[key]), float(jf[key]), rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# K4a/K4b: the pool under autograd
+# ---------------------------------------------------------------------------
+
+
+def _ties(rng, shape):
+    """Values on a coarse grid, so most windows hold ties."""
+    return np.round(rng.standard_normal(shape) * 2).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 8, 64), (2, 32, 16, 128)])
+def test_pool_autograd_gradient_bit_exact_with_jax(rng, shape):
+    """The port's pool under autograd (the K4a/K4b pair's plain twins on
+    the CPU) routes dy exactly as JAX's Pallas VJP and XLA's
+    select-and-scatter do, ties included; y is bit-exact too."""
+    x = _ties(rng, shape)
+    dy = rng.standard_normal((shape[0], shape[1] // 2, shape[2] // 2, shape[3])).astype(np.float32)
+    jx, jdy = jnp.asarray(x), jnp.asarray(dy)
+    want_pallas = np.asarray(jax.vjp(lambda t: max_pool_2x2_pallas(t, True), jx)[1](jdy)[0])
+    want_xla = np.asarray(jax.vjp(jnn.max_pool_2x2, jx)[1](jdy)[0])
+    tx = nchw(torch.from_numpy(x)).contiguous(memory_format=torch.channels_last).requires_grad_()
+    y = maxpool2x2(tx)
+    assert "MaxPool2x2" in type(y.grad_fn).__name__
+    y.backward(nchw(torch.from_numpy(dy)))
+    got = nhwc(tx.grad).numpy()
+    np.testing.assert_array_equal(got, want_pallas)
+    np.testing.assert_array_equal(got, want_xla)
+    np.testing.assert_array_equal(nhwc(y.detach()).numpy(), np.asarray(jnn.max_pool_2x2(jx)))
+
+
+def test_pool_code_twin_matches_pallas_fwd_impl(rng):
+    x = _ties(rng, (2, 16, 8, 64))
+    y, code = maxpool2x2_code_nhwc(nchw(torch.from_numpy(x)))
+    want_y, want_code = _fwd_impl(jnp.asarray(x), interpret=True)
+    assert code.dtype == torch.uint8 and code.is_contiguous(memory_format=torch.channels_last)
+    np.testing.assert_array_equal(nhwc(code).numpy(),
+                                  np.asarray(want_code).reshape(nhwc(code).shape))
+    np.testing.assert_array_equal(nhwc(y).numpy(), np.asarray(want_y))
+
+
+def test_pool_bwd_twin_writes_zero_off_the_code(rng):
+    dy = torch.from_numpy(rng.standard_normal((1, 4, 3, 5)).astype(np.float32))
+    code = torch.from_numpy(rng.integers(0, 4, (1, 4, 3, 5)).astype(np.uint8))
+    dx = maxpool2x2_bwd_nhwc(dy, code)
+    assert dx.shape == (1, 4, 6, 10)
+    windows = dx.view(1, 4, 3, 2, 5, 2).permute(0, 1, 2, 4, 3, 5).reshape(1, 4, 3, 5, 4)
+    assert torch.equal(windows.gather(-1, code.long()[..., None])[..., 0], dy)
+    assert int((windows != 0).sum()) == int((dy != 0).sum())
+
+
+def test_pool_without_grad_takes_the_forward_only_kernel(rng):
+    x = nchw(torch.from_numpy(_ties(rng, (1, 4, 4, 8)))).requires_grad_()
+    with torch.no_grad():
+        assert maxpool2x2(x).grad_fn is None
+    assert maxpool2x2(x).grad_fn is not None
+
+
+@pytest.mark.parametrize("call, match", [
+    (lambda: maxpool2x2_code_nhwc(_meta((2, 64, 15, 16))), "even"),
+    (lambda: maxpool2x2_code_nhwc(_meta((2, 64, 16, 16), channels_last=False)), "channels_last"),
+    (lambda: maxpool2x2_code_nhwc(_meta((2, 64, 16, 16))), "CUDA"),
+    (lambda: maxpool2x2_bwd_nhwc(_meta((2, 8, 4, 4)), _meta((2, 8, 4, 4), torch.uint8)), "CUDA"),
+    (lambda: maxpool2x2_bwd_nhwc(_meta((2, 8, 4, 4), channels_last=False),
+                                 _meta((2, 8, 4, 4), torch.uint8)), "channels_last"),
+    (lambda: maxpool2x2_bwd_nhwc(_meta((2, 8, 4, 4)), _meta((2, 8, 4, 4))), "uint8"),
+    (lambda: maxpool2x2_bwd_nhwc(_meta((2, 8, 4, 4), torch.float16),
+                                 _meta((2, 8, 4, 4), torch.uint8)), "bf16 or fp32"),
+])
+def test_pool_pair_wrappers_reject_what_the_kernels_do_not_take(call, match):
+    with pytest.raises(ValueError, match=match):
+        call()
+
+
+# ---------------------------------------------------------------------------
+# K1/K3 under autograd, the CE-grad kernel and the masked path
+# ---------------------------------------------------------------------------
+
+
+def _ce_inputs(rng, c=7, shape=(3, 8, 16)):
+    logits = rng.normal(size=shape + (c,)).astype(np.float32) * 3
+    labels = rng.integers(0, c, shape).astype(np.int32)
+    return logits, labels
+
+
+def _port_value_and_grad(fn, logits, *args):
+    t = torch.from_numpy(logits).requires_grad_()
+    value = fn(t, *args)
+    value.backward()
+    return float(value.detach()), t.grad.numpy()
+
+
+def _jax_value_and_grad(fn, logits, *args):
+    value, grad = jax.value_and_grad(fn)(jnp.asarray(logits), *args)
+    return float(value), np.asarray(grad)
+
+
+def _assert_ce_close(got, want):
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-4, atol=1e-6)
+
+
+def test_ce_per_sample_value_and_grad_match_pallas(rng):
+    logits, labels = _ce_inputs(rng)
+    mask = np.array([1.0, 0.0, 1.0], np.float32)
+    want = _jax_value_and_grad(lambda l: softmax_cross_entropy_pallas(
+        l, jnp.asarray(labels), jnp.asarray(mask), chunk=128, interpret=True), logits)
+    got = _port_value_and_grad(K.softmax_cross_entropy, logits, torch.from_numpy(labels),
+                               torch.from_numpy(mask))
+    _assert_ce_close(got, want)
+    assert np.all(got[1][1] == 0)  # the masked sample
+
+
+def test_ce_dense_pixel_weights_match_pallas(rng):
+    logits, labels = _ce_inputs(rng)
+    labels[0, 0, :3] = 200  # out of range: picks nothing, one-hots to zeros
+    weights = rng.uniform(0, 2, labels.shape).astype(np.float32)
+    weights[1, 2] = 0.0
+    want = _jax_value_and_grad(lambda l: softmax_cross_entropy_pallas(
+        l, jnp.asarray(labels), jnp.asarray(weights), chunk=128, interpret=True), logits)
+    got = _port_value_and_grad(K.softmax_cross_entropy, logits, torch.from_numpy(labels),
+                               torch.from_numpy(weights))
+    _assert_ce_close(got, want)
+
+
+def test_masked_ce_matches_pallas_with_exact_zeros(rng):
+    """K3 with valid-pixel weights meets the masked path's contract: the
+    weighted-valid-count mean, and exactly zero gradient where ignored."""
+    logits, labels = _ce_inputs(rng)
+    labels[rng.random(labels.shape) < 0.3] = 255
+    mask = np.array([1.0, 1.0, 0.0], np.float32)
+    want = _jax_value_and_grad(lambda l: masked_softmax_cross_entropy_pallas(
+        l, jnp.asarray(labels), jnp.asarray(mask), 255, chunk=128, interpret=True), logits)
+    got = _port_value_and_grad(K.masked_softmax_cross_entropy, logits, torch.from_numpy(labels),
+                               torch.from_numpy(mask), 255)
+    _assert_ce_close(got, want)
+    ignored = labels == 255
+    assert np.all(got[1][ignored] == 0) and np.abs(got[1][:2][~ignored[:2]]).max() > 0
+    np.testing.assert_allclose(got[0], float(masked_mean_softmax_cross_entropy(
+        jnp.asarray(logits), jnp.asarray(labels),
+        valid_pixel_weights(jnp.asarray(labels), jnp.asarray(mask), 255))), rtol=1e-5)
+
+
+def test_masked_ce_all_ignored_is_zero(rng):
+    logits, labels = _ce_inputs(rng)
+    labels[:] = 255
+    value, grad = _port_value_and_grad(K.masked_softmax_cross_entropy, logits,
+                                       torch.from_numpy(labels), torch.ones(3), 255)
+    assert value == 0.0 and np.all(grad == 0)
+
+
+def test_ce_bf16_logits_keep_a_bf16_gradient(rng):
+    logits, labels = _ce_inputs(rng)
+    t = torch.from_numpy(logits).to(torch.bfloat16).requires_grad_()
+    loss = K.softmax_cross_entropy(t, torch.from_numpy(labels).to(torch.uint8))
+    loss.backward()
+    assert loss.dtype == torch.float32 and t.grad.dtype == torch.bfloat16
+    want = jax.grad(lambda l: softmax_cross_entropy_pallas(
+        l, jnp.asarray(labels), chunk=128, interpret=True))(jnp.asarray(logits, jnp.bfloat16))
+    np.testing.assert_allclose(t.grad.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               rtol=1e-2, atol=1e-6)
+
+
+def test_ce_grad_twin_weight_modes_agree(rng):
+    """The per-sample mode equals the per-pixel mode with the mask spread
+    over each sample's pixels."""
+    logits, labels = _ce_inputs(rng)
+    flat = torch.from_numpy(logits.reshape(-1, 7))
+    ids = torch.from_numpy(labels.reshape(-1))
+    mask = torch.tensor([1.0, 0.0, 2.0])
+    g = torch.tensor(0.25)
+    per_sample = K.ce_grad(flat, ids, mask, g, 128)
+    per_pixel = K.ce_grad(flat, ids, mask.repeat_interleave(128), g)
+    torch.testing.assert_close(per_sample, per_pixel, rtol=1e-6, atol=0)
+
+
+def test_ce_sum_weighted_matches_pallas_sum(rng):
+    logits, labels = _ce_inputs(rng)
+    weights = rng.uniform(0, 1, labels.shape).astype(np.float32)
+    got = K.ce_sum_weighted(torch.from_numpy(logits.reshape(-1, 7)),
+                            torch.from_numpy(labels.reshape(-1)),
+                            torch.from_numpy(weights.reshape(-1)))
+    want = pk._ce_sum_impl(jnp.asarray(logits.reshape(-1, 7)),
+                           jnp.asarray(labels.reshape(-1, 1)), jnp.asarray(weights.reshape(-1, 1)),
+                           num_classes=7, chunk=128, interpret=True)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+
+
+def test_ce_kernel_wrappers_reject_what_the_kernels_do_not_take():
+    logits = torch.empty((64, 5), dtype=torch.bfloat16, device="meta")
+    labels = torch.empty((64,), dtype=torch.uint8, device="meta")
+    weights = torch.empty((64,), dtype=torch.float32, device="meta")
+    g = torch.empty((), dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        K.ce_sum_weighted(logits, labels, weights)
+    with pytest.raises(ValueError, match="float32"):
+        K.ce_sum_weighted(logits, labels, weights[:32])
+    with pytest.raises(ValueError, match="CUDA"):
+        K.ce_grad(logits, labels, weights, g)
+    with pytest.raises(ValueError, match="split"):
+        K.ce_grad(logits, labels, weights[:3], g, 32)
+    with pytest.raises(ValueError, match="one-element"):
+        K.ce_grad(logits, labels, weights, g.to(torch.float64))
