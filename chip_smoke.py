@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, eval and training paths once on one CUDA card.
+"""Drive the PyTorch port's serving, eval, training, KB calibration and
+checkpoint paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -32,12 +33,22 @@ Phases, in order; any failure raises and the script exits non-zero:
 12. the weighted train path: ``ignore_label`` and ``class_weights`` (K3);
 13. train-step times: host clock, images/s, the CUDA-event split into
     forward, backward and optimizer, peak memory, fc6's share, and
-    ``gradient_accumulation=2``.
+    ``gradient_accumulation=2``;
+14. the conv1 calibration (KB, ``ops/conv1_core.py``) at the calibration
+    script's full shape and data: KB against its twin, then KB, the twin and
+    cuDNN's conv1_2 forward + ReLU timed (ms, TFLOP/s);
+15. persistence at full width, from phase 10's model: a blocking ``save``
+    and ``FCN8s(model_load_dir=...)`` restore params, step and Adam state
+    bit-equal and predict the same ids; one more step from each gives the
+    same loss; ``save(block=False)`` while two steps run holds the state of
+    the call; the serving CLI serves the checkpoint (/healthz, /predict);
+    checkpoint size, save, async-call and load times. The files live in a
+    temporary directory, removed at the end.
 
 Kernel launch counts are zeroed just before each path is driven and read
-just after it: serving + evaluation (phases 5-6), training (phase 10) and
-the weighted training (phase 12); every kernel of a path must have
-launched. The line before the last is ``{"kernels": [...]}`` (``launches``
+just after it: serving + evaluation (phases 5-6), training (phase 10), the
+weighted training (phase 12) and the conv1 calibration's timed runs (phase
+14); every kernel of a path must have launched. The line before the last is ``{"kernels": [...]}`` (``launches``
 from the path named in ``path``); the last is ``{"ok": true, "device":
 {...}}``.
 """
@@ -47,8 +58,11 @@ from __future__ import annotations
 import io
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
+import tempfile
 import threading
 import time
 import urllib.error
@@ -60,11 +74,13 @@ import torch.nn.functional as F
 from PIL import Image
 
 from fcn8s_tensorflow_tpu_torch import bridge
+from fcn8s_tensorflow_tpu_torch.engine import serving
 from fcn8s_tensorflow_tpu_torch.engine.model import FCN8s
 from fcn8s_tensorflow_tpu_torch.engine.serving import InferenceService, make_server
 from fcn8s_tensorflow_tpu_torch.kernels import build
 from fcn8s_tensorflow_tpu_torch.labels import TRAINIDS_TO_RGBA_DICT
 from fcn8s_tensorflow_tpu_torch.models.fcn8s import apply_fcn8s, decoder_l2_loss
+from fcn8s_tensorflow_tpu_torch.ops import conv1_core as KB
 from fcn8s_tensorflow_tpu_torch.ops import kernels as K
 from fcn8s_tensorflow_tpu_torch.ops import pool as P
 from fcn8s_tensorflow_tpu_torch.ops.metrics import empty_metrics_state
@@ -82,7 +98,8 @@ WRAPPERS = {"maxpool2x2_nhwc": maxpool2x2_nhwc, "ce_sum_per_sample": K.ce_sum_pe
             "confusion_matrix_accumulate": K.confusion_matrix_accumulate,
             "maxpool2x2_code_nhwc": P.maxpool2x2_code_nhwc,
             "maxpool2x2_bwd_nhwc": P.maxpool2x2_bwd_nhwc,
-            "ce_sum_weighted": K.ce_sum_weighted, "ce_grad": K.ce_grad}
+            "ce_sum_weighted": K.ce_sum_weighted, "ce_grad": K.ce_grad,
+            "conv1_core": KB.conv1_core}
 SOURCES = {
     "maxpool2x2_nhwc": ("fcn8s_tensorflow_tpu_torch/csrc/maxpool2x2.cu",
                         "fcn8s_tensorflow_tpu/ops/pallas_pool.py:96"),
@@ -100,6 +117,8 @@ SOURCES = {
     # and _ce_sum_bwd (:190), which XLA fused
     "ce_grad": ("fcn8s_tensorflow_tpu_torch/csrc/ce_grad.cu",
                 "fcn8s_tensorflow_tpu/ops/pallas_kernels.py:267"),
+    "conv1_core": ("fcn8s_tensorflow_tpu_torch/csrc/conv1_core.cu",
+                   "benchmarks/conv1_block_calibration.py:53"),
 }
 
 
@@ -576,7 +595,7 @@ def phase_train(dev) -> tuple[FCN8s, dict]:
     counts = read_counts()
     want = {"maxpool2x2_code_nhwc": 40, "maxpool2x2_bwd_nhwc": 40, "ce_sum_per_sample": 12,
             "ce_grad": 8, "ce_sum_weighted": 0, "maxpool2x2_nhwc": 20,
-            "confusion_matrix_accumulate": 4}
+            "confusion_matrix_accumulate": 4, "conv1_core": 0}
     check(counts == want, f"train launched {counts}, expected {want}")
     check(math.isfinite(model.training_loss), f"training loss {model.training_loss}")
     check(not torch.equal(model.params["encoder"]["conv1_1"]["weight"], w0), "params did not move")
@@ -715,6 +734,182 @@ def phase_train_times(dev, model: FCN8s, smi: str) -> None:
           f"backward {fc6_bwd:.2f} ms = {(fc6_fwd + fc6_bwd) / step_ms:.1%} of the step")
 
 
+# ---------------------------------------------------------------------------
+# the conv1 calibration (KB) and persistence
+# ---------------------------------------------------------------------------
+
+
+def phase_conv1_calibration(dev, smi: str) -> tuple[dict, dict]:
+    """KB at the calibration script's shape and data: checked against its
+    twin (one launch, before the counted window), then the script's timings
+    with the counts zeroed. Returns (measured, launch counts)."""
+    inputs = KB.calibration_inputs(dev)
+    checked = KB.check_against_twin(inputs)
+    zero_counts()
+    times = KB.time_calibration(inputs)
+    counts = read_counts()
+    check(counts["conv1_core"] > 0, "the calibration never launched conv1_core")
+    del inputs
+    torch.cuda.empty_cache()
+    print(f"conv1 calibration on {smi}, x ({KB.CAL_TILES * KB.TH}, {KB.CAL_W}, {KB.C}) bf16, "
+          f"{times['gflop']:.1f} GFLOP: KB {times['ms']:.4f} ms ({times['tflops']:.1f} TFLOP/s), "
+          f"twin (fp32, TF32 off) {times['plain_ms']:.4f} ms ({times['plain_tflops']:.1f} "
+          f"TFLOP/s), cuDNN conv1_2 + ReLU (8, 1024, 512, 64) bf16 {times['cudnn_ms']:.4f} ms "
+          f"({times['cudnn_tflops']:.1f} TFLOP/s); KB vs twin max |diff| "
+          f"{checked['max_abs_err']:.4g} of max |twin| {checked['max_abs_ref']:.4g}, every "
+          f"element within 2^-7 |twin| + 2^-7; launches {counts['conv1_core']}")
+    measured = {"max_abs_err": checked["max_abs_err"], "ms": times["ms"],
+                "plain_ms": times["plain_ms"], "cudnn_conv1_2_ms": times["cudnn_ms"],
+                "tflops": times["tflops"], "plain_tflops": times["plain_tflops"],
+                "cudnn_conv1_2_tflops": times["cudnn_tflops"]}
+    return measured, counts
+
+
+def _by_path(params: dict, tensors: list) -> dict:
+    return dict(zip(bridge.jax_leaf_paths(params), tensors))
+
+
+def _assert_same_state(a: FCN8s, b_params: dict, b_step: int, b_opt, what: str) -> None:
+    """``a``'s params, step and Adam state bit-equal to the others."""
+    check(a.state.step == b_step, f"{what}: step {a.state.step} vs {b_step}")
+    pa, pb = (_by_path(a.params, bridge.param_leaves(a.params)),
+              _by_path(b_params, bridge.param_leaves(b_params)))
+    check(pa.keys() == pb.keys() and all(torch.equal(pa[k].detach(), pb[k].detach().to(pa[k].device))
+                                         for k in pa), f"{what}: params differ")
+    oa = a.state.opt_state
+    check(oa.count == b_opt.count and oa.inner.count == b_opt.inner.count,
+          f"{what}: optimizer counts {oa.count}/{oa.inner.count} vs "
+          f"{b_opt.count}/{b_opt.inner.count}")
+    for moment in ("mu", "nu"):
+        ma = _by_path(a.params, getattr(oa.inner, moment))
+        mb = _by_path(b_params, getattr(b_opt.inner, moment))
+        check(all(torch.equal(ma[k], mb[k].to(ma[k].device)) for k in ma),
+              f"{what}: Adam {moment} differs")
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def phase_persistence(dev, model: FCN8s, smi: str) -> None:
+    """Save, restore, continue and serve the full-width model of phase 10."""
+    rng = np.random.default_rng(11)
+    images, labels = _synthetic(rng, BATCH)
+    model._refresh_run_params()  # phase 13 stepped the masters directly
+    root = tempfile.mkdtemp(prefix="fcn8s_ckpt_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = model.save(os.path.join(root, "blocking"), force_save=True)
+        save_s = time.perf_counter() - t0
+        size = _dir_bytes(path)
+        t0 = time.perf_counter()
+        loaded = FCN8s(model_load_dir=path, device=dev)
+        load_s = time.perf_counter() - t0
+        check(loaded._staged_opt_state is not None
+              and all(t.device.type == "cpu" for t in loaded._staged_opt_state.inner.mu),
+              "the restored Adam moments are not staged on the host")
+        loaded.state.opt_state = loaded._staged_opt_state  # compared on the host, as staged
+        _assert_same_state(loaded, model.params, model.state.step, model.state.opt_state,
+                           "blocking save + load")
+        loaded.state.opt_state = None
+        check(np.array_equal(model.predict(images), loaded.predict(images)),
+              "the restored model predicts other ids")
+
+        # one more step from each: the same loss (dropout off, cuDNN deterministic)
+        det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        losses = []
+        for m in (model, loaded):
+            m.train(iter([(images, labels)]), 1, 1, lambda s: 1e-4, keep_prob=1.0,
+                    record_summaries=False, prefetch=0)
+            losses.append(m.training_loss)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+        check(math.isclose(losses[0], losses[1], rel_tol=1e-6), f"one more step: losses {losses}")
+        pa = _by_path(loaded.params, bridge.param_leaves(loaded.params))
+        pb = _by_path(model.params, bridge.param_leaves(model.params))
+        step_diff = max(float((pa[k].detach() - pb[k].detach()).abs().max()) for k in pa)
+        loaded.close()
+        del loaded
+        torch.cuda.empty_cache()
+
+        # an async save while two steps run holds the state of the call
+        want_params = {k: t.detach().clone() for k, t in
+                       _by_path(model.params, bridge.param_leaves(model.params)).items()}
+        inner = model.state.opt_state.inner
+        want_mu = {k: t.clone() for k, t in _by_path(model.params, inner.mu).items()}
+        want_nu = {k: t.clone() for k, t in _by_path(model.params, inner.nu).items()}
+        want_step, want_counts = model.state.step, (model.state.opt_state.count, inner.count)
+        im, lb = torch.from_numpy(images).to(dev), torch.from_numpy(labels).to(dev)
+        mask = torch.ones(BATCH, device=dev)
+
+        def two_steps() -> float:
+            t0 = time.perf_counter()
+            for _ in range(2):
+                S.train_step(model.state, im, lb, mask, 0, 1e-4, 0.0, 1.0,
+                             optimizer=model.optimizer, num_classes=C)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path2 = model.save(os.path.join(root, "async"), force_save=True, block=False)
+        call_ms = (time.perf_counter() - t0) * 1e3
+        during_ms = two_steps()  # in place, while the writer copies and writes the snapshot
+        t0 = time.perf_counter()
+        model._join_pending_save()
+        join_ms = (time.perf_counter() - t0) * 1e3
+        alone_ms = two_steps()
+        snap = FCN8s(model_load_dir=path2, device=dev)
+        snap_opt = snap._staged_opt_state
+        check(snap.state.step == want_step and (snap_opt.count, snap_opt.inner.count) == want_counts,
+              "the async checkpoint's step or counts are not the call's")
+        got = _by_path(snap.params, bridge.param_leaves(snap.params))
+        got_mu, got_nu = _by_path(snap.params, snap_opt.inner.mu), _by_path(snap.params,
+                                                                              snap_opt.inner.nu)
+        check(all(torch.equal(got[k].detach(), want_params[k]) for k in want_params)
+              and all(torch.equal(got_mu[k], want_mu[k].cpu()) for k in want_mu)
+              and all(torch.equal(got_nu[k], want_nu[k].cpu()) for k in want_nu),
+              "the async checkpoint does not hold the state of the call")
+        check(not all(torch.equal(t.detach(), want_params[k]) for k, t in
+                      _by_path(model.params, bridge.param_leaves(model.params)).items()),
+              "the two steps after the async save did not move the params")
+        snap.close()
+        del snap, want_params, want_mu, want_nu
+        torch.cuda.empty_cache()
+
+        # the serving CLI on that directory
+        server = serving.main([path2, "0"], serve=False)  # --device cuda, the default
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = "http://127.0.0.1:%d" % server.server_address[1]
+        try:
+            with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+                health = json.loads(r.read())
+            check(health["status"] == "ok" and health["model_config"] == model.model_config,
+                  f"/healthz of the served checkpoint: {health}")
+            status, body = _post(base + "/predict", _png(images[0]))
+            ids = _decode(body)
+            check(status == 200 and ids.shape == (TH, TW) and int(ids.max()) < C,
+                  f"/predict of the served checkpoint gave {status}")
+        finally:
+            server.shutdown()
+            server.server_close()
+            server.service.close()
+            thread.join(timeout=60)
+            server.service.model.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"persistence on {smi} at full width: checkpoint {size / 1e9:.4f} GB "
+          f"({size} bytes: fp32 params + Adam mu, nu); blocking save {save_s:.3f} s, load "
+          f"{load_s:.3f} s (moments staged on the host); params, step and Adam state bit-equal, "
+          f"ids equal; one more step from each: losses {losses[0]!r} and {losses[1]!r}, params "
+          f"then differ by {step_diff:.3g} at most; save(block=False) returned in {call_ms:.1f} "
+          f"ms, 2 train steps during the write took {during_ms:.1f} ms vs {alone_ms:.1f} ms "
+          f"alone, the writer finished {join_ms:.1f} ms after them; its checkpoint = the state "
+          f"of the call; the serving CLI served it (/healthz, /predict)")
+
+
 def main() -> None:
     smi = phase_card()
     dev = torch.device("cuda", 0)
@@ -739,12 +934,18 @@ def main() -> None:
     phase_learnable(dev)
     weighted_counts = phase_weighted(dev, trained)
     phase_train_times(dev, trained, smi)
+    conv1_measured, conv1_counts = phase_conv1_calibration(dev, smi)
+    measured["conv1_core"] = conv1_measured
+    phase_persistence(dev, trained, smi)
     trained.close()
-    paths = {"serve+eval": serve_counts, "train": train_counts, "train weighted": weighted_counts}
+    paths = {"serve+eval": serve_counts, "train": train_counts, "train weighted": weighted_counts,
+             "conv1 calibration": conv1_counts}
     source_path = {"maxpool2x2_nhwc": "serve+eval", "ce_sum_per_sample": "serve+eval",
                    "confusion_matrix_accumulate": "serve+eval", "maxpool2x2_code_nhwc": "train",
                    "maxpool2x2_bwd_nhwc": "train", "ce_grad": "train",
-                   "ce_sum_weighted": "train weighted"}
+                   "ce_sum_weighted": "train weighted", "conv1_core": "conv1 calibration"}
+    for name in WRAPPERS:
+        check(paths[source_path[name]][name] > 0, f"{name} never launched on its path")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],
          "launches": paths[source_path[name]][name], "path": source_path[name], **measured[name]}

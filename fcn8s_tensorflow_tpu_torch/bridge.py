@@ -31,15 +31,22 @@ def _is_deconv(name: str) -> bool:
     return name.endswith("_deconv")
 
 
+def _fp32_copy(x) -> torch.Tensor:
+    """A CPU fp32 tensor that owns its memory, from an array or a tensor."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", torch.float32, copy=True)
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
 def to_port(tree: dict, *, device="cpu") -> dict:
     """JAX-layout tree of numpy arrays or tensors -> port params (fp32, on
-    ``device``)."""
+    ``device``, copies of the tree's leaves)."""
     out = {}
     for part, layers in tree.items():
         out[part] = {}
         for name, layer in layers.items():
-            kernel = torch.from_numpy(np.array(layer["kernel"], dtype=np.float32))
-            bias = torch.from_numpy(np.array(layer["bias"], dtype=np.float32))
+            kernel = _fp32_copy(layer["kernel"])
+            bias = _fp32_copy(layer["bias"])
             if _is_deconv(name):
                 entry = {"kernel": kernel, "bias": bias}
             else:
@@ -69,6 +76,38 @@ def param_leaves(params: dict) -> list[torch.Tensor]:
     """The master tensors of a port tree, in one fixed order (the order of
     the gradients ``parallel.steps`` computes)."""
     return [t for layers in params.values() for layer in layers.values() for t in layer.values()]
+
+
+def jax_leaf_paths(params: dict) -> list[str]:
+    """The JAX tree path (``'encoder/conv1_1/kernel'``) of each tensor of
+    ``param_leaves(params)``, in that order."""
+    return [f"{part}/{name}/{'bias' if key == 'bias' else 'kernel'}"
+            for part, layers in params.items() for name, layer in layers.items() for key in layer]
+
+
+def jax_order(params: dict) -> list[int]:
+    """Indices into ``param_leaves(params)`` in the JAX package's flatten
+    order: keys sorted at every level (``decoder`` before ``encoder``,
+    ``bias`` before ``kernel``), which is the order of a checkpoint's
+    leaves."""
+    paths = jax_leaf_paths(params)
+    return sorted(range(len(paths)), key=lambda i: paths[i].split("/"))
+
+
+def leaf_to_jax(t: torch.Tensor, path: str) -> torch.Tensor:
+    """A leaf of the port's tree (or a tensor shaped like it, e.g. an Adam
+    moment) in the JAX layout of ``path``: a view, OIHW -> HWIO for a
+    convolution's kernel, as it is otherwise."""
+    _, name, key = path.split("/")
+    return t.permute(2, 3, 1, 0) if key == "kernel" and not _is_deconv(name) else t
+
+
+def leaf_from_jax(t: torch.Tensor, path: str) -> torch.Tensor:
+    """Inverse of ``leaf_to_jax``: a contiguous tensor in the port's layout."""
+    _, name, key = path.split("/")
+    if key == "kernel" and not _is_deconv(name):
+        t = t.permute(3, 2, 0, 1)
+    return t.contiguous()
 
 
 def cast_params(params: dict, dtype: torch.dtype) -> dict:

@@ -1,19 +1,25 @@
-"""A slim ``FCN8s`` facade for training, serving and evaluation on one card.
+"""A slim ``FCN8s`` facade for training, serving, evaluation and
+checkpoints on one card.
 
-Port of ``fcn8s_tensorflow_tpu/engine/model.py``: construction from a seed
-or from a JAX param tree, ``train`` (LR schedule, dropout, L2, gradient
-accumulation, class weights, ignore_label, periodic evaluation, best-value
-bookkeeping, a JSONL train log, prefetch), ``predict`` (stride-32 padding
-and crop back, on-device overlay), ``evaluate`` and ``close``, with the JAX
-facade's argument names. Checkpoints, summaries, tiling, TTA, EMA, int8,
-device augmentation, the plateau and early-stopping observers and spatial
-partitioning belong to later parts of the port: their arguments are
-accepted and raise ``NotImplementedError`` when set.
+Port of ``fcn8s_tensorflow_tpu/engine/model.py``: construction from a seed,
+a JAX param tree, a checkpoint (``model_load_dir``, ``resume``) or a partial
+restore on a fresh model (``variables_load_dir``, ``vgg16_dir``); ``train``
+(LR schedule, dropout, L2, gradient accumulation, class weights,
+ignore_label, periodic evaluation, best-value bookkeeping, periodic and
+best-only asynchronous saves, a JSONL train log, prefetch); ``predict``
+(stride-32 padding and crop back, on-device overlay); ``evaluate``;
+``save``/``load_variables``; and ``close``, with the JAX facade's argument
+names. Checkpoints are the JAX package's format (``engine/checkpoint.py``):
+one written by either package loads in the other. Summaries, tiling, TTA,
+EMA, int8, device augmentation, the plateau and early-stopping observers
+and spatial partitioning belong to later parts of the port: their
+arguments are accepted and raise ``NotImplementedError`` when set.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import time
 from collections import deque
 
@@ -21,6 +27,7 @@ import numpy as np
 import torch
 
 from .. import bridge
+from . import checkpoint as ckpt
 from ..data.prefetch import DevicePrefetcher, host_tensors, to_device
 from ..models.fcn8s import decoder_variant, init_fcn8s
 from ..ops.metrics import empty_metrics_state, finalize_metrics
@@ -47,31 +54,84 @@ class FCN8s:
     whose leaves require grad) and, for inference, once more in
     ``compute_dtype`` (rebuilt whenever training moved the masters).
 
-    Arguments follow the JAX facade: ``num_classes``; ``width_mult`` and
-    ``fc_channels`` for width-scaled test models; ``variant`` 'fcn8s',
-    'fcn16s' or 'fcn32s'; ``compute_dtype`` (bf16 by default);
-    ``bilinear_deconv_init``; ``seed`` for the fresh init, drawn from a
-    ``torch.Generator`` (not JAX's stream: use ``from_params`` to load the
-    JAX package's weights), and for the training dropout draws; ``remat``
-    (checkpoint each encoder block and the head in training);
-    ``ignore_label`` (pixels of that GT id get no loss and no gradient);
-    ``optimizer`` ('adam' — TF1-exact, the default — 'adamw', 'momentum',
-    'sgd', or an ``Optimizer`` from ``parallel.steps.make_optimizer``) with
-    ``optimizer_kwargs`` and ``clip_norm``."""
+    Arguments follow the JAX facade: ``num_classes``, or ``model_load_dir``
+    (a checkpoint directory: its ``model_config``, params, global step and
+    optimizer state are restored, the compute dtype too unless
+    ``compute_dtype`` is given, and the optimizer is rebuilt from its saved
+    name; a user-supplied ``Optimizer`` cannot be combined with it);
+    ``variables_load_dir`` (a checkpoint whose params replace a fresh
+    model's) and ``vgg16_dir`` (one whose encoder params do, loaded first);
+    ``width_mult`` and ``fc_channels`` for width-scaled test models;
+    ``variant`` 'fcn8s', 'fcn16s' or 'fcn32s'; ``compute_dtype`` (bf16 by
+    default); ``bilinear_deconv_init``; ``seed`` for the fresh init, drawn
+    from a ``torch.Generator`` (not JAX's stream: load a JAX checkpoint or
+    use ``from_params`` for the JAX package's weights), and for the training
+    dropout draws; ``remat`` (checkpoint each encoder block and the head in
+    training); ``ignore_label`` (pixels of that GT id get no loss and no
+    gradient); ``optimizer`` ('adam' — TF1-exact, the default — 'adamw',
+    'momentum', 'sgd', or an ``Optimizer`` from
+    ``parallel.steps.make_optimizer``) with ``optimizer_kwargs`` and
+    ``clip_norm``."""
 
-    def __init__(self, num_classes: int, *, width_mult: float = 1.0,
-                 fc_channels: int | None = None, variant: str = "fcn8s",
-                 compute_dtype=torch.bfloat16, bilinear_deconv_init: bool = False,
-                 seed: int = 0, device="cpu", remat: bool = False, ignore_label: int | None = None,
-                 optimizer="adam", optimizer_kwargs: dict | None = None,
-                 clip_norm: float | None = None):
-        gen = torch.Generator().manual_seed(seed)
-        tree = init_fcn8s(gen, num_classes, bilinear_deconv_init=bilinear_deconv_init,
-                          width_mult=width_mult, fc_channels=fc_channels, variant=variant)
-        self._setup(tree, width_mult=width_mult, fc_channels=fc_channels,
-                    compute_dtype=compute_dtype, device=device, seed=seed, remat=remat,
-                    ignore_label=ignore_label, optimizer=optimizer,
-                    optimizer_kwargs=optimizer_kwargs, clip_norm=clip_norm)
+    def __init__(self, num_classes: int | None = None, *, model_load_dir=None,
+                 variables_load_dir=None, vgg16_dir=None, width_mult: float = 1.0,
+                 fc_channels: int | None = None, variant: str = "fcn8s", compute_dtype=None,
+                 bilinear_deconv_init: bool = False, seed: int = 0, device="cpu",
+                 remat: bool = False, ignore_label: int | None = None, optimizer="adam",
+                 optimizer_kwargs: dict | None = None, clip_norm: float | None = None):
+        if model_load_dir is None and num_classes is None:
+            raise ValueError(
+                "You must provide either `model_load_dir` or `num_classes` "
+                "(optionally with `vgg16_dir` for pretrained encoder weights).")
+        restored = None
+        if model_load_dir is not None:
+            cfg = ckpt.load_metadata(model_load_dir)["model_config"]
+            width_mult = cfg.get("width_mult", 1.0)
+            fc_channels = cfg.get("fc_channels")
+            ignore_label = cfg.get("ignore_label")
+            if compute_dtype is None:  # the checkpoint's own, as in the JAX facade
+                compute_dtype = getattr(torch, cfg.get("compute_dtype", "bfloat16"))
+            # the optimizer state only restores into the matching rule
+            if not isinstance(optimizer, str):
+                raise ValueError(
+                    "model_load_dir restores the checkpoint's own optimizer "
+                    "config; a custom Optimizer cannot be combined with it (use "
+                    "variables_load_dir to load weights into a freshly-configured "
+                    "model instead)")
+            optimizer = cfg.get("optimizer", "adam")
+            if optimizer == "custom":
+                raise ValueError(
+                    "this checkpoint was trained with a user-supplied optimizer, "
+                    "which cannot be rebuilt from config; construct "
+                    "FCN8s(num_classes=..., optimizer=<yours>, variables_load_dir=...) "
+                    "to restore the weights into it instead")
+            optimizer_kwargs = cfg.get("optimizer_kwargs")
+            clip_norm = cfg.get("clip_norm")
+            restored = ckpt.load_checkpoint(model_load_dir, make_optimizer(
+                optimizer, clip_norm=clip_norm, **(optimizer_kwargs or {})))
+            params = restored["params"]
+        else:
+            gen = torch.Generator().manual_seed(seed)
+            params = bridge.to_port(init_fcn8s(
+                gen, num_classes, bilinear_deconv_init=bilinear_deconv_init,
+                width_mult=width_mult, fc_channels=fc_channels, variant=variant))
+        self._setup(params, width_mult=width_mult, fc_channels=fc_channels,
+                    compute_dtype=torch.bfloat16 if compute_dtype is None else compute_dtype,
+                    device=device, seed=seed, remat=remat, ignore_label=ignore_label,
+                    optimizer=optimizer, optimizer_kwargs=optimizer_kwargs, clip_norm=clip_norm)
+        if restored is not None:
+            self.state.step = self.g_step = restored["step"] or 0
+            # staged on the host: a model loaded to serve never puts the
+            # optimizer's moments on the card; the first train() moves them
+            self._staged_opt_state = restored["opt_state"]
+            self._ema_leaves = restored["ema_leaves"]
+            self._observer_state = dict(restored["metadata"].get("train_observer") or {})
+        else:
+            # the reference's order: pretrained encoder, then a variables restore
+            if vgg16_dir is not None:
+                self._restore_params(vgg16_dir, parts=("encoder",))
+            if variables_load_dir is not None:
+                self.load_variables(variables_load_dir)
 
     @classmethod
     def from_params(cls, tree: dict, *, width_mult: float = 1.0, fc_channels: int | None = None,
@@ -85,19 +145,33 @@ class FCN8s:
         ``model_config``; the shapes come from the tree. The other arguments
         are the constructor's."""
         model = cls.__new__(cls)
-        model._setup(tree, width_mult=width_mult, fc_channels=fc_channels,
+        model._setup(bridge.to_port(tree), width_mult=width_mult, fc_channels=fc_channels,
                      compute_dtype=compute_dtype, device=device, seed=seed, remat=remat,
                      ignore_label=ignore_label, optimizer=optimizer,
                      optimizer_kwargs=optimizer_kwargs, clip_norm=clip_norm)
         return model
 
-    def _setup(self, tree, *, width_mult, fc_channels, compute_dtype, device, seed, remat,
+    @classmethod
+    def resume(cls, save_dir: str, **kwargs) -> "FCN8s":
+        """Resume from the most recent checkpoint under ``save_dir`` (the
+        directory passed to ``train(save_dir=...)``): params, optimizer
+        state and the global step, so LR schedules continue where they left
+        off. ``kwargs`` go to the constructor."""
+        path = ckpt.latest_checkpoint(save_dir)
+        if path is None:
+            raise FileNotFoundError(f"no checkpoints under {save_dir}")
+        return cls(model_load_dir=path, **kwargs)
+
+    def _setup(self, params, *, width_mult, fc_channels, compute_dtype, device, seed, remat,
                ignore_label, optimizer, optimizer_kwargs, clip_norm):
+        """``params``: the port's fp32 tree on the CPU."""
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
-        self.params = bridge.to_port(tree, device=self.device)
-        self.num_classes = int(tree["decoder"]["fc7_1x1"]["bias"].shape[0])
-        self.variant = decoder_variant(tree["decoder"])
+        self.params = {part: {name: {k: t.to(self.device) for k, t in layer.items()}
+                              for name, layer in layers.items()}
+                       for part, layers in params.items()}
+        self.num_classes = int(self.params["decoder"]["fc7_1x1"]["bias"].shape[0])
+        self.variant = decoder_variant(self.params["decoder"])
         self.remat = remat
         self.ignore_label = ignore_label
         self._train_seed = seed
@@ -120,8 +194,13 @@ class FCN8s:
             "clip_norm": clip_norm,
         }
         # the optimizer state (Adam's two moments, 1 GB at full width) is
-        # allocated by the first train(), so a serving model never holds it
+        # allocated, or moved from the host where a checkpoint staged it, by
+        # the first train(), so a serving model never holds it
         self.state = TrainState(step=0, params=self.params, opt_state=None)
+        self._staged_opt_state = None
+        self._ema_leaves = None  # a restored JAX EMA average, carried through saves
+        self._observer_state = {}  # restored observer counters, carried through saves
+        self._save_thread = None
         for t in bridge.param_leaves(self.params):
             t.requires_grad_(True)
         self._refresh_run_params()
@@ -253,10 +332,13 @@ class FCN8s:
         ``summaries_frequency`` steps and at each epoch's end
         (``training_loss`` averages the last
         ``training_loss_display_averaging`` steps). ``train_log`` appends
-        one JSON record per epoch.
+        one JSON record per epoch. ``save_during_training`` saves into
+        ``save_dir`` every ``save_frequency`` epochs, asynchronously
+        (``save(block=False)``), and with ``save_best_only`` only when
+        ``monitor`` improved (``_monitor_improved``); ``saver``,
+        ``save_tags`` and ``save_name`` are ``save``'s.
 
-        Not ported yet (``NotImplementedError``): ``save_during_training``,
-        ``record_summaries`` (the JAX default True first requires
+        Not ported yet (``NotImplementedError``): ``record_summaries`` (the JAX default True first requires
         ``summaries_dir``, as there; pass ``record_summaries=False``),
         ``device_augment``, ``ema_decay``, ``spatial_partition``,
         ``early_stopping`` and ``reduce_lr_on_plateau``."""
@@ -275,8 +357,6 @@ class FCN8s:
             raise ValueError(f"monitor '{monitor}' requires it to be in metrics {metrics}")
         if ema_decay is not None and not (0.0 < float(ema_decay) < 1.0):
             raise ValueError(f"ema_decay must be in (0, 1), got {ema_decay}")
-        if save_during_training:
-            _not_ported("train(save_during_training=True)")
         if ema_decay is not None:
             _not_ported("train(ema_decay=...)")
         if early_stopping is not None:
@@ -308,8 +388,12 @@ class FCN8s:
             _not_ported("train(record_summaries=True)")
 
         if self.state.opt_state is None:
-            self.state = create_train_state(self.params, self.optimizer)
-            self.state.step = self.g_step
+            if self._staged_opt_state is not None:  # restored from a checkpoint
+                self.state.opt_state = self._staged_opt_state.to(self.device)
+                self._staged_opt_state = None
+            else:
+                self.state = create_train_state(self.params, self.optimizer)
+                self.state.step = self.g_step
         g_step = self.state.step
         learning_rate = float(learning_rate_schedule(g_step))
         loss_history = deque(maxlen=training_loss_display_averaging)
@@ -345,6 +429,13 @@ class FCN8s:
                     else:
                         self._evaluate(val_generator, val_steps)
 
+                if save_during_training and epoch % save_frequency == 0:
+                    if not save_best_only or self._monitor_improved(monitor):
+                        # the masters are consistent here: save() snapshots
+                        # them on the device and writes on a thread
+                        self.save(model_save_dir=save_dir, saver=saver, tags=save_tags,
+                                  name=save_name or None, block=False)
+
                 if self.training_loss is not None and self.training_loss < self.best_training_loss:
                     self.best_training_loss = self.training_loss
                 for i, name in enumerate(self.metric_names):
@@ -367,6 +458,7 @@ class FCN8s:
         finally:
             self._close_train_stream()
             self._refresh_run_params()
+        self._join_pending_save()  # don't return with a checkpoint mid-write
 
     def _make_train_stream(self, train_generator, prefetch: int):
         """Iterator of device (images, label_ids, mask) triples. The host
@@ -448,9 +540,117 @@ class FCN8s:
         self._initialize_metrics(metrics)
         return self._evaluate(data_generator, num_batches)
 
+    def _monitor_improved(self, monitor) -> bool:
+        """Save-best-only, as in the JAX facade: save iff the monitored value
+        improved on its best so far (lower for loss, higher otherwise).
+        Until the monitored eval metric has been measured once, every
+        save epoch saves (the first save wins)."""
+        if monitor == "loss" and "loss" not in self.metric_names:
+            return self.training_loss is not None and self.training_loss < self.best_training_loss
+        if monitor not in self.metric_names or not self.metric_values:
+            return True
+        i = self.metric_names.index(monitor)
+        if monitor == "loss":
+            return self.metric_values[i] < self.best_metric_values[i]
+        return self.metric_values[i] > self.best_metric_values[i]
+
+    # ------------------------------------------------------------------
+    def save(self, model_save_dir, saver="saved_model", tags=["default"], name=None,
+             include_global_step=True, include_last_training_loss=True, include_metrics=True,
+             force_save=False, block=True):
+        """Save a self-describing checkpoint in the JAX package's format under
+        ``model_save_dir``, in a directory named by the reference's scheme
+        (global step, training loss, metrics); returns its path, or None when
+        nothing was trained since the last save (unless ``force_save``).
+        ``saver``/``tags`` are accepted for parity. The five newest
+        checkpoints in ``model_save_dir`` are kept.
+
+        ``block=False`` snapshots params and optimizer state on the device
+        (the optimizer updates them in place) and writes on a thread
+        (``checkpoint.save_checkpoint_async``); the previous writer is joined
+        first, so one save is in flight at a time, and a failed write raises
+        at the next join (the next save, ``train``'s end or ``close``)."""
+        if not self.variables_updated and not force_save:
+            print("Abort: Nothing to save, no training has been performed since the model "
+                  "was last saved.")
+            return None
+        if saver not in {"saved_model", "train_saver", "msgpack"}:
+            raise ValueError(
+                "Unexpected value for `saver`: Can be either 'saved_model' or "
+                f"'train_saver', but received '{saver}'.")
+        metric_values = (dict(zip(self.metric_names, self.metric_values))
+                         if include_metrics and self.metric_values else None)
+        step = int(self.state.step)
+        directory = os.path.join(model_save_dir, ckpt.compose_checkpoint_name(
+            name=name, global_step=step if include_global_step else None,
+            training_loss=self.training_loss if include_last_training_loss else None,
+            eval_dataset=self.eval_dataset, metric_values=metric_values))
+        metadata = {
+            "model_config": self.model_config,
+            "global_step": step,
+            "training_loss": self.training_loss,
+            "eval_dataset": self.eval_dataset,
+            "metrics": metric_values or {},
+            "saved_at": time.time(),
+        }
+        if self._observer_state:
+            metadata["train_observer"] = dict(self._observer_state)
+        opt_state = (self.state.opt_state or self._staged_opt_state
+                     or self.optimizer.init(self.params, device="cpu"))
+        state = TrainState(step=step, params=self.params, opt_state=opt_state)
+        self._join_pending_save()
+        if block:
+            ckpt.save_checkpoint(directory, state, metadata, max_to_keep=5,
+                                 ema_leaves=self._ema_leaves)
+        else:
+            self._save_thread = ckpt.save_checkpoint_async(directory, state, metadata,
+                                                           max_to_keep=5,
+                                                           ema_leaves=self._ema_leaves)
+        self.variables_updated = False
+        return directory
+
+    def _join_pending_save(self) -> None:
+        thread = self._save_thread
+        if thread is not None:
+            thread.join()
+            self._save_thread = None
+            if thread.exc is not None:
+                # the dirty flag was cleared at the save: re-arm it and surface
+                self.variables_updated = True
+                raise RuntimeError("async checkpoint write failed") from thread.exc
+
+    def load_variables(self, path):
+        """Restore the params only, from the checkpoint directory ``path``
+        (the reference's ``load_variables``); the optimizer state stays."""
+        self._restore_params(path, parts=tuple(self.params))
+
+    def _restore_params(self, path, parts) -> None:
+        """Copy the checkpoint's params of the tree parts ``parts`` (e.g.
+        ``('encoder',)``, ``vgg16_dir``'s restore) into the masters, matched
+        by path."""
+        example = {}  # JAX-layout shapes, as meta tensors
+        for part in parts:
+            for name, layer in self.params[part].items():
+                for key, t in layer.items():
+                    jkey = "bias" if key == "bias" else "kernel"
+                    example.setdefault(part, {}).setdefault(name, {})[jkey] = bridge.leaf_to_jax(
+                        torch.empty_like(t, device="meta"), f"{part}/{name}/{jkey}")
+        restored = ckpt.load_params_only(path, example)
+        with torch.no_grad():
+            for part in parts:
+                for name, layer in self.params[part].items():
+                    for key, t in layer.items():
+                        jkey = "bias" if key == "bias" else "kernel"
+                        value = torch.from_numpy(restored[part][name][jkey])
+                        t.copy_(bridge.leaf_from_jax(value, f"{part}/{name}/{jkey}"))
+        self._refresh_run_params()
+
     def close(self):
-        """Stop the input pipeline and release the device tensors (the
-        reference closes its session)."""
+        """Stop the input pipeline, join an in-flight checkpoint write and
+        release the device tensors (the reference closes its session)."""
         self._close_train_stream()
-        self.params = self._run_params = self.state = None
+        try:
+            self._join_pending_save()
+        finally:
+            self.params = self._run_params = self.state = None
         print("The session has been closed.")

@@ -22,8 +22,11 @@ same-shaped images, and runs ONE device batch per group (at most
 sparse traffic.
 
 Entry: ``FCN8s(...)`` -> ``InferenceService(model, ...)`` ->
-``make_server(service, port=...)`` -> ``serve_forever()``. Serving a
-checkpoint directory from the command line waits for the checkpoint port.
+``make_server(service, port=...)`` -> ``serve_forever()``; or from the
+command line, a checkpoint directory of either package:
+
+    python -m fcn8s_tensorflow_tpu_torch.engine.serving <checkpoint_dir> [port] \
+        [--batch-window-ms N] [--device cuda]
 """
 
 from __future__ import annotations
@@ -268,13 +271,72 @@ def make_server(service: InferenceService, host: str = "127.0.0.1",
     return http.server.ThreadingHTTPServer((host, port), Handler)
 
 
-def main(argv=None):
-    """``python -m fcn8s_tensorflow_tpu_torch.engine.serving <checkpoint_dir>``
-    needs the checkpoint format, which is not ported yet."""
-    raise NotImplementedError(
-        "serving a checkpoint directory waits for the checkpoint port; build "
-        "FCN8s(...) or FCN8s.from_params(...) and pass it to InferenceService")
+def _take_option(argv: list, flag: str, convert):
+    """Remove ``flag value`` from ``argv``; returns the converted value or
+    None when the flag is absent. Raises ``ValueError`` on a missing or bad
+    value."""
+    if flag not in argv:
+        return None
+    i = argv.index(flag)
+    if i + 1 >= len(argv):
+        raise ValueError(f"{flag} requires a value")
+    value = convert(argv[i + 1])
+    del argv[i:i + 2]
+    return value
+
+
+def main(argv=None, *, serve: bool = True):
+    """``python -m fcn8s_tensorflow_tpu_torch.engine.serving <checkpoint_dir>
+    [port] [--batch-window-ms N] [--device cuda|cpu|cuda:K]``: serve a
+    checkpoint directory (of either package) on 127.0.0.1 (port 8009 by
+    default, 0 picks a free one). The model runs on ``--device``, by
+    default ``cuda``; without a card that raises, and the CPU serves only
+    when asked for with ``--device cpu``. With ``serve=False`` the built
+    server is returned unstarted (the caller runs ``serve_forever`` and
+    closes it)."""
+    import sys
+
+    import torch
+
+    argv = list(argv) if argv is not None else sys.argv[1:]
+    try:
+        window_ms = _take_option(argv, "--batch-window-ms", float) or 0.0
+        device = torch.device(_take_option(argv, "--device", str) or "cuda")
+    except (ValueError, RuntimeError) as exc:
+        print(__doc__)
+        print(f"error: {exc}")
+        return 1
+    if not argv:
+        print(__doc__)
+        return 1
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device for --device cuda: pass --device cpu to serve on "
+                           "the CPU")
+    checkpoint_dir = argv[0]
+    port = int(argv[1]) if len(argv) > 1 else 8009
+
+    from ..labels import TRAINIDS_TO_RGBA_DICT
+    from .model import FCN8s
+
+    model = FCN8s(model_load_dir=checkpoint_dir, device=device)
+    service = InferenceService(model, color_map=TRAINIDS_TO_RGBA_DICT,
+                               batch_window_ms=window_ms)
+    server = make_server(service, port=port)
+    server.service = service  # the caller of serve=False closes it
+    print(f"serving {checkpoint_dir} on {device} at "
+          f"http://127.0.0.1:{server.server_address[1]} "
+          f"(POST /predict, /overlay; GET /healthz, /stats)")
+    if not serve:
+        return server
+    try:
+        server.serve_forever()
+    finally:
+        server.server_close()
+        service.close()
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+
+    sys.exit(main())

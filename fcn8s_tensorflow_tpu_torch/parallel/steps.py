@@ -29,6 +29,7 @@ from ..ops.losses import class_pixel_weights, valid_pixel_weights
 from ..ops.metrics import update_metrics_state
 
 OPTIMIZERS = ("adam", "adamw", "momentum", "sgd")
+INITIAL_LEARNING_RATE = 1e-4  # make_optimizer's injected default in the JAX package
 
 
 @dataclasses.dataclass
@@ -38,6 +39,32 @@ class ScaleByAdamTF1State:
     count: int
     mu: list
     nu: list
+
+
+@dataclasses.dataclass
+class OptimizerState:
+    """The state of an ``Optimizer``: the counterpart of optax's
+    ``inject_hyperparams`` state around the JAX package's chain. ``count``
+    is the number of updates applied, ``learning_rate`` the last one applied
+    (before the first, JAX's injected default 1e-4), and ``inner`` the update
+    rule's own state: a ``ScaleByAdamTF1State`` (adam, adamw), a list of
+    momentum traces, one per param leaf (momentum), or None (sgd)."""
+
+    count: int
+    learning_rate: float
+    inner: Any
+
+    def to(self, device) -> "OptimizerState":
+        """A copy with every tensor on ``device``."""
+        def move(ts):
+            return [t.to(device) for t in ts]
+
+        inner = self.inner
+        if isinstance(inner, ScaleByAdamTF1State):
+            inner = ScaleByAdamTF1State(count=inner.count, mu=move(inner.mu), nu=move(inner.nu))
+        elif inner is not None:
+            inner = move(inner)
+        return OptimizerState(count=self.count, learning_rate=self.learning_rate, inner=inner)
 
 
 @dataclasses.dataclass
@@ -60,20 +87,28 @@ class Optimizer:
     def __init__(self, name: str, clip_norm: float | None, hyper: dict):
         self.name, self.clip_norm, self.hyper = name, clip_norm, hyper
 
-    def init(self, params: dict):
-        """Zeroed state for the leaves of ``params``."""
+    def init(self, params: dict, device=None) -> OptimizerState:
+        """Zeroed state for the leaves of ``params`` (on ``device``, by
+        default theirs)."""
         leaves = bridge.param_leaves(params)
+
+        def zeros():
+            return [torch.zeros_like(t, device=device) for t in leaves]
+
         if self.name in ("adam", "adamw"):
-            return ScaleByAdamTF1State(count=0, mu=[torch.zeros_like(t) for t in leaves],
-                                       nu=[torch.zeros_like(t) for t in leaves])
-        if self.name == "momentum":
-            return [torch.zeros_like(t) for t in leaves]
-        return None
+            inner = ScaleByAdamTF1State(count=0, mu=zeros(), nu=zeros())
+        else:
+            inner = zeros() if self.name == "momentum" else None
+        return OptimizerState(count=0, learning_rate=INITIAL_LEARNING_RATE, inner=inner)
 
     @torch.no_grad()
-    def apply(self, params: dict, grads: list, state, learning_rate: float) -> None:
-        """One update of ``params`` and ``state`` in place from ``grads``
+    def apply(self, params: dict, grads: list, opt_state: OptimizerState,
+              learning_rate: float) -> None:
+        """One update of ``params`` and ``opt_state`` in place from ``grads``
         (aligned with ``bridge.param_leaves(params)``)."""
+        opt_state.count += 1
+        opt_state.learning_rate = learning_rate
+        state = opt_state.inner
         leaves = bridge.param_leaves(params)
         if self.clip_norm is not None:  # optax.clip_by_global_norm
             g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))

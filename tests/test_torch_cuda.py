@@ -244,3 +244,69 @@ def test_ce_grad_64bit_indexing(dev):
     tail = slice(p - 4096, p)
     assert _within_one_bf16_ulp(got[tail], K.ce_grad_plain(logits[tail], labels[tail],
                                                            weights[tail], g), g.expand(1, 1))
+
+
+# ---------------------------------------------------------------------------
+# KB and the async checkpoint snapshot
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rows,width", [(64, 512), (24, 45), (8, 3)])
+def test_conv1_core_kernel_matches_twin(dev, rows, width):
+    """KB at W = 512 (the calibration's) and at widths that are no multiple
+    of its 32-pixel strip or of 16, within one bf16 step of the twin; the
+    last tile's halo wraps to rows 0 and 1."""
+    from fcn8s_tensorflow_tpu_torch.ops import conv1_core as KB
+
+    g = torch.Generator(device=dev).manual_seed(rows + width)
+    x = torch.randn((rows, width, 64), generator=g, device=dev).to(torch.bfloat16)
+    w128 = torch.randn((3, 128, 64), generator=g, device=dev).to(torch.bfloat16)
+    w64 = torch.randn((3, 64, 64), generator=g, device=dev).to(torch.bfloat16)
+    n = KB.conv1_core.launches
+    got = KB.conv1_core(x, w128, w64)
+    torch.cuda.synchronize()
+    assert KB.conv1_core.launches == n + 1
+    err, ok = KB.within_one_bf16_step(got, KB.conv1_core_reference(x, w128, w64))
+    assert ok, err
+    x2 = x.clone()
+    x2[:2] = -x2[:2]
+    changed = (KB.conv1_core(x2, w128, w64) != got).flatten(1).any(1).nonzero().flatten().tolist()
+    assert changed == sorted({0, 1, rows - 2, rows - 1})
+    with pytest.raises(ValueError, match="multiple of 8"):
+        KB.conv1_core(x[:5], w128, w64)
+
+
+def test_async_save_snapshot_on_the_card(dev, tmp_path):
+    """``save(block=False)`` on the card, then two more in-place steps: the
+    checkpoint holds the params and Adam moments of the call."""
+    import numpy as np
+
+    from fcn8s_tensorflow_tpu_torch import bridge
+    from fcn8s_tensorflow_tpu_torch.engine import checkpoint as ckpt
+    from fcn8s_tensorflow_tpu_torch.engine.model import FCN8s
+
+    rng = np.random.default_rng(0)
+    batch = (rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8),
+             rng.integers(0, 3, (2, 64, 64), dtype=np.uint8))
+    model = FCN8s(num_classes=3, width_mult=1 / 8, fc_channels=64, device=dev,
+                  compute_dtype=torch.float32)
+    kw = dict(learning_rate_schedule=lambda s: 1e-3, keep_prob=1.0, record_summaries=False)
+    model.train(iter([batch] * 3), 1, 1, **kw)
+
+    def by_path(params, tensors):
+        return dict(zip(bridge.jax_leaf_paths(params), (t.detach().cpu().clone() for t in tensors)))
+
+    want = by_path(model.params, bridge.param_leaves(model.params))
+    want_mu = by_path(model.params, model.state.opt_state.inner.mu)
+    path = model.save(str(tmp_path), block=False)
+    model.train(iter([batch] * 3), 1, 2, **kw)
+    model._join_pending_save()
+    got = ckpt.load_checkpoint(path, model.optimizer)
+    assert got["step"] == 1
+    got_params = by_path(got["params"], bridge.param_leaves(got["params"]))
+    got_mu = by_path(got["params"], got["opt_state"].inner.mu)
+    assert got_params.keys() == want.keys() and got_mu.keys() == want_mu.keys()
+    assert all(torch.equal(got_params[k], want[k]) and torch.equal(got_mu[k], want_mu[k])
+               for k in want)
+    now = by_path(model.params, bridge.param_leaves(model.params))
+    assert not all(torch.equal(now[k], want[k]) for k in want)

@@ -156,9 +156,52 @@ def test_microbatching_submit_after_close_fails_fast(rng):
         service.predict_png(_png_bytes(rng))
 
 
-def test_checkpoint_cli_waits_for_the_checkpoint_port():
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        serving.main(["some_checkpoint_dir"])
+@pytest.fixture(scope="module")
+def checkpoint_dir(tmp_path_factory):
+    """A narrow trained model's checkpoint directory."""
+    model = _model()
+    rng = np.random.default_rng(0)
+    batch = (rng.integers(0, 256, (2, 32, 32, 3), dtype=np.uint8),
+             rng.integers(0, 3, (2, 32, 32), dtype=np.uint8))
+    model.train(iter([batch]), 1, 1, lambda s: 1e-3, record_summaries=False, prefetch=0)
+    return model.save(str(tmp_path_factory.mktemp("ckpt"))), model
+
+
+def test_checkpoint_cli_waits_for_the_checkpoint_port(checkpoint_dir, rng):
+    """The checkpoint CLI (which waited for the checkpoint port until it
+    landed) serves a checkpoint directory: on ``--device cpu`` it builds the
+    model from the checkpoint, answers /healthz with its config and
+    /predict with the trained model's ids."""
+    path, model = checkpoint_dir
+    server = serving.main([path, "0", "--device", "cpu", "--batch-window-ms", "5"], serve=False)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = "http://127.0.0.1:%d" % server.server_address[1]
+    try:
+        with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+        assert health["status"] == "ok" and health["model_config"] == model.model_config
+        body = _png_bytes(rng)
+        status, png = _post(base + "/predict", body)
+        assert status == 200
+        np.testing.assert_array_equal(
+            np.asarray(Image.open(io.BytesIO(png))),
+            model.predict(np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))[None])[0])
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.service.close()
+        thread.join(timeout=30)
+    assert not thread.is_alive()
+    assert serving.main([]) == 1 and serving.main([path, "--device"]) == 1  # usage errors
+
+
+def test_checkpoint_cli_without_cuda_raises(checkpoint_dir, monkeypatch):
+    """The default device is the card: without one the CLI raises and never
+    falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        serving.main([checkpoint_dir[0], "0"], serve=False)
 
 
 def test_port_labels_equal_the_jax_packages():

@@ -381,7 +381,10 @@ def test_facade_train_then_predict_uses_new_weights(tmp_path):
 
 
 @pytest.mark.parametrize("option", [
-    dict(save_during_training=True, save_dir="x"), dict(record_summaries=True, summaries_dir="x"),
+    # saving during training is ported; an unported option beside it still
+    # raises before any step runs or anything is written
+    dict(save_during_training=True, save_dir="x", early_stopping=2),
+    dict(record_summaries=True, summaries_dir="x"),
     dict(device_augment={"flip": 0.5}), dict(ema_decay=0.9), dict(spatial_partition=True),
     dict(early_stopping=2), dict(reduce_lr_on_plateau=2)])
 def test_train_options_not_ported_raise(option):
