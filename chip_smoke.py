@@ -48,9 +48,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 Kernel launch counts are zeroed just before each path is driven and read
 just after it: serving + evaluation (phases 5-6), training (phase 10), the
 weighted training (phase 12) and the conv1 calibration's timed runs (phase
-14); every kernel of a path must have launched. The line before the last is ``{"kernels": [...]}`` (``launches``
-from the path named in ``path``); the last is ``{"ok": true, "device":
-{...}}``.
+14); every kernel of a path must have launched. The line before the last is
+``{"kernels": [...]}``: ``launches`` from the path named in ``path``; ``ms``,
+``plain_ms`` and ``library_ms`` (one PyTorch call of the same function, where
+there is one; ``null`` otherwise) per call, from back-to-back calls between
+CUDA events; ``bound_ms``, the larger of the bytes the kernel must move over
+3.35 TB/s and its operations over 989 TFLOP/s bf16 (``bound_by`` says
+which; ``bytes`` and ``flops`` are the counts). The last line is ``{"ok":
+true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -127,19 +132,42 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn`` on the current stream (CUDA events)."""
+def cuda_ms(fn, reps: int = 5, n: int = 10, warmup: int = 2) -> float:
+    """Milliseconds of one call of ``fn`` on the device: the median over
+    ``reps`` of the mean of ``n`` back-to-back calls between two CUDA
+    events. One call between events would also time the host's launch of
+    it wherever that is slower than the kernel (a wrapper's checks add
+    ~30 us to a ~0.1 ms kernel)."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
         start.record()
-        fn()
+        for _ in range(n):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / n)
     return statistics.median(times)
+
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
+
+
+def bound(bytes_moved: float, flops: float = 0.0) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the bf16 peak."""
+    by_bytes, by_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": bytes_moved, "flops": flops}
+
+
+def nbytes(*tensors: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def host_ms(fn, reps: int = 5, warmup: int = 2) -> float:
@@ -184,7 +212,8 @@ def phase_kernels(dev) -> dict:
     out = {}
 
     # K4f: all five VGG pool inputs, bit-exact
-    ms = plain_ms = err = 0.0
+    ms = plain_ms = lib_ms = err = 0.0
+    moved = 0
     for c, h, w in POOL_INPUTS:
         x = torch.randn((BATCH, c, h, w), generator=g, device=dev, dtype=torch.bfloat16)
         x = x.contiguous(memory_format=torch.channels_last)
@@ -193,9 +222,11 @@ def phase_kernels(dev) -> dict:
         err = max(err, float((y.float() - ref.float()).abs().max()))
         check(torch.equal(y, ref), f"K4f differs from its twin at {tuple(x.shape)}")
         k_ms, p_ms = cuda_ms(lambda: maxpool2x2_nhwc(x)), cuda_ms(lambda: max_pool_2x2(x))
+        l_ms = cuda_ms(lambda: F.max_pool2d(x, 2, 2))
         print(f"K4f maxpool2x2_nhwc {tuple(x.shape)} bf16: kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms, bit-exact")
-        ms, plain_ms = ms + k_ms, plain_ms + p_ms
+              f"plain {p_ms:.4f} ms, F.max_pool2d {l_ms:.4f} ms, bit-exact")
+        ms, plain_ms, lib_ms = ms + k_ms, plain_ms + p_ms, lib_ms + l_ms
+        moved += nbytes(x, y)  # x read once, y written once
         del x, y, ref
     xf = torch.randn((2, 64, 32, 64), generator=g, device=dev).contiguous(
         memory_format=torch.channels_last)
@@ -204,7 +235,8 @@ def phase_kernels(dev) -> dict:
     check(bool(torch.isnan(yf[0, 5, 1, 1])), "K4f drops NaN")
     check(torch.equal(torch.nan_to_num(yf), torch.nan_to_num(reff)), "K4f fp32 differs")
     out["maxpool2x2_nhwc"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                              "shapes": len(POOL_INPUTS)}
+                              **bound(moved), "library_ms": lib_ms,
+                              "library": "F.max_pool2d(x, 2, 2)", "shapes": len(POOL_INPUTS)}
 
     # K1: bf16 logits, uint8 labels (a few out of range), one masked sample
     p = BATCH * H * W
@@ -223,10 +255,19 @@ def phase_kernels(dev) -> dict:
     check(abs(float(s_i32) - float(s_t)) <= 1e-5 * abs(float(s_t)), "K1 with int32 labels")
     k_ms = cuda_ms(lambda: K.ce_sum_per_sample(logits, labels, mask, H * W))
     p_ms = cuda_ms(lambda: K.ce_sum_per_sample_plain(logits, labels, mask, H * W))
+    # the library's CE at unit weight, on in-range labels (it refuses others)
+    lib_labels = labels.long().clamp_(max=C - 1)
+    l_ms = cuda_ms(lambda: F.cross_entropy(logits, lib_labels, reduction="sum"))
+    moved = nbytes(logits, labels, mask, s_k)
     print(f"K1 ce_sum_per_sample ({p}, {C}) bf16 + uint8: kernel {k_ms:.4f} ms, plain "
-          f"{p_ms:.4f} ms, |diff| {err:.6g} of {float(s_t):.9g} (rtol 1e-5)")
+          f"{p_ms:.4f} ms, F.cross_entropy (unit weight) {l_ms:.4f} ms, bound "
+          f"{bound(moved)['bound_ms']:.4f} ms ({moved} bytes); |diff| {err:.6g} of "
+          f"{float(s_t):.9g} (rtol 1e-5)")
     out["ce_sum_per_sample"] = {"max_abs_err": err, "rel_err": err / abs(float(s_t)),
-                                "ms": k_ms, "plain_ms": p_ms}
+                                "ms": k_ms, "plain_ms": p_ms, **bound(moved), "library_ms": l_ms,
+                                "library": "F.cross_entropy(logits, labels, reduction='sum'): "
+                                           "the same function at unit weight, labels in range"}
+    del lib_labels
 
     # K5: int32 predictions, uint8 GT (a few out of range), one masked sample
     pred = torch.randint(0, C, (p,), generator=g, device=dev, dtype=torch.int32)
@@ -239,9 +280,15 @@ def phase_kernels(dev) -> dict:
     acc = torch.zeros((C, C), dtype=torch.int32, device=dev)
     k_ms = cuda_ms(lambda: K.confusion_matrix_accumulate(acc, pred, labels, mask, H * W))
     p_ms = cuda_ms(lambda: K.confusion_matrix_accumulate_plain(acc, pred, labels, mask, H * W))
+    pair_ids = labels.long().clamp_(max=C - 1) * C + pred.long()
+    l_ms = cuda_ms(lambda: torch.bincount(pair_ids, minlength=C * C))
+    moved = nbytes(pred, labels, mask, acc, acc)  # conf is read and written
     print(f"K5 confusion_matrix_accumulate ({p},) int32 + uint8, C={C}: kernel {k_ms:.4f} ms, "
-          f"plain {p_ms:.4f} ms, exact")
-    out["confusion_matrix_accumulate"] = {"max_abs_err": float(err), "ms": k_ms, "plain_ms": p_ms}
+          f"plain {p_ms:.4f} ms, torch.bincount {l_ms:.4f} ms, exact")
+    out["confusion_matrix_accumulate"] = {"max_abs_err": float(err), "ms": k_ms, "plain_ms": p_ms,
+                                          **bound(moved), "library_ms": l_ms,
+                                          "library": "torch.bincount(gt * C + pred, minlength=C*C)"}
+    del pair_ids
     return out
 
 
@@ -252,7 +299,7 @@ def phase_card_vs_cpu(dev) -> None:
     tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     kw = dict(width_mult=1 / 32, fc_channels=32, compute_dtype=torch.float32)
-    cpu = FCN8s(num_classes=C, seed=1, **kw)
+    cpu = FCN8s(num_classes=C, seed=1, device="cpu", **kw)
     gpu = FCN8s.from_params(bridge.to_numpy(cpu.params), device=dev, **kw)
     rng = np.random.default_rng(1)
     images = rng.integers(0, 256, (2, 128, 256, 3), dtype=np.uint8)
@@ -385,7 +432,7 @@ def phase_times(model: FCN8s, dev, smi: str) -> None:
     mask = torch.ones(BATCH, device=dev)
     state = empty_metrics_state(C, device=dev)
     with torch.inference_mode():
-        fwd = cuda_ms(lambda: apply_fcn8s(model._run_params, im_d), reps=10)
+        fwd = cuda_ms(lambda: apply_fcn8s(model._run_params, im_d), reps=3)
         ev = host_ms(lambda: eval_step(model._run_params, state, im_d, lb_d, mask,
                                        num_classes=C))
     print(f"times on {smi}: predict {H}x{W} batch 1 {p1:.2f} ms, batch 8 {p8:.2f} ms "
@@ -423,7 +470,8 @@ def phase_train_kernels(dev) -> dict:
     sum the five pool inputs)."""
     g = torch.Generator(device=dev).manual_seed(10)
     out = {}
-    sums = {"a": 0.0, "a_plain": 0.0, "b": 0.0, "b_plain": 0.0}
+    sums = {"a": 0.0, "a_plain": 0.0, "a_lib": 0.0, "b": 0.0, "b_plain": 0.0, "b_lib": 0.0}
+    moved = {"a": 0, "b": 0}
     for c, h, w in TRAIN_POOL_INPUTS:
         x = _ties((BATCH, c, h, w), dev, g)
         y, code = P.maxpool2x2_code_nhwc(x)
@@ -440,19 +488,31 @@ def phase_train_kernels(dev) -> dict:
         check(torch.equal(dx, xr.grad),
               f"K4b differs from F.max_pool2d's gradient at {tuple(x.shape)}")
         ties = float((code != 0).float().mean())
+        _, idx = F.max_pool2d(x, 2, 2, return_indices=True)
         t = {"a": cuda_ms(lambda: P.maxpool2x2_code_nhwc(x)),
              "a_plain": cuda_ms(lambda: P.maxpool2x2_code_plain(x)),
+             "a_lib": cuda_ms(lambda: F.max_pool2d(x, 2, 2, return_indices=True)),
              "b": cuda_ms(lambda: P.maxpool2x2_bwd_nhwc(dy, code)),
-             "b_plain": cuda_ms(lambda: P.maxpool2x2_bwd_plain(dy, code))}
+             "b_plain": cuda_ms(lambda: P.maxpool2x2_bwd_plain(dy, code)),
+             "b_lib": cuda_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                 dy, x, [2, 2], [2, 2], [0, 0], [1, 1], False, idx))}
         print(f"K4a/K4b {tuple(x.shape)} bf16 (code != 0 on {ties:.3f}): K4a {t['a']:.4f} ms "
-              f"(plain {t['a_plain']:.4f}), K4b {t['b']:.4f} ms (plain {t['b_plain']:.4f}); "
-              f"y, code and dx bit-exact, dx = F.max_pool2d's gradient")
+              f"(plain {t['a_plain']:.4f}, F.max_pool2d with indices {t['a_lib']:.4f}), K4b "
+              f"{t['b']:.4f} ms (plain {t['b_plain']:.4f}, aten max_pool2d_with_indices_backward "
+              f"{t['b_lib']:.4f}); y, code and dx bit-exact, dx = F.max_pool2d's gradient")
         sums = {k: sums[k] + t[k] for k in sums}
-        del x, y, code, y_t, code_t, dy, dx, xr
-    out["maxpool2x2_code_nhwc"] = {"max_abs_err": 0.0, "ms": sums["a"], "plain_ms": sums["a_plain"],
-                                   "shapes": len(TRAIN_POOL_INPUTS)}
-    out["maxpool2x2_bwd_nhwc"] = {"max_abs_err": 0.0, "ms": sums["b"], "plain_ms": sums["b_plain"],
-                                  "shapes": len(TRAIN_POOL_INPUTS)}
+        moved["a"] += nbytes(x, y, code)  # x read, y and the code written
+        moved["b"] += nbytes(dy, code, dx)  # dy and the code read, dx written
+        del x, y, code, y_t, code_t, dy, dx, xr, idx
+    out["maxpool2x2_code_nhwc"] = {
+        "max_abs_err": 0.0, "ms": sums["a"], "plain_ms": sums["a_plain"], **bound(moved["a"]),
+        "library_ms": sums["a_lib"], "library": "F.max_pool2d(x, 2, 2, return_indices=True)",
+        "shapes": len(TRAIN_POOL_INPUTS)}
+    out["maxpool2x2_bwd_nhwc"] = {
+        "max_abs_err": 0.0, "ms": sums["b"], "plain_ms": sums["b_plain"], **bound(moved["b"]),
+        "library_ms": sums["b_lib"],
+        "library": "aten.max_pool2d_with_indices_backward on F.max_pool2d's indices",
+        "shapes": len(TRAIN_POOL_INPUTS)}
 
     # K3: a 255 label share, class-weight-style weights, zero weights
     p = BATCH * TH * TW
@@ -470,11 +530,25 @@ def phase_train_kernels(dev) -> dict:
           "K3 is not run-to-run identical")
     k_ms = cuda_ms(lambda: K.ce_sum_weighted(logits, labels, weights))
     p_ms = cuda_ms(lambda: K.ce_sum_weighted_plain(logits, labels, weights))
+    # the library call that computes K3's function on these inputs exactly:
+    # class weights, 255 ignored (checked in fp32 against the twin first)
+    lib_labels = labels.long()
+    lib = float(F.cross_entropy(logits.float(), lib_labels, weight=cw, ignore_index=255,
+                                reduction="sum"))
+    check(abs(lib - float(s_t)) <= 1e-5 * abs(float(s_t)), f"K3's library call {lib} vs {float(s_t)}")
+    cw_lib = cw.to(logits.dtype)  # the call takes weights in the logits' dtype
+    l_ms = cuda_ms(lambda: F.cross_entropy(logits, lib_labels, weight=cw_lib, ignore_index=255,
+                                           reduction="sum"))
+    moved = nbytes(logits, labels, weights, s_k)
     print(f"K3 ce_sum_weighted ({p}, {C}) bf16 + uint8 + fp32 weights: kernel {k_ms:.4f} ms, "
-          f"plain {p_ms:.4f} ms, |diff| {err:.6g} of {float(s_t):.9g} (rtol 1e-5), "
-          f"run-to-run identical")
+          f"plain {p_ms:.4f} ms, F.cross_entropy(weight=cw, ignore_index=255) {l_ms:.4f} ms, "
+          f"bound {bound(moved)['bound_ms']:.4f} ms ({moved} bytes); |diff| {err:.6g} of "
+          f"{float(s_t):.9g} (rtol 1e-5), run-to-run identical")
     out["ce_sum_weighted"] = {"max_abs_err": err, "rel_err": err / abs(float(s_t)), "ms": k_ms,
-                              "plain_ms": p_ms}
+                              "plain_ms": p_ms, **bound(moved), "library_ms": l_ms,
+                              "library": "F.cross_entropy(logits, labels, weight=cw, "
+                                         "ignore_index=255, reduction='sum'), cw in bf16"}
+    del lib_labels, cw_lib
 
     # CE grad, both weight modes; g on the device as autograd hands it over
     grad_out = torch.tensor(1.0 / p, device=dev)
@@ -499,8 +573,14 @@ def phase_train_kernels(dev) -> dict:
               f"{times[mode][1]:.4f} ms, {ulps:.3g} bf16 ulp from the twin at most (bound: one "
               f"ulp + 2^-20 |w g|), exact zeros at zero weight")
         del d_k, d_t
+    # per-sample, as timed: the masked-out sample's rows are neither read nor
+    # their labels; every row's gradient is written
+    live = int((mask != 0).sum()) * TH * TW
+    moved = live * (C * logits.element_size() + labels.element_size()) + nbytes(
+        mask, grad_out, logits)
     out["ce_grad"] = {"max_abs_err": worst["err"], "max_bf16_ulps": worst["ulps"],
                       "ms": times["per-sample"][0], "plain_ms": times["per-sample"][1],
+                      **bound(moved), "library_ms": None, "library": "none",
                       "per_pixel_ms": times["per-pixel"][0],
                       "per_pixel_plain_ms": times["per-pixel"][1]}
     return out
@@ -518,7 +598,7 @@ def phase_train_card_vs_cpu(dev) -> None:
     tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     kw = dict(width_mult=1 / 32, fc_channels=32, compute_dtype=torch.float32)
-    tree = bridge.to_numpy(FCN8s(num_classes=C, seed=2, **kw).params)
+    tree = bridge.to_numpy(FCN8s(num_classes=C, seed=2, device="cpu", **kw).params)
     rng = np.random.default_rng(5)
     images = torch.from_numpy(rng.integers(0, 256, (2, 128, 256, 3), dtype=np.uint8))
     labels = torch.from_numpy(rng.integers(0, C, (2, 128, 256), dtype=np.uint8))
@@ -720,9 +800,9 @@ def phase_train_times(dev, model: FCN8s, smi: str) -> None:
     b6 = fc6["bias"].detach().to(torch.bfloat16).requires_grad_()
     out = F.conv2d(x, w6, b6, padding=3)
     dout = torch.randn_like(out)
-    fc6_fwd = cuda_ms(lambda: F.conv2d(x, w6, b6, padding=3), reps=10)
+    fc6_fwd = cuda_ms(lambda: F.conv2d(x, w6, b6, padding=3), reps=3)
     fc6_bwd = cuda_ms(lambda: torch.autograd.grad(out, (x, w6, b6), dout, retain_graph=True),
-                      reps=10)
+                      reps=3)
     print(f"train times on {smi}: step {step_ms:.2f} ms (host clock, median of 5), "
           f"{BATCH / step_ms * 1e3:.2f} images/s at batch {BATCH} x {TH}x{TW} bf16 keep_prob 0.5; "
           f"CUDA-event split forward {split['forward']:.2f} ms, "
@@ -749,7 +829,10 @@ def phase_conv1_calibration(dev, smi: str) -> tuple[dict, dict]:
     times = KB.time_calibration(inputs)
     counts = read_counts()
     check(counts["conv1_core"] > 0, "the calibration never launched conv1_core")
-    del inputs
+    x = inputs["xmain"]
+    kb_bound = bound(nbytes(x, inputs["w128"], inputs["w64"], x),  # out is x's size
+                     KB.kb_flops(*x.shape[:2]))
+    del inputs, x
     torch.cuda.empty_cache()
     print(f"conv1 calibration on {smi}, x ({KB.CAL_TILES * KB.TH}, {KB.CAL_W}, {KB.C}) bf16, "
           f"{times['gflop']:.1f} GFLOP: KB {times['ms']:.4f} ms ({times['tflops']:.1f} TFLOP/s), "
@@ -759,7 +842,9 @@ def phase_conv1_calibration(dev, smi: str) -> tuple[dict, dict]:
           f"{checked['max_abs_err']:.4g} of max |twin| {checked['max_abs_ref']:.4g}, every "
           f"element within 2^-7 |twin| + 2^-7; launches {counts['conv1_core']}")
     measured = {"max_abs_err": checked["max_abs_err"], "ms": times["ms"],
-                "plain_ms": times["plain_ms"], "cudnn_conv1_2_ms": times["cudnn_ms"],
+                "plain_ms": times["plain_ms"], **kb_bound, "library_ms": None,
+                "library": "none (cuDNN's conv1_2 + ReLU is its same-FLOPs reference)",
+                "cudnn_conv1_2_ms": times["cudnn_ms"],
                 "tflops": times["tflops"], "plain_tflops": times["plain_tflops"],
                 "cudnn_conv1_2_tflops": times["cudnn_tflops"]}
     return measured, counts

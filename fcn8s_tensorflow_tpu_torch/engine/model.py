@@ -48,9 +48,20 @@ def _not_ported(what: str):
     raise NotImplementedError(f"{what} is not ported to the PyTorch package yet")
 
 
+def _resolve_device(device) -> torch.device:
+    """The facade's device: the card unless the caller asks for the CPU. A
+    CUDA device without a card raises instead of running on the host."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"no CUDA device for device={str(device)!r}: pass device=\"cpu\" "
+                           "to run on the CPU")
+    return device
+
+
 class FCN8s:
-    """FCN-8s semantic segmentation on one device (``device``, default the
-    CPU). Parameters are held in fp32 (``self.params``, the port's tree,
+    """FCN-8s semantic segmentation on one device (``device``, default
+    ``"cuda"``; without a card that raises, and the CPU runs only when asked
+    for with ``device="cpu"``). Parameters are held in fp32 (``self.params``, the port's tree,
     whose leaves require grad) and, for inference, once more in
     ``compute_dtype`` (rebuilt whenever training moved the masters).
 
@@ -76,13 +87,14 @@ class FCN8s:
     def __init__(self, num_classes: int | None = None, *, model_load_dir=None,
                  variables_load_dir=None, vgg16_dir=None, width_mult: float = 1.0,
                  fc_channels: int | None = None, variant: str = "fcn8s", compute_dtype=None,
-                 bilinear_deconv_init: bool = False, seed: int = 0, device="cpu",
+                 bilinear_deconv_init: bool = False, seed: int = 0, device="cuda",
                  remat: bool = False, ignore_label: int | None = None, optimizer="adam",
                  optimizer_kwargs: dict | None = None, clip_norm: float | None = None):
         if model_load_dir is None and num_classes is None:
             raise ValueError(
                 "You must provide either `model_load_dir` or `num_classes` "
                 "(optionally with `vgg16_dir` for pretrained encoder weights).")
+        device = _resolve_device(device)
         restored = None
         if model_load_dir is not None:
             cfg = ckpt.load_metadata(model_load_dir)["model_config"]
@@ -135,7 +147,7 @@ class FCN8s:
 
     @classmethod
     def from_params(cls, tree: dict, *, width_mult: float = 1.0, fc_channels: int | None = None,
-                    compute_dtype=torch.bfloat16, device="cpu", seed: int = 0,
+                    compute_dtype=torch.bfloat16, device="cuda", seed: int = 0,
                     remat: bool = False, ignore_label: int | None = None, optimizer="adam",
                     optimizer_kwargs: dict | None = None,
                     clip_norm: float | None = None) -> "FCN8s":
@@ -144,6 +156,7 @@ class FCN8s:
         ``width_mult``/``fc_channels`` only describe the tree in
         ``model_config``; the shapes come from the tree. The other arguments
         are the constructor's."""
+        device = _resolve_device(device)
         model = cls.__new__(cls)
         model._setup(bridge.to_port(tree), width_mult=width_mult, fc_channels=fc_channels,
                      compute_dtype=compute_dtype, device=device, seed=seed, remat=remat,

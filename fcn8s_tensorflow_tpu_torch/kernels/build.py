@@ -34,9 +34,9 @@ _SIGNATURES = {
     "fcn8s_maxpool2x2_nhwc": [_P, _P, _I64, _I64, _I64, _I64, _I, _P],
     "fcn8s_maxpool2x2_code_nhwc": [_P, _P, _P, _I64, _I64, _I64, _I64, _I, _P],
     "fcn8s_maxpool2x2_bwd_nhwc": [_P, _P, _P, _I64, _I64, _I64, _I64, _I, _P],
-    "fcn8s_ce_sum_per_sample": [_P, _P, _P, _P, _P, _I, _I64, _I, _I64, _I, _I, _P],
-    "fcn8s_ce_sum_weighted": [_P, _P, _P, _P, _P, _I, _I64, _I, _I, _I, _P],
-    "fcn8s_ce_grad": [_P, _P, _P, _P, _P, _I64, _I, _I64, _I, _I, _I, _P],
+    "fcn8s_ce_sum_per_sample": [_P, _P, _P, _P, _P, _I, _I64, _I, _I64, _I, _I, _I, _P],
+    "fcn8s_ce_sum_weighted": [_P, _P, _P, _P, _P, _I, _I64, _I, _I, _I, _I, _P],
+    "fcn8s_ce_grad": [_P, _P, _P, _P, _P, _I64, _I, _I64, _I, _I, _I, _I, _I, _P],
     "fcn8s_confmat_accumulate": [_P, _P, _P, _P, _I64, _I, _I64, _I, _I, _P],
     "fcn8s_conv1_core": [_P, _P, _P, _P, _I64, _I, _P],
 }

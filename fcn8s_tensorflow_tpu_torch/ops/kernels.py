@@ -32,8 +32,23 @@ from ..kernels import build
 from .losses import softmax_cross_entropy_with_ids, valid_pixel_weights
 
 _ID_DTYPES = (torch.uint8, torch.int32)
-_CE_BLOCK = 256
-_CE_MAX_BLOCKS = 1024  # fixed by P alone, so the two-pass sum is reproducible
+# The CE kernels' tiles and grid. Fastest on the H100 at the train shape among
+# 528/792/1056 blocks x 10/20/40 KB tiles (probes/ce_kernels.py --sweep,
+# PERF.md §6): bigger tiles halve the per-tile barriers and waits, 40 KB ones
+# leave too few blocks resident.
+_CE_TILE_BYTES = 20480  # logits a tile: 512 rows of 20 bf16 classes
+_CE_TILE_ROWS = (16, 1024)  # a multiple of 16 rows, so every tile starts on a 16-byte line
+_CE_MAX_BLOCKS = 1056
+
+
+def ce_tiling(p: int, c: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(rows a tile, blocks) of the CE kernels (``csrc/row_tiles.cuh``) for
+    P pixel rows of C classes in ``dtype``: a function of the shape and dtype
+    alone, so K1's and K3's sums add the same rows in the same order on every
+    run."""
+    lo, hi = _CE_TILE_ROWS
+    rows = min(hi, max(lo, _CE_TILE_BYTES // (c * dtype.itemsize) // lo * lo))
+    return rows, min(-(-p // rows), _CE_MAX_BLOCKS)
 
 
 def _check_per_sample(p: int, mask: torch.Tensor, pps: int, name: str) -> None:
@@ -83,13 +98,13 @@ def ce_sum_per_sample(flat_logits: torch.Tensor, labels: torch.Tensor, mask: tor
     _check_ids(labels, p, "labels", name)
     _check_per_sample(p, mask, pps, name)
     dev = kernels.require_cuda(flat_logits, labels, mask)
-    n_blocks = min(-(-p // _CE_BLOCK), _CE_MAX_BLOCKS)
+    rows, n_blocks = ce_tiling(p, c, flat_logits.dtype)
     partials = torch.empty(n_blocks, dtype=torch.float32, device=dev)
     out = torch.empty((), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = build.library().fcn8s_ce_sum_per_sample(
             flat_logits.data_ptr(), labels.data_ptr(), mask.data_ptr(), partials.data_ptr(),
-            out.data_ptr(), n_blocks, p, c, pps, kernels.dtype_code(flat_logits),
+            out.data_ptr(), n_blocks, p, c, pps, rows, kernels.dtype_code(flat_logits),
             kernels.dtype_code(labels), kernels.stream_handle(dev))
     build.check(rc, name)
     ce_sum_per_sample.launches += 1
@@ -131,13 +146,13 @@ def ce_sum_weighted(flat_logits: torch.Tensor, labels: torch.Tensor,
     _check_ids(labels, p, "labels", name)
     _check_pixel_weights(weights, p, name)
     dev = kernels.require_cuda(flat_logits, labels, weights)
-    n_blocks = min(-(-p // _CE_BLOCK), _CE_MAX_BLOCKS)
+    rows, n_blocks = ce_tiling(p, c, flat_logits.dtype)
     partials = torch.empty(n_blocks, dtype=torch.float32, device=dev)
     out = torch.empty((), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = build.library().fcn8s_ce_sum_weighted(
             flat_logits.data_ptr(), labels.data_ptr(), weights.data_ptr(), partials.data_ptr(),
-            out.data_ptr(), n_blocks, p, c, kernels.dtype_code(flat_logits),
+            out.data_ptr(), n_blocks, p, c, rows, kernels.dtype_code(flat_logits),
             kernels.dtype_code(labels), kernels.stream_handle(dev))
     build.check(rc, name)
     ce_sum_weighted.launches += 1
@@ -191,11 +206,12 @@ def ce_grad(flat_logits: torch.Tensor, labels: torch.Tensor, weights: torch.Tens
     kernels.require(g.numel() == 1 and g.dtype == torch.float32 and g.is_contiguous(),
                     f"{name}: g must be a one-element float32 tensor")
     dev = kernels.require_cuda(flat_logits, labels, weights, g)
+    rows, n_blocks = ce_tiling(p, c, flat_logits.dtype)
     out = torch.empty_like(flat_logits)
     with torch.cuda.device(dev):
         rc = build.library().fcn8s_ce_grad(
             flat_logits.data_ptr(), labels.data_ptr(), weights.data_ptr(), g.data_ptr(),
-            out.data_ptr(), p, c, 1 if pps is None else pps, int(pps is None),
+            out.data_ptr(), p, c, 1 if pps is None else pps, int(pps is None), rows, n_blocks,
             kernels.dtype_code(flat_logits), kernels.dtype_code(labels),
             kernels.stream_handle(dev))
     build.check(rc, name)

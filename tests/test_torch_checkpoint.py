@@ -287,7 +287,7 @@ def jax_checkpoint(tmp_path_factory):
 
 def test_jax_checkpoint_loads_in_port_exactly(jax_checkpoint):
     jm, path = jax_checkpoint
-    tm = FCN8s(model_load_dir=path)
+    tm = FCN8s(model_load_dir=path, device="cpu")
     assert tm.compute_dtype == torch.float32 and tm.model_config == jm.model_config
     assert tm.state.step == tm.g_step == int(jm.state.step) == 2
     _assert_trees_equal(bridge.to_numpy(tm.params), jax.tree.map(np.asarray, jm.state.params))
@@ -310,7 +310,7 @@ def test_one_more_step_from_a_jax_checkpoint_matches(jax_checkpoint, tmp_path):
     jm = JFCN8s(model_load_dir=path)
     mu0 = jax.tree.map(np.asarray, _adam_inner(jm.state.opt_state).mu)
     jm.train(_repeat(images, labels), **_train_kw(steps=1))
-    tm = FCN8s(model_load_dir=path)
+    tm = FCN8s(model_load_dir=path, device="cpu")
     tm.train(_repeat(images, labels), prefetch=0, **_train_kw(steps=1))
     assert tm.state.step == int(jm.state.step) == 3
     np.testing.assert_allclose(tm.training_loss, jm.training_loss, rtol=1e-5)
@@ -326,7 +326,7 @@ def test_one_more_step_from_a_jax_checkpoint_matches(jax_checkpoint, tmp_path):
 @pytest.fixture(scope="module")
 def port_model():
     """A narrow port ``FCN8s`` trained 3 steps at keep_prob 1."""
-    model = FCN8s(num_classes=C, compute_dtype=torch.float32, **SMALL)
+    model = FCN8s(num_classes=C, compute_dtype=torch.float32, device="cpu", **SMALL)
     images, labels = _batch()
     model.train(_repeat(images, labels), prefetch=0, **_train_kw(steps=3))
     return model
@@ -371,7 +371,7 @@ def test_ema_leaves_and_train_observer_survive_a_port_load_and_save(jax_checkpoi
     meta = tck.load_metadata(path)
     meta["train_observer"] = {"es_best": 0.25, "es_stale": 1}
     (src / "metadata.json").write_text(json.dumps(meta))
-    tm = FCN8s(model_load_dir=str(src))
+    tm = FCN8s(model_load_dir=str(src), device="cpu")
     out = tm.save(str(tmp_path / "out"), force_save=True)
     assert tck.load_metadata(out)["train_observer"] == {"es_best": 0.25, "es_stale": 1}
     with open(os.path.join(out, "checkpoint.msgpack"), "rb") as f:
@@ -399,7 +399,7 @@ def test_save_async_roundtrip(port_model, tmp_path):
     model._join_pending_save()
     assert os.path.isfile(os.path.join(path, "checkpoint.msgpack"))
     assert not os.path.isdir(path + ".tmp")  # rename completed
-    reloaded = FCN8s(model_load_dir=path)
+    reloaded = FCN8s(model_load_dir=path, device="cpu")
     np.testing.assert_array_equal(model.predict(images), reloaded.predict(images))
     model.variables_updated = True
     model.save(str(tmp_path / "async2"), block=False)  # joined by the next save
@@ -418,12 +418,12 @@ def test_save_dirty_flag(port_model, tmp_path):
 
 def test_resume_from_latest(port_model, tmp_path):
     port_model.save(str(tmp_path / "r"), force_save=True)
-    resumed = FCN8s.resume(str(tmp_path / "r"))
+    resumed = FCN8s.resume(str(tmp_path / "r"), device="cpu")
     assert resumed.state.step == port_model.state.step
     images = _batch(4)[0]
     np.testing.assert_array_equal(resumed.predict(images), port_model.predict(images))
     with pytest.raises(FileNotFoundError):
-        FCN8s.resume(str(tmp_path / "nothing"))
+        FCN8s.resume(str(tmp_path / "nothing"), device="cpu")
 
 
 def test_async_save_failure_surfaces(port_model, tmp_path, monkeypatch):
@@ -462,7 +462,7 @@ def test_checkpoint_format_version_enforced(port_model, tmp_path):
     with pytest.raises(ValueError, match="format_version"):
         tck.load_params_only(path, example)
     with pytest.raises(ValueError, match="format_version"):
-        FCN8s(model_load_dir=path)
+        FCN8s(model_load_dir=path, device="cpu")
     del meta["format_version"]  # pre-versioning checkpoints load as v1
     (tmp_path / "ver" / os.path.basename(path) / "metadata.json").write_text(json.dumps(meta))
     tck.load_params_only(path, example)
@@ -477,24 +477,25 @@ def test_async_save_replaces_existing_checkpoint_safely(port_model, tmp_path):
     assert not os.path.isdir(target + ".tmp") and not os.path.isdir(target + ".old")
     images = _batch(4)[0]
     np.testing.assert_array_equal(port_model.predict(images),
-                                  FCN8s(model_load_dir=target).predict(images))
+                                  FCN8s(model_load_dir=target, device="cpu").predict(images))
 
 
 def test_custom_optimizer_checkpoint_load_rejected(tmp_path):
     """``model_load_dir`` cannot rebuild a user-supplied optimizer; the error
     points at ``variables_load_dir``, which works."""
     custom = tsteps.make_optimizer("momentum", momentum=0.5)
-    model = FCN8s(num_classes=C, optimizer=custom, compute_dtype=torch.float32, **SMALL)
+    model = FCN8s(num_classes=C, optimizer=custom, compute_dtype=torch.float32, device="cpu",
+                  **SMALL)
     images, labels = _batch()
     model.train(_repeat(images, labels), prefetch=0, **_train_kw(steps=1))
     model.save(str(tmp_path / "ckpt"))
     path = tck.latest_checkpoint(str(tmp_path / "ckpt"))
     with pytest.raises(ValueError, match="variables_load_dir"):
-        FCN8s(model_load_dir=path)
+        FCN8s(model_load_dir=path, device="cpu")
     with pytest.raises(ValueError, match="variables_load_dir"):
-        FCN8s(model_load_dir=path, optimizer=custom)
+        FCN8s(model_load_dir=path, optimizer=custom, device="cpu")
     m2 = FCN8s(num_classes=C, optimizer=custom, variables_load_dir=path,
-               compute_dtype=torch.float32, **SMALL)
+               compute_dtype=torch.float32, device="cpu", **SMALL)
     np.testing.assert_array_equal(m2.predict(images), model.predict(images))
 
 
@@ -504,13 +505,14 @@ def test_load_variables_and_vgg16_dir_restore_by_path(port_model, tmp_path):
     fresh."""
     path = port_model.save(str(tmp_path / "vars"), force_save=True)
     images = _batch(8)[0]
-    fresh = FCN8s(num_classes=C, seed=9, compute_dtype=torch.float32, **SMALL)
+    fresh = FCN8s(num_classes=C, seed=9, compute_dtype=torch.float32, device="cpu", **SMALL)
     before = _numpy_params(fresh.params)
     fresh.load_variables(path)
     _assert_trees_equal(bridge.to_numpy(fresh.params), bridge.to_numpy(port_model.params))
     np.testing.assert_array_equal(fresh.predict(images), port_model.predict(images))
     assert fresh.state.step == 0 and fresh.state.opt_state is None
-    enc = FCN8s(num_classes=C, seed=9, vgg16_dir=path, compute_dtype=torch.float32, **SMALL)
+    enc = FCN8s(num_classes=C, seed=9, vgg16_dir=path, compute_dtype=torch.float32,
+                device="cpu", **SMALL)
     got = bridge.to_numpy(enc.params)
     _assert_trees_equal(got["encoder"], bridge.to_numpy(port_model.params)["encoder"])
     _assert_trees_equal(got["decoder"], before["decoder"])
@@ -522,7 +524,7 @@ def test_train_saves_at_save_frequency_and_only_on_improvement(tmp_path):
     ``save_best_only`` (monitor 'loss', training loss) an epoch whose loss
     did not improve writes nothing."""
     images, labels = _batch()
-    model = FCN8s(num_classes=C, compute_dtype=torch.float32, **SMALL)
+    model = FCN8s(num_classes=C, compute_dtype=torch.float32, device="cpu", **SMALL)
     model.train(_repeat(images, labels), epochs=4, steps_per_epoch=1,
                 learning_rate_schedule=lambda s: 1e-3, keep_prob=1.0, record_summaries=False,
                 prefetch=0, save_during_training=True, save_dir=str(tmp_path / "all"),
@@ -532,7 +534,7 @@ def test_train_saves_at_save_frequency_and_only_on_improvement(tmp_path):
     assert steps == [2, 4]
     assert model._save_thread is None  # train() joined its last save
     # lr 0 keeps the loss flat: after the first save nothing improves
-    flat = FCN8s(num_classes=C, compute_dtype=torch.float32, **SMALL)
+    flat = FCN8s(num_classes=C, compute_dtype=torch.float32, device="cpu", **SMALL)
     flat.train(_repeat(images, labels), epochs=3, steps_per_epoch=1,
                learning_rate_schedule=lambda s: 0.0, keep_prob=1.0, record_summaries=False,
                prefetch=0, save_during_training=True, save_dir=str(tmp_path / "best"),
@@ -546,7 +548,7 @@ def test_async_snapshot_holds_the_state_at_the_call(tmp_path):
     """``save(block=False)`` and then two more in-place steps: the checkpoint
     holds the params and Adam moments of the call, not the later ones."""
     images, labels = _batch()
-    model = FCN8s(num_classes=C, compute_dtype=torch.float32, **SMALL)
+    model = FCN8s(num_classes=C, compute_dtype=torch.float32, device="cpu", **SMALL)
     model.train(_repeat(images, labels), prefetch=0, **_train_kw(steps=1))
     want_params = _numpy_params(model.params)
     want_mu = _port_tree(model.params, [t.clone() for t in model.state.opt_state.inner.mu])
@@ -579,14 +581,14 @@ def test_persistence_imports_no_jax_flax_optax_or_msgpack(tmp_path):
         from fcn8s_tensorflow_tpu_torch.engine.model import FCN8s
         from fcn8s_tensorflow_tpu_torch.ops import conv1_core
         model = FCN8s(num_classes=3, width_mult=1 / 32, fc_channels=32,
-                      compute_dtype=torch.float32)
+                      compute_dtype=torch.float32, device="cpu")
         rng = np.random.default_rng(0)
         batch = (rng.integers(0, 256, (2, 32, 32, 3), dtype=np.uint8),
                  rng.integers(0, 3, (2, 32, 32), dtype=np.uint8))
         model.train(iter([batch] * 2), 1, 2, lambda s: 1e-3, record_summaries=False)
         path = model.save({str(tmp_path)!r}, block=False)
         model.close()
-        again = FCN8s(model_load_dir=path)
+        again = FCN8s(model_load_dir=path, device="cpu")
         assert again.state.step == 2
         sys.argv = ["checkpoint", path]
         runpy.run_module("fcn8s_tensorflow_tpu_torch.engine.checkpoint", run_name="__main__")

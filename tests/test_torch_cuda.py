@@ -44,12 +44,31 @@ def test_pool_kernel_equals_twin(dev, dtype, shape):
     assert torch.equal(y, max_pool_2x2(x))
 
 
+# The CE kernels' cases: C of 3, 20 and 150 classes (a tile of 1024, 256 and
+# 16 or 32 rows); 4099 pixels a sample, so P is no multiple of the tile; and
+# inputs whose base lies one row (and one label) past an allocation's start,
+# so no tensor is 16-byte aligned (logits[1:] is 8 bytes off at C = 20 bf16).
+CE_CLASSES = [3, 20, 150]
+CE_PPS = 4099
+
+
+def _ce_inputs(dev, n, c, logit_dtype, label_dtype, offset, scale=4.0):
+    """(logits (P, C), labels (P,)) for P = n * CE_PPS, views ``offset``
+    elements (of each) into their allocations."""
+    p = n * CE_PPS
+    logits = (torch.randn(p + offset, c, device=dev) * scale).to(logit_dtype)[offset:]
+    labels = torch.randint(0, c, (p + offset,), device=dev).to(label_dtype)[offset:]
+    assert logits.is_contiguous() and labels.is_contiguous()
+    return logits, labels
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("c", CE_CLASSES)
 @pytest.mark.parametrize("logit_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("label_dtype", [torch.uint8, torch.int32])
-def test_ce_kernel_matches_twin(dev, logit_dtype, label_dtype):
-    n, pps, c = 3, 4096, 20
-    logits = (torch.randn(n * pps, c, device=dev) * 4).to(logit_dtype)
-    labels = torch.randint(0, c, (n * pps,), device=dev).to(label_dtype)
+def test_ce_kernel_matches_twin(dev, logit_dtype, label_dtype, c, offset):
+    n, pps = 3, CE_PPS
+    logits, labels = _ce_inputs(dev, n, c, logit_dtype, label_dtype, offset)
     labels[::101] = 200  # out of range: picks nothing
     mask = torch.tensor([1.0, 0.0, 1.0], device=dev)
     got = K.ce_sum_per_sample(logits, labels, mask, pps)
@@ -177,15 +196,16 @@ def test_pool_pair_64bit_indexing(dev):
 # ---------------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("c", CE_CLASSES)
 @pytest.mark.parametrize("logit_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("label_dtype", [torch.uint8, torch.int32])
-def test_ce_weighted_kernel_matches_twin(dev, logit_dtype, label_dtype):
-    p, c = 3 * 4096, 20
-    logits = (torch.randn(p, c, device=dev) * 4).to(logit_dtype)
-    labels = torch.randint(0, c, (p,), device=dev).to(label_dtype)
+def test_ce_weighted_kernel_matches_twin(dev, logit_dtype, label_dtype, c, offset):
+    logits, labels = _ce_inputs(dev, 3, c, logit_dtype, label_dtype, offset)
     labels[::101] = 255  # out of range: picks nothing
-    weights = torch.rand(p, device=dev) * 2
+    weights = (torch.rand(logits.shape[0] + offset, device=dev) * 2)[offset:]
     weights[::7] = 0.0
+    weights[CE_PPS:2 * CE_PPS] = 0.0  # a whole sample of weight 0
     got = K.ce_sum_weighted(logits, labels, weights)
     want = K.ce_sum_weighted_plain(logits, labels, weights)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0.0)
@@ -203,16 +223,21 @@ def _within_one_bf16_ulp(got, want, wg):
     return bool(((g - w).abs() <= ulp + 2.0**-20 * wg.abs()).all())
 
 
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("c", CE_CLASSES)
 @pytest.mark.parametrize("per_pixel", [False, True])
 @pytest.mark.parametrize("logit_dtype", [torch.bfloat16, torch.float32])
-def test_ce_grad_kernel_matches_twin(dev, per_pixel, logit_dtype):
-    n, pps, c = 3, 4096, 20
-    logits = (torch.randn(n * pps, c, device=dev) * 4).to(logit_dtype)
-    labels = torch.randint(0, c, (n * pps,), device=dev, dtype=torch.uint8)
+def test_ce_grad_kernel_matches_twin(dev, per_pixel, logit_dtype, c, offset):
+    """Within one bf16 ulp (fp32: rtol 1e-5) of the twin, with exact zeros
+    wherever the weight is 0; the middle sample weighs 0 throughout, so its
+    tiles are zero-filled without being read."""
+    n, pps = 3, CE_PPS
+    logits, labels = _ce_inputs(dev, n, c, logit_dtype, torch.uint8, offset)
     labels[::97] = 255
     if per_pixel:
-        weights, arg = torch.rand(n * pps, device=dev) * 2, None
+        weights, arg = (torch.rand(n * pps + offset, device=dev) * 2)[offset:], None
         weights[::5] = 0.0
+        weights[pps:2 * pps] = 0.0
     else:
         weights, arg = torch.tensor([1.0, 0.0, 2.0], device=dev), pps
     g = torch.tensor(0.37, device=dev)

@@ -104,9 +104,9 @@ def test_fresh_init_has_the_jax_tree_shapes(variant):
 
 
 def test_fresh_init_is_seeded():
-    a = FCN8s(num_classes=C, seed=3, **SMALL)
-    b = FCN8s(num_classes=C, seed=3, **SMALL)
-    c = FCN8s(num_classes=C, seed=4, **SMALL)
+    a = FCN8s(num_classes=C, seed=3, device="cpu", **SMALL)
+    b = FCN8s(num_classes=C, seed=3, device="cpu", **SMALL)
+    c = FCN8s(num_classes=C, seed=4, device="cpu", **SMALL)
     wa, wb, wc = (m.params["encoder"]["conv1_1"]["weight"] for m in (a, b, c))
     assert torch.equal(wa, wb) and not torch.equal(wa, wc)
 
@@ -193,7 +193,7 @@ def test_steps_raise_for_what_is_not_ported(rng):
 
 def test_facade_predict_pads_crops_and_matches_jax(rng):
     tree = _tree()
-    model = FCN8s.from_params(tree, compute_dtype=torch.float32, **SMALL)
+    model = FCN8s.from_params(tree, compute_dtype=torch.float32, device="cpu", **SMALL)
     assert model.model_config["num_classes"] == C and model.variant == "fcn8s"
     images = _images(rng, n=3, h=50, w=70)
     padded = np.pad(images, ((0, 0), (0, 14), (0, 26), (0, 0)))
@@ -217,7 +217,7 @@ def test_facade_evaluate_matches_jax_eval_steps(rng):
     """Three batches (the last one short) through ``FCN8s.evaluate`` give
     the JAX eval step's running loss and its exact confusion matrix."""
     tree = _tree()
-    model = FCN8s.from_params(tree, compute_dtype=torch.float32, **SMALL)
+    model = FCN8s.from_params(tree, compute_dtype=torch.float32, device="cpu", **SMALL)
     batches = [(_images(rng, n=n), rng.integers(0, C, (n, 64, 64)).astype(np.uint8))
                for n in (2, 2, 1)]
     js = j_empty(C)

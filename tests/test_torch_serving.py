@@ -28,7 +28,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _model():
-    return FCN8s(num_classes=3, width_mult=1 / 32, fc_channels=32, compute_dtype=torch.float32)
+    return FCN8s(num_classes=3, width_mult=1 / 32, fc_channels=32, compute_dtype=torch.float32,
+                 device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -225,7 +226,7 @@ def test_serving_path_imports_no_jax():
         from fcn8s_tensorflow_tpu_torch.labels import TRAINIDS_TO_RGBA_DICT
         torch.set_num_threads(1)
         model = FCN8s(num_classes=3, width_mult=1 / 32, fc_channels=32,
-                      compute_dtype=torch.float32)
+                      compute_dtype=torch.float32, device="cpu")
         service = InferenceService(model, color_map=TRAINIDS_TO_RGBA_DICT)
         ids = service._predict_batch(np.zeros((1, 32, 32, 3), np.uint8), overlay=False)
         assert ids.shape == (1, 32, 32), ids.shape

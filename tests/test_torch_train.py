@@ -357,7 +357,7 @@ def test_facade_train_then_predict_uses_new_weights(tmp_path):
     """Two steps of ``FCN8s.train`` move the masters; ``predict`` afterwards
     runs the new weights (its cache was rebuilt), evaluation ran on 'val',
     and the train log has one record per epoch."""
-    model = FCN8s.from_params(_tree(), compute_dtype=torch.float32, **SMALL)
+    model = FCN8s.from_params(_tree(), compute_dtype=torch.float32, device="cpu", **SMALL)
     images = next(_stream(9))[0][:2]
     before = model.predict(images, argmax=False)
     w0 = model.params["decoder"]["fc7_1x1"]["weight"].detach().clone()
@@ -388,7 +388,7 @@ def test_facade_train_then_predict_uses_new_weights(tmp_path):
     dict(device_augment={"flip": 0.5}), dict(ema_decay=0.9), dict(spatial_partition=True),
     dict(early_stopping=2), dict(reduce_lr_on_plateau=2)])
 def test_train_options_not_ported_raise(option):
-    model = FCN8s(num_classes=C, compute_dtype=torch.float32, **SMALL)
+    model = FCN8s(num_classes=C, compute_dtype=torch.float32, device="cpu", **SMALL)
     kw = dict(record_summaries=False)
     kw.update(option)
     with pytest.raises(NotImplementedError):
@@ -416,7 +416,7 @@ def test_train_path_imports_no_jax():
         from fcn8s_tensorflow_tpu_torch.engine.model import FCN8s
         torch.set_num_threads(1)
         model = FCN8s(num_classes=3, width_mult=1 / 32, fc_channels=32,
-                      compute_dtype=torch.float32, ignore_label=255)
+                      compute_dtype=torch.float32, ignore_label=255, device="cpu")
         rng = np.random.default_rng(0)
         batches = iter([(rng.integers(0, 256, (2, 32, 32, 3), dtype=np.uint8),
                          rng.integers(0, 3, (2, 32, 32), dtype=np.uint8))] * 2)
