@@ -52,10 +52,12 @@ weighted training (phase 12) and the conv1 calibration's timed runs (phase
 ``{"kernels": [...]}``: ``launches`` from the path named in ``path``; ``ms``,
 ``plain_ms`` and ``library_ms`` (one PyTorch call of the same function, where
 there is one; ``null`` otherwise) per call, from back-to-back calls between
-CUDA events; ``bound_ms``, the larger of the bytes the kernel must move over
-3.35 TB/s and its operations over 989 TFLOP/s bf16 (``bound_by`` says
-which; ``bytes`` and ``flops`` are the counts). The last line is ``{"ok":
-true, "device": {...}}``.
+CUDA events; ``graph_ms``, the same call as ``ms`` replayed from a CUDA graph
+of 20 calls, which leaves the host's launch work out (K5's row adds
+``coherent_graph_ms`` on eval-like ids); ``bound_ms``, the larger of the
+bytes the kernel must move over 3.35 TB/s and its operations over 989
+TFLOP/s bf16 (``bound_by`` says which; ``bytes`` and ``flops`` are the
+counts). The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -153,6 +155,37 @@ def cuda_ms(fn, reps: int = 5, n: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, reps: int = 5, n: int = 20, reset=None) -> float:
+    """Milliseconds of one call of ``fn`` on the device with the host left
+    out: ``fn`` captured ``n`` times in a CUDA graph, the median over
+    ``reps`` replays of the replay's time / n. ``reset`` runs before each
+    replay, outside the timed events (an accumulator's zeroing)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        if reset is not None:
+            reset()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph
+    return statistics.median(times)
+
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
 
@@ -212,7 +245,7 @@ def phase_kernels(dev) -> dict:
     out = {}
 
     # K4f: all five VGG pool inputs, bit-exact
-    ms = plain_ms = lib_ms = err = 0.0
+    ms = g_ms = plain_ms = lib_ms = err = 0.0
     moved = 0
     for c, h, w in POOL_INPUTS:
         x = torch.randn((BATCH, c, h, w), generator=g, device=dev, dtype=torch.bfloat16)
@@ -222,10 +255,10 @@ def phase_kernels(dev) -> dict:
         err = max(err, float((y.float() - ref.float()).abs().max()))
         check(torch.equal(y, ref), f"K4f differs from its twin at {tuple(x.shape)}")
         k_ms, p_ms = cuda_ms(lambda: maxpool2x2_nhwc(x)), cuda_ms(lambda: max_pool_2x2(x))
-        l_ms = cuda_ms(lambda: F.max_pool2d(x, 2, 2))
-        print(f"K4f maxpool2x2_nhwc {tuple(x.shape)} bf16: kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms, F.max_pool2d {l_ms:.4f} ms, bit-exact")
-        ms, plain_ms, lib_ms = ms + k_ms, plain_ms + p_ms, lib_ms + l_ms
+        kg_ms, l_ms = graph_ms(lambda: maxpool2x2_nhwc(x)), cuda_ms(lambda: F.max_pool2d(x, 2, 2))
+        print(f"K4f maxpool2x2_nhwc {tuple(x.shape)} bf16: kernel {k_ms:.4f} ms (graph "
+              f"{kg_ms:.4f}), plain {p_ms:.4f} ms, F.max_pool2d {l_ms:.4f} ms, bit-exact")
+        ms, g_ms, plain_ms, lib_ms = ms + k_ms, g_ms + kg_ms, plain_ms + p_ms, lib_ms + l_ms
         moved += nbytes(x, y)  # x read once, y written once
         del x, y, ref
     xf = torch.randn((2, 64, 32, 64), generator=g, device=dev).contiguous(
@@ -234,7 +267,8 @@ def phase_kernels(dev) -> dict:
     yf, reff = maxpool2x2_nhwc(xf), max_pool_2x2(xf)
     check(bool(torch.isnan(yf[0, 5, 1, 1])), "K4f drops NaN")
     check(torch.equal(torch.nan_to_num(yf), torch.nan_to_num(reff)), "K4f fp32 differs")
-    out["maxpool2x2_nhwc"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    out["maxpool2x2_nhwc"] = {"max_abs_err": err, "ms": ms, "graph_ms": g_ms,
+                              "plain_ms": plain_ms,
                               **bound(moved), "library_ms": lib_ms,
                               "library": "F.max_pool2d(x, 2, 2)", "shapes": len(POOL_INPUTS)}
 
@@ -254,41 +288,62 @@ def phase_kernels(dev) -> dict:
     s_i32 = K.ce_sum_per_sample(logits, labels.to(torch.int32), mask, H * W)
     check(abs(float(s_i32) - float(s_t)) <= 1e-5 * abs(float(s_t)), "K1 with int32 labels")
     k_ms = cuda_ms(lambda: K.ce_sum_per_sample(logits, labels, mask, H * W))
+    kg_ms = graph_ms(lambda: K.ce_sum_per_sample(logits, labels, mask, H * W))
     p_ms = cuda_ms(lambda: K.ce_sum_per_sample_plain(logits, labels, mask, H * W))
     # the library's CE at unit weight, on in-range labels (it refuses others)
     lib_labels = labels.long().clamp_(max=C - 1)
     l_ms = cuda_ms(lambda: F.cross_entropy(logits, lib_labels, reduction="sum"))
     moved = nbytes(logits, labels, mask, s_k)
-    print(f"K1 ce_sum_per_sample ({p}, {C}) bf16 + uint8: kernel {k_ms:.4f} ms, plain "
+    print(f"K1 ce_sum_per_sample ({p}, {C}) bf16 + uint8: kernel {k_ms:.4f} ms (graph "
+          f"{kg_ms:.4f}), plain "
           f"{p_ms:.4f} ms, F.cross_entropy (unit weight) {l_ms:.4f} ms, bound "
           f"{bound(moved)['bound_ms']:.4f} ms ({moved} bytes); |diff| {err:.6g} of "
           f"{float(s_t):.9g} (rtol 1e-5)")
     out["ce_sum_per_sample"] = {"max_abs_err": err, "rel_err": err / abs(float(s_t)),
-                                "ms": k_ms, "plain_ms": p_ms, **bound(moved), "library_ms": l_ms,
+                                "ms": k_ms, "graph_ms": kg_ms, "plain_ms": p_ms, **bound(moved),
+                                "library_ms": l_ms,
                                 "library": "F.cross_entropy(logits, labels, reduction='sum'): "
                                            "the same function at unit weight, labels in range"}
     del lib_labels
 
-    # K5: int32 predictions, uint8 GT (a few out of range), one masked sample
+    # K5: int32 predictions, uint8 GT (a few out of range), one masked sample;
+    # then eval-like ids: GT in 32x32 blocks of random classes, predictions
+    # equal to it but on ~10% of pixels
     pred = torch.randint(0, C, (p,), generator=g, device=dev, dtype=torch.int32)
-    conf_k = K.confusion_matrix_accumulate(
-        torch.zeros((C, C), dtype=torch.int32, device=dev), pred, labels, mask, H * W)
-    conf_t = K.confusion_matrix_accumulate_plain(
-        torch.zeros((C, C), dtype=torch.int32, device=dev), pred, labels, mask, H * W)
-    err = int((conf_k - conf_t).abs().max())
-    check(err == 0, f"K5 differs from its twin by up to {err}")
+    blocks = torch.randint(0, C, (BATCH, H // 32, W // 32), generator=g, device=dev)
+    gt_coh = blocks.repeat_interleave(32, 1).repeat_interleave(32, 2).reshape(-1).to(torch.uint8)
+    flip = torch.rand((p,), generator=g, device=dev) < 0.1
+    pred_coh = torch.where(flip, torch.randint(0, C, (p,), generator=g, device=dev),
+                           gt_coh.long()).to(torch.int32)
+    del blocks, flip
+    for name, (q, t) in {"random": (pred, labels), "coherent": (pred_coh, gt_coh)}.items():
+        conf_k = K.confusion_matrix_accumulate(
+            torch.zeros((C, C), dtype=torch.int32, device=dev), q, t, mask, H * W)
+        conf_t = K.confusion_matrix_accumulate_plain(
+            torch.zeros((C, C), dtype=torch.int32, device=dev), q, t, mask, H * W)
+        err = int((conf_k - conf_t).abs().max())
+        check(err == 0, f"K5 differs from its twin by up to {err} on {name} ids")
     acc = torch.zeros((C, C), dtype=torch.int32, device=dev)
     k_ms = cuda_ms(lambda: K.confusion_matrix_accumulate(acc, pred, labels, mask, H * W))
+    kg_ms = graph_ms(lambda: K.confusion_matrix_accumulate(acc, pred, labels, mask, H * W),
+                     reset=acc.zero_)
+    coh_ms = graph_ms(lambda: K.confusion_matrix_accumulate(acc, pred_coh, gt_coh, mask, H * W),
+                      reset=acc.zero_)
     p_ms = cuda_ms(lambda: K.confusion_matrix_accumulate_plain(acc, pred, labels, mask, H * W))
     pair_ids = labels.long().clamp_(max=C - 1) * C + pred.long()
     l_ms = cuda_ms(lambda: torch.bincount(pair_ids, minlength=C * C))
-    moved = nbytes(pred, labels, mask, acc, acc)  # conf is read and written
-    print(f"K5 confusion_matrix_accumulate ({p},) int32 + uint8, C={C}: kernel {k_ms:.4f} ms, "
-          f"plain {p_ms:.4f} ms, torch.bincount {l_ms:.4f} ms, exact")
-    out["confusion_matrix_accumulate"] = {"max_abs_err": float(err), "ms": k_ms, "plain_ms": p_ms,
+    # the ids of live samples are read (a masked-out sample's are not), the
+    # mask once, conf read and written
+    live = int((mask != 0).sum()) * H * W
+    moved = live * (pred.element_size() + labels.element_size()) + nbytes(mask, acc, acc)
+    print(f"K5 confusion_matrix_accumulate ({p},) int32 + uint8, C={C}: kernel {k_ms:.4f} ms "
+          f"(graph {kg_ms:.4f}, eval-like ids {coh_ms:.4f}), plain {p_ms:.4f} ms, torch.bincount "
+          f"{l_ms:.4f} ms, bound {bound(moved)['bound_ms']:.4f} ms; exact on both inputs")
+    out["confusion_matrix_accumulate"] = {"max_abs_err": 0.0, "ms": k_ms, "graph_ms": kg_ms,
+                                          "coherent_graph_ms": coh_ms, "plain_ms": p_ms,
                                           **bound(moved), "library_ms": l_ms,
                                           "library": "torch.bincount(gt * C + pred, minlength=C*C)"}
-    del pair_ids
+    del pair_ids, pred_coh, gt_coh
     return out
 
 
@@ -470,7 +525,8 @@ def phase_train_kernels(dev) -> dict:
     sum the five pool inputs)."""
     g = torch.Generator(device=dev).manual_seed(10)
     out = {}
-    sums = {"a": 0.0, "a_plain": 0.0, "a_lib": 0.0, "b": 0.0, "b_plain": 0.0, "b_lib": 0.0}
+    sums = dict.fromkeys(("a", "a_graph", "a_plain", "a_lib", "b", "b_graph", "b_plain", "b_lib"),
+                         0.0)
     moved = {"a": 0, "b": 0}
     for c, h, w in TRAIN_POOL_INPUTS:
         x = _ties((BATCH, c, h, w), dev, g)
@@ -490,26 +546,31 @@ def phase_train_kernels(dev) -> dict:
         ties = float((code != 0).float().mean())
         _, idx = F.max_pool2d(x, 2, 2, return_indices=True)
         t = {"a": cuda_ms(lambda: P.maxpool2x2_code_nhwc(x)),
+             "a_graph": graph_ms(lambda: P.maxpool2x2_code_nhwc(x)),
              "a_plain": cuda_ms(lambda: P.maxpool2x2_code_plain(x)),
              "a_lib": cuda_ms(lambda: F.max_pool2d(x, 2, 2, return_indices=True)),
              "b": cuda_ms(lambda: P.maxpool2x2_bwd_nhwc(dy, code)),
+             "b_graph": graph_ms(lambda: P.maxpool2x2_bwd_nhwc(dy, code)),
              "b_plain": cuda_ms(lambda: P.maxpool2x2_bwd_plain(dy, code)),
              "b_lib": cuda_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
                  dy, x, [2, 2], [2, 2], [0, 0], [1, 1], False, idx))}
         print(f"K4a/K4b {tuple(x.shape)} bf16 (code != 0 on {ties:.3f}): K4a {t['a']:.4f} ms "
-              f"(plain {t['a_plain']:.4f}, F.max_pool2d with indices {t['a_lib']:.4f}), K4b "
-              f"{t['b']:.4f} ms (plain {t['b_plain']:.4f}, aten max_pool2d_with_indices_backward "
+              f"(graph {t['a_graph']:.4f}, plain {t['a_plain']:.4f}, F.max_pool2d with indices "
+              f"{t['a_lib']:.4f}), K4b {t['b']:.4f} ms (graph {t['b_graph']:.4f}, plain "
+              f"{t['b_plain']:.4f}, aten max_pool2d_with_indices_backward "
               f"{t['b_lib']:.4f}); y, code and dx bit-exact, dx = F.max_pool2d's gradient")
         sums = {k: sums[k] + t[k] for k in sums}
         moved["a"] += nbytes(x, y, code)  # x read, y and the code written
         moved["b"] += nbytes(dy, code, dx)  # dy and the code read, dx written
         del x, y, code, y_t, code_t, dy, dx, xr, idx
     out["maxpool2x2_code_nhwc"] = {
-        "max_abs_err": 0.0, "ms": sums["a"], "plain_ms": sums["a_plain"], **bound(moved["a"]),
+        "max_abs_err": 0.0, "ms": sums["a"], "graph_ms": sums["a_graph"],
+        "plain_ms": sums["a_plain"], **bound(moved["a"]),
         "library_ms": sums["a_lib"], "library": "F.max_pool2d(x, 2, 2, return_indices=True)",
         "shapes": len(TRAIN_POOL_INPUTS)}
     out["maxpool2x2_bwd_nhwc"] = {
-        "max_abs_err": 0.0, "ms": sums["b"], "plain_ms": sums["b_plain"], **bound(moved["b"]),
+        "max_abs_err": 0.0, "ms": sums["b"], "graph_ms": sums["b_graph"],
+        "plain_ms": sums["b_plain"], **bound(moved["b"]),
         "library_ms": sums["b_lib"],
         "library": "aten.max_pool2d_with_indices_backward on F.max_pool2d's indices",
         "shapes": len(TRAIN_POOL_INPUTS)}
@@ -529,6 +590,7 @@ def phase_train_kernels(dev) -> dict:
     check(torch.equal(s_k, K.ce_sum_weighted(logits, labels, weights)),
           "K3 is not run-to-run identical")
     k_ms = cuda_ms(lambda: K.ce_sum_weighted(logits, labels, weights))
+    kg_ms = graph_ms(lambda: K.ce_sum_weighted(logits, labels, weights))
     p_ms = cuda_ms(lambda: K.ce_sum_weighted_plain(logits, labels, weights))
     # the library call that computes K3's function on these inputs exactly:
     # class weights, 255 ignored (checked in fp32 against the twin first)
@@ -540,11 +602,13 @@ def phase_train_kernels(dev) -> dict:
     l_ms = cuda_ms(lambda: F.cross_entropy(logits, lib_labels, weight=cw_lib, ignore_index=255,
                                            reduction="sum"))
     moved = nbytes(logits, labels, weights, s_k)
-    print(f"K3 ce_sum_weighted ({p}, {C}) bf16 + uint8 + fp32 weights: kernel {k_ms:.4f} ms, "
+    print(f"K3 ce_sum_weighted ({p}, {C}) bf16 + uint8 + fp32 weights: kernel {k_ms:.4f} ms "
+          f"(graph {kg_ms:.4f}), "
           f"plain {p_ms:.4f} ms, F.cross_entropy(weight=cw, ignore_index=255) {l_ms:.4f} ms, "
           f"bound {bound(moved)['bound_ms']:.4f} ms ({moved} bytes); |diff| {err:.6g} of "
           f"{float(s_t):.9g} (rtol 1e-5), run-to-run identical")
     out["ce_sum_weighted"] = {"max_abs_err": err, "rel_err": err / abs(float(s_t)), "ms": k_ms,
+                              "graph_ms": kg_ms,
                               "plain_ms": p_ms, **bound(moved), "library_ms": l_ms,
                               "library": "F.cross_entropy(logits, labels, weight=cw, "
                                          "ignore_index=255, reduction='sum'), cw in bf16"}
@@ -568,8 +632,10 @@ def phase_train_kernels(dev) -> dict:
         worst = {"err": max(worst["err"], float((d_k.float() - d_t.float()).abs().max())),
                  "ulps": max(worst["ulps"], ulps)}
         times[mode] = (cuda_ms(lambda: K.ce_grad(logits, labels, w_, grad_out, pps)),
-                       cuda_ms(lambda: K.ce_grad_plain(logits, labels, w_, grad_out, pps)))
-        print(f"CE grad {mode} ({p}, {C}) bf16: kernel {times[mode][0]:.4f} ms, plain "
+                       cuda_ms(lambda: K.ce_grad_plain(logits, labels, w_, grad_out, pps)),
+                       graph_ms(lambda: K.ce_grad(logits, labels, w_, grad_out, pps)))
+        print(f"CE grad {mode} ({p}, {C}) bf16: kernel {times[mode][0]:.4f} ms (graph "
+              f"{times[mode][2]:.4f}), plain "
               f"{times[mode][1]:.4f} ms, {ulps:.3g} bf16 ulp from the twin at most (bound: one "
               f"ulp + 2^-20 |w g|), exact zeros at zero weight")
         del d_k, d_t
@@ -579,9 +645,11 @@ def phase_train_kernels(dev) -> dict:
     moved = live * (C * logits.element_size() + labels.element_size()) + nbytes(
         mask, grad_out, logits)
     out["ce_grad"] = {"max_abs_err": worst["err"], "max_bf16_ulps": worst["ulps"],
-                      "ms": times["per-sample"][0], "plain_ms": times["per-sample"][1],
+                      "ms": times["per-sample"][0], "graph_ms": times["per-sample"][2],
+                      "plain_ms": times["per-sample"][1],
                       **bound(moved), "library_ms": None, "library": "none",
                       "per_pixel_ms": times["per-pixel"][0],
+                      "per_pixel_graph_ms": times["per-pixel"][2],
                       "per_pixel_plain_ms": times["per-pixel"][1]}
     return out
 
@@ -830,18 +898,20 @@ def phase_conv1_calibration(dev, smi: str) -> tuple[dict, dict]:
     counts = read_counts()
     check(counts["conv1_core"] > 0, "the calibration never launched conv1_core")
     x = inputs["xmain"]
+    kb_graph = graph_ms(lambda: KB.conv1_core(x, inputs["w128"], inputs["w64"]))
     kb_bound = bound(nbytes(x, inputs["w128"], inputs["w64"], x),  # out is x's size
                      KB.kb_flops(*x.shape[:2]))
     del inputs, x
     torch.cuda.empty_cache()
     print(f"conv1 calibration on {smi}, x ({KB.CAL_TILES * KB.TH}, {KB.CAL_W}, {KB.C}) bf16, "
-          f"{times['gflop']:.1f} GFLOP: KB {times['ms']:.4f} ms ({times['tflops']:.1f} TFLOP/s), "
+          f"{times['gflop']:.1f} GFLOP: KB {times['ms']:.4f} ms ({times['tflops']:.1f} TFLOP/s; "
+          f"graph {kb_graph:.4f} ms, {times['gflop'] / kb_graph:.1f} TFLOP/s), "
           f"twin (fp32, TF32 off) {times['plain_ms']:.4f} ms ({times['plain_tflops']:.1f} "
           f"TFLOP/s), cuDNN conv1_2 + ReLU (8, 1024, 512, 64) bf16 {times['cudnn_ms']:.4f} ms "
           f"({times['cudnn_tflops']:.1f} TFLOP/s); KB vs twin max |diff| "
           f"{checked['max_abs_err']:.4g} of max |twin| {checked['max_abs_ref']:.4g}, every "
           f"element within 2^-7 |twin| + 2^-7; launches {counts['conv1_core']}")
-    measured = {"max_abs_err": checked["max_abs_err"], "ms": times["ms"],
+    measured = {"max_abs_err": checked["max_abs_err"], "ms": times["ms"], "graph_ms": kb_graph,
                 "plain_ms": times["plain_ms"], **kb_bound, "library_ms": None,
                 "library": "none (cuDNN's conv1_2 + ReLU is its same-FLOPs reference)",
                 "cudnn_conv1_2_ms": times["cudnn_ms"],

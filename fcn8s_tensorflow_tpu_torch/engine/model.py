@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from .. import bridge
+from ..kernels import resolve_device
 from . import checkpoint as ckpt
 from ..data.prefetch import DevicePrefetcher, host_tensors, to_device
 from ..models.fcn8s import decoder_variant, init_fcn8s
@@ -46,16 +47,6 @@ _ALLOWED_METRICS = {"loss", "mean_iou", "accuracy"}
 
 def _not_ported(what: str):
     raise NotImplementedError(f"{what} is not ported to the PyTorch package yet")
-
-
-def _resolve_device(device) -> torch.device:
-    """The facade's device: the card unless the caller asks for the CPU. A
-    CUDA device without a card raises instead of running on the host."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"no CUDA device for device={str(device)!r}: pass device=\"cpu\" "
-                           "to run on the CPU")
-    return device
 
 
 class FCN8s:
@@ -94,7 +85,7 @@ class FCN8s:
             raise ValueError(
                 "You must provide either `model_load_dir` or `num_classes` "
                 "(optionally with `vgg16_dir` for pretrained encoder weights).")
-        device = _resolve_device(device)
+        device = resolve_device(device)
         restored = None
         if model_load_dir is not None:
             cfg = ckpt.load_metadata(model_load_dir)["model_config"]
@@ -156,7 +147,7 @@ class FCN8s:
         ``width_mult``/``fc_channels`` only describe the tree in
         ``model_config``; the shapes come from the tree. The other arguments
         are the constructor's."""
-        device = _resolve_device(device)
+        device = resolve_device(device)
         model = cls.__new__(cls)
         model._setup(bridge.to_port(tree), width_mult=width_mult, fc_channels=fc_channels,
                      compute_dtype=compute_dtype, device=device, seed=seed, remat=remat,

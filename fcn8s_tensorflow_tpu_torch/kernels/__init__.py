@@ -35,6 +35,17 @@ def require_cuda(*tensors: torch.Tensor) -> torch.device:
     return dev
 
 
+def resolve_device(device) -> torch.device:
+    """A public entry point's device: the card unless the caller asks for
+    the CPU. A CUDA device without a card raises instead of running on the
+    host."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"no CUDA device for device={str(device)!r}: pass device=\"cpu\" "
+                           "to run on the CPU")
+    return device
+
+
 def stream_handle(device: torch.device) -> int:
     """PyTorch's current stream on ``device``, as the kernels take it."""
     return torch.cuda.current_stream(device).cuda_stream

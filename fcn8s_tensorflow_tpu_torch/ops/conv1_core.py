@@ -36,6 +36,7 @@ from ..kernels import build
 
 C = 64  # channels in and out, fixed as in the TPU kernel
 TH = 8  # output rows per tile
+STRIP = 128  # pixels a work item of the kernel (csrc/conv1_core.cu kStrip)
 # the script's shapes (benchmarks/conv1_block_calibration.py:26-29)
 CAL_TILES, CAL_W = 1024, 512
 CONV_SHAPE = (8, 1024, CAL_W, C)  # its reference conv1_2 input, NHWC
@@ -81,6 +82,17 @@ def conv1_core_reference(x: torch.Tensor, w128: torch.Tensor, w64: torch.Tensor)
         return torch.relu_(acc).to(torch.bfloat16)
 
 
+def work_split(rows: int, width: int, sms: int) -> tuple[int, int, int]:
+    """(strips, rows a run, runs): how KB's persistent blocks cut an (R, W)
+    output. W falls into STRIP-pixel strips; R into runs of consecutive rows,
+    as many as make strips x runs about one item per SM, so each input row is
+    loaded once per strip and only 2 halo rows a run are loaded twice."""
+    strips = -(-width // STRIP)
+    runs = min(rows, max(1, sms // strips))
+    run_rows = -(-rows // runs)
+    return strips, run_rows, -(-rows // run_rows)
+
+
 def conv1_core(x: torch.Tensor, w128: torch.Tensor, w64: torch.Tensor) -> torch.Tensor:
     """KB: ``relu(sum_ky [a || a] @ w128[ky] + a @ w64[ky])`` per output row,
     ``a = x[(r + ky) mod R]``, for x (R, W, 64) bf16 (R a multiple of 8, any
@@ -92,10 +104,12 @@ def conv1_core(x: torch.Tensor, w128: torch.Tensor, w64: torch.Tensor) -> torch.
     _check(x, w128, w64)
     dev = kernels.require_cuda(x, w128, w64)
     out = torch.empty_like(x)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    strips, run_rows, runs = work_split(x.shape[0], x.shape[1], sms)
     with torch.cuda.device(dev):
         rc = build.library().fcn8s_conv1_core(x.data_ptr(), w128.data_ptr(), w64.data_ptr(),
-                                              out.data_ptr(), x.shape[0], x.shape[1],
-                                              kernels.stream_handle(dev))
+                                              out.data_ptr(), x.shape[0], x.shape[1], run_rows,
+                                              min(strips * runs, sms), kernels.stream_handle(dev))
     build.check(rc, "conv1_core")
     conv1_core.launches += 1
     return out

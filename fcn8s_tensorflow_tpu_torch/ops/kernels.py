@@ -312,8 +312,10 @@ def confusion_matrix_accumulate(conf: torch.Tensor, pred: torch.Tensor, gt: torc
     the running int32 ``conf`` IN PLACE and return it. ``pred``/``gt`` are
     (P,) uint8/int32 id maps, ``mask`` (N,) fp32 with P = N * pps. Ids
     outside [0, C) and pixels of samples whose mask is 0 drop out. The mask
-    is a 0/1 batch-padding mask: any non-zero entry counts its pixels once."""
-    if conf.device.type == "cpu":
+    is a 0/1 batch-padding mask: any non-zero entry counts its pixels once.
+    The plain twin runs only when all four tensors lie on the CPU; otherwise
+    they must all lie on one card."""
+    if all(t.device.type == "cpu" for t in (conf, pred, gt, mask)):
         return confusion_matrix_accumulate_plain(conf, pred, gt, mask, pps)
     name = "confusion_matrix_accumulate"
     kernels.require(conf.dim() == 2 and conf.shape[0] == conf.shape[1]

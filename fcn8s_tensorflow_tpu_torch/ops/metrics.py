@@ -13,11 +13,15 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels import resolve_device
 from .kernels import confusion_matrix_accumulate
 
 
-def empty_metrics_state(num_classes: int, device="cpu") -> dict:
-    """Zeroed accumulators (the reference's ``metrics_reset_op``)."""
+def empty_metrics_state(num_classes: int, device="cuda") -> dict:
+    """Zeroed accumulators (the reference's ``metrics_reset_op``) on
+    ``device``: the card by default, as JAX's builds on its default backend;
+    without a card it raises unless the caller passes ``device="cpu"``."""
+    device = resolve_device(device)
     return {
         "loss_sum": torch.zeros((), dtype=torch.float32, device=device),
         "loss_count": torch.zeros((), dtype=torch.float32, device=device),

@@ -138,3 +138,41 @@ def test_calibration_flop_counts_are_the_scripts(calibration):
 def test_conv1_core_calibrate_refuses_the_cpu():
     with pytest.raises(ValueError, match="card"):
         KB.calibrate("cpu")
+
+
+def _work_items(rows, width, sms):
+    """KB's work items as the kernel decodes them (item = run * strips +
+    strip): (first pixel, end pixel, first output row, end output row, the
+    input rows it loads, in order)."""
+    strips, run_rows, runs = KB.work_split(rows, width, sms)
+    for item in range(strips * runs):
+        w0, r0 = item % strips * KB.STRIP, item // strips * run_rows
+        r1 = min(r0 + run_rows, rows)
+        yield (w0, min(w0 + KB.STRIP, width), r0, r1,
+               [(r0 + j) % rows for j in range(r1 - r0 + 2)])
+
+
+@pytest.mark.parametrize("rows,width,sms", [(8192, 512, 132), (8, 3, 132), (16, 64, 132),
+                                            (64, 1000, 132), (24, 45, 132), (16, 45, 4),
+                                            (64, 20000, 132), (8, 129, 1)])
+def test_conv1_core_work_split_covers_every_output_once(rows, width, sms):
+    """The kernel's work items cover every (output row, pixel) exactly once;
+    each loads its output rows and the two after, mod R, once; at most one
+    item per SM when the shape allows; and at the calibration's shape the
+    halo re-reads stay under 1% of the input."""
+    covered = np.zeros((rows, width), np.int32)
+    loads = 0
+    items = list(_work_items(rows, width, sms))
+    for w0, w1, r0, r1, inputs in items:
+        assert w0 % KB.STRIP == 0 and 0 < w1 - w0 <= KB.STRIP and 0 <= r0 < r1 <= rows
+        covered[r0:r1, w0:w1] += 1
+        assert inputs == [r % rows for r in range(r0, r1 + 2)]
+        loads += len(inputs)
+    assert (covered == 1).all()
+    strips, run_rows, runs = KB.work_split(rows, width, sms)
+    assert len(items) == strips * runs and runs == -(-rows // run_rows)
+    if strips <= sms:
+        assert len(items) <= sms
+    assert loads == strips * (rows + 2 * runs)
+    if (rows, width, sms) == (8192, 512, 132):
+        assert (strips, runs) == (4, 33) and loads / (strips * rows) - 1 < 0.01

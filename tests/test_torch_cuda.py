@@ -128,6 +128,71 @@ def test_confmat_kernel_equals_twin(dev, c):
     assert torch.equal(got, want)
 
 
+def _k5_ids(dev, case, c, pred_dtype, gt_dtype):
+    """(pred, gt, pps) for K5's cases, three samples: ``random`` ids (some out
+    of range); ``one_bin``, every pixel (gt, pred) = (3, 3); ``blocks``, eval-
+    like ids (gt in 32x32 blocks of random classes over 64x96 frames, pred =
+    gt but on ~10% of pixels); ``unaligned``, the blocks as views one label
+    and three predictions into their allocations (``gt[1:]``, ``pred[3:]``);
+    ``pps_odd``, random ids with 5003 pixels a sample, so 16-pixel vectors
+    straddle samples."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    n, h, w = 3, 64, 96
+    if case in ("random", "pps_odd"):
+        pps = 5003 if case == "pps_odd" else h * w
+        gt = torch.randint(0, c + 3, (n * pps,), generator=g, device=dev)
+        pred = torch.randint(-1, c + 1, (n * pps,), generator=g, device=dev)
+    elif case == "one_bin":
+        pps = h * w
+        gt = torch.full((n * pps,), 3, device=dev)
+        pred = gt.clone()
+    else:
+        pps = h * w
+        blocks = torch.randint(0, c, (n, h // 32, w // 32), generator=g, device=dev)
+        gt = blocks.repeat_interleave(32, 1).repeat_interleave(32, 2).reshape(-1)
+        flip = torch.rand(gt.shape, generator=g, device=dev) < 0.1
+        pred = torch.where(flip, torch.randint(0, c, gt.shape, generator=g, device=dev), gt)
+    gt, pred = gt.to(gt_dtype), pred.to(pred_dtype)  # a -1 prediction is 255 as uint8: out of range
+    if case == "unaligned":
+        gt = torch.cat([gt[:1], gt])[1:]
+        pred = torch.cat([pred[:3], pred])[3:]
+    assert gt.is_contiguous() and pred.is_contiguous()
+    return pred, gt, pps
+
+
+@pytest.mark.parametrize("case", ["random", "one_bin", "blocks", "unaligned", "pps_odd"])
+@pytest.mark.parametrize("pred_dtype,gt_dtype", [(torch.int32, torch.uint8),
+                                                 (torch.int32, torch.int32),
+                                                 (torch.uint8, torch.uint8),
+                                                 (torch.uint8, torch.int32)])
+def test_confmat_kernel_equals_twin_on_coherent_and_unaligned_ids(dev, pred_dtype, gt_dtype,
+                                                                   case):
+    """Exact counts, added to a non-zero matrix in place, with one sample
+    masked out, on every id layout the kernel's vector path meets."""
+    c = 20
+    pred, gt, pps = _k5_ids(dev, case, c, pred_dtype, gt_dtype)
+    mask = torch.tensor([1.0, 0.0, 1.0], device=dev)
+    start = torch.randint(0, 100, (c, c), device=dev, dtype=torch.int32)
+    n = K.confusion_matrix_accumulate.launches
+    got = K.confusion_matrix_accumulate(start.clone(), pred, gt, mask, pps)
+    assert K.confusion_matrix_accumulate.launches == n + 1
+    want = K.confusion_matrix_accumulate_plain(start.clone(), pred, gt, mask, pps)
+    assert torch.equal(got, want)
+    if case == "one_bin":
+        assert int(got[3, 3] - start[3, 3]) == 2 * pps
+
+
+@pytest.mark.parametrize("case", ["blocks", "unaligned"])
+def test_confmat_kernel_global_bins_on_coherent_ids(dev, case):
+    """C = 150: the bins do not fit in shared memory and runs go to the
+    global matrix directly."""
+    pred, gt, pps = _k5_ids(dev, case, 150, torch.int32, torch.uint8)
+    mask = torch.tensor([1.0, 1.0, 0.0], device=dev)
+    zeros = torch.zeros((150, 150), dtype=torch.int32, device=dev)
+    got = K.confusion_matrix_accumulate(zeros.clone(), pred, gt, mask, pps)
+    assert torch.equal(got, K.confusion_matrix_accumulate_plain(zeros.clone(), pred, gt, mask, pps))
+
+
 # ---------------------------------------------------------------------------
 # K4a / K4b: the pool's training pair
 # ---------------------------------------------------------------------------
@@ -276,11 +341,14 @@ def test_ce_grad_64bit_indexing(dev):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("rows,width", [(64, 512), (24, 45), (8, 3)])
+@pytest.mark.parametrize("rows", [8, 16, 64])
+@pytest.mark.parametrize("width", [512, 64, 45, 3, 1000])
 def test_conv1_core_kernel_matches_twin(dev, rows, width):
-    """KB at W = 512 (the calibration's) and at widths that are no multiple
-    of its 32-pixel strip or of 16, within one bf16 step of the twin; the
-    last tile's halo wraps to rows 0 and 1."""
+    """KB at W = 512 (the calibration's), at widths that leave a strip half
+    or wholly empty (64, 45, 3) and at one that is no multiple of the
+    128-pixel strip (1000), within one bf16 step of the twin; R = 8 is one
+    tile whose halo wraps onto itself. Flipping rows 0 and 1 changes exactly
+    the output rows whose taps reach them."""
     from fcn8s_tensorflow_tpu_torch.ops import conv1_core as KB
 
     g = torch.Generator(device=dev).manual_seed(rows + width)
@@ -299,6 +367,25 @@ def test_conv1_core_kernel_matches_twin(dev, rows, width):
     assert changed == sorted({0, 1, rows - 2, rows - 1})
     with pytest.raises(ValueError, match="multiple of 8"):
         KB.conv1_core(x[:5], w128, w64)
+
+
+def test_conv1_core_kernel_passes_nan(dev):
+    """A NaN input pixel makes its three output rows NaN at that pixel, as
+    in the twin (the ReLU keeps a NaN); every other element stays within
+    one bf16 step."""
+    from fcn8s_tensorflow_tpu_torch.ops import conv1_core as KB
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn((16, 200, 64), generator=g, device=dev).to(torch.bfloat16)
+    w128 = torch.randn((3, 128, 64), generator=g, device=dev).to(torch.bfloat16)
+    w64 = torch.randn((3, 64, 64), generator=g, device=dev).to(torch.bfloat16)
+    x[3, 130, 5] = float("nan")
+    got, want = KB.conv1_core(x, w128, w64), KB.conv1_core_reference(x, w128, w64)
+    nan = torch.isnan(got)
+    assert torch.equal(nan, torch.isnan(want))
+    assert nan.any(2).nonzero().tolist() == [[1, 130], [2, 130], [3, 130]]
+    err, ok = KB.within_one_bf16_step(torch.nan_to_num(got), torch.nan_to_num(want))
+    assert ok, err
 
 
 def test_async_save_snapshot_on_the_card(dev, tmp_path):

@@ -1,8 +1,8 @@
 """PyTorch port: the facade's device and the CE kernels' tiling, on the CPU.
 
-The facade runs on the card unless the caller asks for the CPU: without a
-card its default raises and names ``device="cpu"``; it never carries on on
-the host. The CE kernels' tile and grid are a function of the shape and
+The facade and the metrics state run on the card unless the caller asks for
+the CPU: without a card their default raises and names ``device="cpu"``;
+they never carry on on the host. The CE kernels' tile and grid are a function of the shape and
 dtype alone, which is what keeps K1's and K3's sums identical from run to
 run.
 """
@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 from fcn8s_tensorflow_tpu_torch import bridge  # noqa: E402
 from fcn8s_tensorflow_tpu_torch.engine.model import FCN8s  # noqa: E402
 from fcn8s_tensorflow_tpu_torch.ops import kernels as K  # noqa: E402
+from fcn8s_tensorflow_tpu_torch.ops.metrics import empty_metrics_state  # noqa: E402
 
 SMALL = dict(width_mult=1 / 32, fc_channels=32, compute_dtype=torch.float32)
 
@@ -55,8 +56,25 @@ def test_explicit_cpu_builds_a_model_on_the_cpu(builder, saved, monkeypatch):
 def test_facade_entry_points_default_to_cuda():
     import inspect
 
-    for fn in (FCN8s.__init__, FCN8s.from_params):
+    for fn in (FCN8s.__init__, FCN8s.from_params, empty_metrics_state):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_metrics_state_without_a_card_raises_and_names_cpu(monkeypatch):
+    """The JAX call ``empty_metrics_state(C)`` builds on the default device:
+    here the card, and without one it raises instead of building a CPU
+    state that the card's eval step could not add to."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        empty_metrics_state(4)
+
+
+def test_metrics_state_on_the_cpu_when_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    state = empty_metrics_state(4, device="cpu")
+    assert all(t.device.type == "cpu" for t in state.values())
+    assert state["conf_matrix"].shape == (4, 4) and state["conf_matrix"].dtype == torch.int32
+    assert not state["conf_matrix"].any() and float(state["loss_count"]) == 0.0
 
 
 @pytest.mark.parametrize("c,dtype,rows", [(20, torch.bfloat16, 512), (20, torch.float32, 256),

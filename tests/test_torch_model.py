@@ -171,7 +171,7 @@ def test_eval_step_matches_jax_cpu_path(rng):
     js = j_eval(tree, j_empty(C), jnp.asarray(images), jnp.asarray(labels), jnp.asarray(mask),
                 num_classes=C, use_pallas_ce=False, **F32)
     with torch.inference_mode():
-        ts = t_eval(_run_params(tree), t_empty(C), torch.from_numpy(images),
+        ts = t_eval(_run_params(tree), t_empty(C, device="cpu"), torch.from_numpy(images),
                     torch.from_numpy(labels), torch.from_numpy(mask), num_classes=C, **TF32)
     np.testing.assert_allclose(float(ts["loss_sum"]), float(js["loss_sum"]), rtol=1e-5)
     assert float(ts["loss_count"]) == float(js["loss_count"]) == 1.0

@@ -247,6 +247,19 @@ def test_confmat_wrapper_rejects_what_the_kernel_does_not_take():
         K.confusion_matrix_accumulate(conf, ids.to(torch.int64), ids, mask, 32)
 
 
+@pytest.mark.parametrize("on_card", ["pred", "gt", "mask", "all"])
+def test_confmat_wrapper_takes_the_twin_only_when_all_lie_on_the_cpu(on_card):
+    """A CPU ``conf`` with ids or a mask elsewhere (a meta tensor stands in
+    for the card) raises instead of running the twin across devices."""
+    t = {"pred": torch.zeros(64, dtype=torch.int32), "gt": torch.zeros(64, dtype=torch.uint8),
+         "mask": torch.ones(2)}
+    for k in t if on_card == "all" else [on_card]:
+        t[k] = t[k].to("meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        K.confusion_matrix_accumulate(torch.zeros((4, 4), dtype=torch.int32), t["pred"], t["gt"],
+                                      t["mask"], 32)
+
+
 def test_metrics_match_jax(rng):
     c = 6
     pred, gt = _ids(rng, c)
@@ -254,7 +267,7 @@ def test_metrics_match_jax(rng):
     js = jmetrics.update_metrics_state(
         jmetrics.empty_metrics_state(c), loss=jnp.float32(1.25), pred_ids=jnp.asarray(pred),
         gt_ids=jnp.asarray(gt), num_classes=c, sample_mask=jnp.asarray(mask))
-    state = tmetrics.empty_metrics_state(c)
+    state = tmetrics.empty_metrics_state(c, device="cpu")
     ts = tmetrics.update_metrics_state(
         state, loss=torch.tensor(1.25), pred_ids=torch.from_numpy(pred),
         gt_ids=torch.from_numpy(gt), num_classes=c, sample_mask=torch.from_numpy(mask))

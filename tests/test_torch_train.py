@@ -297,7 +297,7 @@ def test_eval_step_ignore_label_and_class_weights_match_jax():
                               jnp.asarray(labels), jnp.asarray(mask), num_classes=C,
                               compute_dtype=jnp.float32, use_pallas_ce=False, **kw)
         with torch.inference_mode():
-            ts = tsteps.eval_step(run, t_empty(C), torch.from_numpy(images),
+            ts = tsteps.eval_step(run, t_empty(C, device="cpu"), torch.from_numpy(images),
                                   torch.from_numpy(labels), torch.from_numpy(mask),
                                   num_classes=C, compute_dtype=torch.float32, **kw)
         np.testing.assert_allclose(float(ts["loss_sum"]), float(js["loss_sum"]), rtol=1e-5)
