@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, eval, training, KB calibration and
-checkpoint paths once on one CUDA card.
+"""Drive the PyTorch port's serving, eval, training, KB calibration,
+checkpoint and training-feature paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -43,13 +43,27 @@ Phases, in order; any failure raises and the script exits non-zero:
     same loss; ``save(block=False)`` while two steps run holds the state of
     the call; the serving CLI serves the checkpoint (/healthz, /predict);
     checkpoint size, save, async-call and load times. The files live in a
-    temporary directory, removed at the end.
+    temporary directory, removed at the end;
+16. the training features at full width: ``FCN8s.train`` for 3 epochs x 3
+    steps (batch 8 x 1024x512, keep_prob 0.5) with TensorBoard summaries,
+    ``ema_decay``, ``device_augment``, the LR-plateau observer and early
+    stopping, evaluating each epoch: both event streams hold the JAX
+    facade's tags, the train log's LRs halve as the observer says,
+    ``predict``/``evaluate(use_ema=True)`` run other weights than the live
+    ones, a save + resume + one step equals the uninterrupted run (EMA
+    within one fp32 ulp, counters equal), and the augmented batch equals
+    the apply functions' CPU run on the card's draws; then the step with
+    augment + EMA against the plain one, the EMA update, the augment and
+    the weight summaries timed, and the device busy share of 5 such steps
+    read from ``utils.profiling.trace``.
 
 Kernel launch counts are zeroed just before each path is driven and read
 just after it: serving + evaluation (phases 5-6), training (phase 10), the
-weighted training (phase 12) and the conv1 calibration's timed runs (phase
-14); every kernel of a path must have launched. The line before the last is
-``{"kernels": [...]}``: ``launches`` from the path named in ``path``; ``ms``,
+weighted training (phase 12), the conv1 calibration's timed runs (phase
+14) and the training features (phase 16: the train run, then the use_ema
+inference); every kernel of a path must have launched. The line before the
+last is ``{"kernels": [...]}``: ``launches`` from the path named in
+``path``; ``ms``,
 ``plain_ms`` and ``library_ms`` (one PyTorch call of the same function, where
 there is one; ``null`` otherwise) per call, from back-to-back calls between
 CUDA events; ``graph_ms``, the same call as ``ms`` replayed from a CUDA graph
@@ -57,7 +71,8 @@ of 20 calls, which leaves the host's launch work out (K5's row adds
 ``coherent_graph_ms`` on eval-like ids); ``bound_ms``, the larger of the
 bytes the kernel must move over 3.35 TB/s and its operations over 989
 TFLOP/s bf16 (``bound_by`` says which; ``bytes`` and ``flops`` are the
-counts). The last line is ``{"ok": true, "device": {...}}``.
+counts; ``launches_train_features`` is the kernel's count in phase 16).
+The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -84,9 +99,12 @@ from fcn8s_tensorflow_tpu_torch import bridge
 from fcn8s_tensorflow_tpu_torch.engine import serving
 from fcn8s_tensorflow_tpu_torch.engine.model import FCN8s
 from fcn8s_tensorflow_tpu_torch.engine.serving import InferenceService, make_server
+from fcn8s_tensorflow_tpu_torch.engine.summaries import (DEFAULT_INSTRUMENTED, SummaryLogger,
+                                                         summary_stats)
 from fcn8s_tensorflow_tpu_torch.kernels import build
 from fcn8s_tensorflow_tpu_torch.labels import TRAINIDS_TO_RGBA_DICT
 from fcn8s_tensorflow_tpu_torch.models.fcn8s import apply_fcn8s, decoder_l2_loss
+from fcn8s_tensorflow_tpu_torch.ops import augment_device as A
 from fcn8s_tensorflow_tpu_torch.ops import conv1_core as KB
 from fcn8s_tensorflow_tpu_torch.ops import kernels as K
 from fcn8s_tensorflow_tpu_torch.ops import pool as P
@@ -95,6 +113,7 @@ from fcn8s_tensorflow_tpu_torch.ops.nn import max_pool_2x2
 from fcn8s_tensorflow_tpu_torch.ops.pool import maxpool2x2_nhwc
 from fcn8s_tensorflow_tpu_torch.parallel import steps as S
 from fcn8s_tensorflow_tpu_torch.parallel.steps import eval_step
+from fcn8s_tensorflow_tpu_torch.utils.profiling import device_busy, trace
 
 BATCH, H, W, C = 8, 512, 1024, 20  # serving and eval: Cityscapes' landscape at half size
 TH, TW = 1024, 512  # training: bench.py's main config (H=1024, W=512)
@@ -1065,6 +1084,231 @@ def phase_persistence(dev, model: FCN8s, smi: str) -> None:
           f"of the call; the serving CLI served it (/healthz, /predict)")
 
 
+# ---------------------------------------------------------------------------
+# the training features: summaries, EMA, observers, device augmentation
+# ---------------------------------------------------------------------------
+
+FEATURE_SEED = 13
+FEATURE_AUGMENT = {"flip": 0.5, "brightness": (0.8, 1.2, 0.5), "translate": (64, 32, 0.5),
+                   "scale": (0.9, 1.1, 0.5), "void_class_id": 0}
+FEATURE_OBSERVERS = {"reduce_lr_on_plateau": {"patience": 1, "min_delta": 10.0, "factor": 0.5},
+                     "early_stopping": 3}
+FEATURE_TRAIN = dict(learning_rate_schedule=lambda s: 1e-4, metrics={"loss", "mean_iou"},
+                     eval_frequency=1, ema_decay=0.999, device_augment=FEATURE_AUGMENT,
+                     **FEATURE_OBSERVERS)
+
+
+def _cycle(batches):
+    while True:
+        yield from batches
+
+
+def _event_tags(directory: str) -> tuple[dict, dict]:
+    """{tag: [steps]} of the scalars and of the histograms in an event dir."""
+    from tensorboard.backend.event_processing import event_accumulator as ea
+
+    acc = ea.EventAccumulator(directory, size_guidance={ea.SCALARS: 0, ea.HISTOGRAMS: 0})
+    acc.Reload()
+    return ({t: [e.step for e in acc.Scalars(t)] for t in acc.Tags()["scalars"]},
+            {t: [e.step for e in acc.Histograms(t)] for t in acc.Tags()["histograms"]})
+
+
+def _max_ulps(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest |a - b| in fp32 ulps of the larger magnitude."""
+    big = torch.maximum(a.abs(), b.abs())
+    ulp = torch.nextafter(big, torch.full_like(big, math.inf)) - big
+    return float(((a - b).abs() / ulp).max())
+
+
+def _sync_callers(prof) -> dict:
+    """{the ops enclosing a host sync, innermost first: count} of a trace."""
+    callers = {}
+    for e in prof.events():
+        if e.name.startswith("cuda") and "Synchronize" in e.name:
+            chain, parent = [], e.cpu_parent
+            while parent is not None and len(chain) < 3:
+                chain.append(parent.name)
+                parent = parent.cpu_parent
+            where = " < ".join(chain) or "top level"
+            callers[where] = callers.get(where, 0) + 1
+    return callers
+
+
+def _augment_on_cpu(key, images: torch.Tensor, labels: torch.Tensor, dev):
+    """The smoke's augment config as its apply functions on the CPU, fed the
+    draws the card's generators make for ``key``."""
+    n = images.shape[0]
+    flip_cfg, (b_lo, b_hi, b_p) = FEATURE_AUGMENT["flip"], FEATURE_AUGMENT["brightness"]
+    tx, ty, t_p = FEATURE_AUGMENT["translate"]
+    s_lo, s_hi, s_p = FEATURE_AUGMENT["scale"]
+    factor = A.draw_photometric(A.transform_generator(key, A.BRIGHTNESS, dev), n, b_lo, b_hi,
+                                b_p, 1.0).cpu()
+    flip = A.draw_flip(A.transform_generator(key, A.FLIP, dev), n, flip_cfg).cpu()
+    dx, dy = A.draw_translate(A.transform_generator(key, A.TRANSLATE, dev), n, tx, ty, t_p)
+    zoom = A.draw_scale(A.transform_generator(key, A.SCALE, dev), n, s_lo, s_hi, s_p).cpu()
+    im = A.apply_brightness(images.cpu(), factor)
+    im, lb = A.apply_flip(im, labels.cpu(), flip)
+    return A.apply_translate_scale(im, lb, dx.cpu(), dy.cpu(), zoom,
+                                   FEATURE_AUGMENT["void_class_id"])
+
+
+def phase_training_features(dev, smi: str) -> dict:
+    """``FCN8s.train`` at full width with every training feature on:
+    summaries, the EMA, device augmentation and both observers; then
+    ``use_ema`` inference, a save/resume that continues the EMA and the
+    counters, the augmentation against its CPU run, and the features'
+    times. Returns the launch counts of the train run and the use_ema calls."""
+    rng = np.random.default_rng(12)
+    batches = [_synthetic(rng, BATCH) for _ in range(3)]
+    model = FCN8s(num_classes=C, device=dev, seed=FEATURE_SEED)
+    root = tempfile.mkdtemp(prefix="fcn8s_features_")
+    try:
+        log, tb = os.path.join(root, "train_log.jsonl"), os.path.join(root, "tb")
+        zero_counts()
+        t0 = time.perf_counter()
+        model.train(_cycle(batches), epochs=3, steps_per_epoch=3, keep_prob=0.5,
+                    record_summaries=True, summaries_dir=tb, summaries_frequency=3,
+                    train_log=log, **FEATURE_TRAIN)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        want = {"maxpool2x2_code_nhwc": 45, "maxpool2x2_bwd_nhwc": 45, "ce_sum_per_sample": 18,
+                "ce_grad": 9, "ce_sum_weighted": 0, "maxpool2x2_nhwc": 45,
+                "confusion_matrix_accumulate": 9, "conv1_core": 0}
+        check(counts == want, f"the features' train launched {counts}, expected {want}")
+        check(model.g_step == 9 and math.isfinite(model.training_loss),
+              f"features' train: step {model.g_step}, loss {model.training_loss}")
+
+        # the observer: min_delta 10 makes every eval after the first stale
+        lrs = [json.loads(line)["learning_rate"] for line in open(log)]
+        check(lrs == [1e-4, 1e-4, 5e-5], f"plateau LRs {lrs}, expected [1e-4, 1e-4, 5e-5]")
+        obs = model._observer_state
+        check(obs["lr_scale"] == 0.25 and obs["rp_stale"] == 0 and obs["es_stale"] <= 2,
+              f"observer state {obs}")
+
+        # both event streams hold the JAX facade's tags, at its steps
+        scalars, hists = _event_tags(os.path.join(tb, "summaries_training"))
+        weights = [f"{g}/{layer}/{p}" for g, layer in DEFAULT_INSTRUMENTED
+                   for p in ("kernel", "bias")]
+        want_scalars = {"total_loss", "learning_rate"} | {
+            f"{w}/{s}" for w in weights for s in ("mean", "stddev", "min", "max")}
+        check(set(scalars) == want_scalars and set(hists) == {f"{w}/histogram" for w in weights},
+              f"training stream tags {sorted(set(scalars) ^ want_scalars)[:6]} differ")
+        check(all(s == [3, 6, 9] for s in (*scalars.values(), *hists.values())),
+              "training stream steps are not [3, 6, 9]")
+        ev_scalars, _ = _event_tags(os.path.join(tb, "summaries_evaluation"))
+        check(ev_scalars == {"loss": [3, 6, 9], "mean_iou": [3, 6, 9]},
+              f"evaluation stream {ev_scalars}")
+
+        # use_ema inference runs, on other weights than the live ones
+        zero_counts()
+        images = batches[0][0][:2]
+        live = model.predict(images, argmax=False)
+        averaged = model.predict(images, argmax=False, use_ema=True)
+        check(np.isfinite(averaged).all() and not np.array_equal(live, averaged),
+              "predict(use_ema=True) gave the live params' output")
+        ev_live = model.evaluate(iter(batches), 3, metrics={"loss", "mean_iou"})
+        ev_ema = model.evaluate(iter(batches), 3, metrics={"loss", "mean_iou"}, use_ema=True)
+        check(all(math.isfinite(v) for v in ev_ema.values()) and ev_ema != ev_live,
+              f"evaluate(use_ema=True) {ev_ema} vs live {ev_live}")
+        ema_counts = read_counts()
+        for name in ("maxpool2x2_nhwc", "ce_sum_per_sample", "confusion_matrix_accumulate"):
+            check(ema_counts[name] > 0, f"{name} was not launched by use_ema inference")
+        del live, averaged
+
+        # save, resume, one more step: the EMA and the counters continue as
+        # in the uninterrupted run (keep_prob 1, deterministic cuDNN)
+        det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        ckpts, one = os.path.join(root, "ckpt"), [batches[1]]
+        model.train(_cycle(one), epochs=2, steps_per_epoch=1, keep_prob=1.0,
+                    record_summaries=False, save_during_training=True, save_dir=ckpts,
+                    save_best_only=False, save_frequency=1, **FEATURE_TRAIN)
+        first = next(os.path.join(ckpts, d) for d in os.listdir(ckpts) if "(globalstep-10)" in d)
+        resumed = FCN8s(model_load_dir=first, device=dev, seed=FEATURE_SEED)
+        resumed.train(_cycle(one), epochs=1, steps_per_epoch=1, keep_prob=1.0,
+                      record_summaries=False, **FEATURE_TRAIN)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+        check(resumed.g_step == model.g_step == 11, f"steps {resumed.g_step} vs {model.g_step}")
+        check(resumed._observer_state == model._observer_state,
+              f"counters {resumed._observer_state} vs {model._observer_state}")
+        ema_a = _by_path(resumed.ema_params, bridge.param_leaves(resumed.ema_params))
+        ema_b = _by_path(model.ema_params, bridge.param_leaves(model.ema_params))
+        ema_ulps = max(_max_ulps(ema_a[k], ema_b[k]) for k in ema_b)
+        check(ema_ulps <= 1.0, f"the resumed EMA differs by {ema_ulps} ulp")
+        resumed.close()
+        del resumed
+        torch.cuda.empty_cache()
+
+        # the augmented batch against the apply functions on the CPU
+        im, lb = (torch.from_numpy(x).to(dev) for x in batches[2])
+        key = S.augment_key(FEATURE_SEED, 0)
+        fn = model._augment_fn
+        aug_im, aug_lb = fn(key, im, lb)
+        cpu_im, cpu_lb = _augment_on_cpu(key, im, lb, dev)
+        check(torch.equal(aug_lb.cpu(), cpu_lb), "augmented labels differ from the CPU run")
+        lsb = int((aug_im.cpu().int() - cpu_im.int()).abs().max())
+        check(lsb <= 1, f"augmented images differ from the CPU run by {lsb} LSB")
+        moved_px = float((aug_lb != lb).float().mean())
+
+        # times
+        mask = torch.ones(BATCH, device=dev)
+        state, opt = model.state, model.optimizer
+
+        def plain():
+            S.train_step(state, im, lb, mask, FEATURE_SEED, 1e-4, 0.0, 0.5, optimizer=opt,
+                         num_classes=C)
+
+        def featured():
+            S.train_step(state, im, lb, mask, FEATURE_SEED, 1e-4, 0.0, 0.5, optimizer=opt,
+                         num_classes=C, augment_fn=fn)
+            model._update_ema(0.999)
+
+        turns = [host_ms(f) for f in (plain, featured, featured, plain)]
+        ema_ms = cuda_ms(lambda: model._update_ema(0.999))
+        param_bytes = nbytes(*bridge.param_leaves(model.params))
+        ema_bound = bound(3 * param_bytes)["bound_ms"]
+        aug_ms = cuda_ms(lambda: fn(key, im, lb))
+        aug_bound = bound(2 * nbytes(im, lb))["bound_ms"]
+        logger = SummaryLogger(os.path.join(root, "timing"))
+        summ_ms = host_ms(lambda: logger.log_weight_summaries(9, model.params), reps=3, warmup=1)
+        pulled = sum(4 * (4 + summary_stats(bridge.leaf_to_jax(t, p))[1].size)
+                     for p, t in zip(bridge.jax_leaf_paths(model.params),
+                                     bridge.param_leaves(model.params))
+                     if tuple(p.split("/")[:2]) in DEFAULT_INSTRUMENTED)
+        logger.close()
+        with trace(os.path.join(root, "trace")) as prof:
+            for _ in range(5):
+                featured()
+            torch.cuda.synchronize()
+        busy = device_busy(prof)
+        share = "not read (the trace holds no device events)" if busy["share"] is None else (
+            f"{busy['share']:.4f} ({busy['busy_us'] / 1e3:.2f} of {busy['window_us'] / 1e3:.2f} "
+            f"ms, {busy['device_events']} device events, {busy['host_syncs']} host syncs, "
+            f"under {_sync_callers(prof)})")
+        print(f"training features at full width, 3 epochs x 3 steps of ({BATCH}, {TH}, {TW}, 3) "
+              f"bf16 keep_prob 0.5 with summaries, ema_decay 0.999, device augment "
+              f"{FEATURE_AUGMENT}, plateau + early stopping, eval each epoch: {seconds:.2f} s; "
+              f"train log LRs {lrs}; observer {obs}; launches {counts}, use_ema inference "
+              f"{ema_counts}; both event streams hold the JAX tags at steps 3, 6, 9; use_ema "
+              f"predict/evaluate differ from live (eval {ev_ema} vs {ev_live}); save at step 10 + "
+              f"resume + 1 step = uninterrupted: counters equal, EMA within {ema_ulps} ulp; "
+              f"augment = CPU apply on the card's draws (labels exact, images within {lsb} LSB; "
+              f"{moved_px:.4f} of labels moved)")
+        print(f"training features times on {smi}: full step with augment + EMA "
+              f"{turns[1]:.2f}, {turns[2]:.2f} ms vs plain step {turns[0]:.2f}, {turns[3]:.2f} ms "
+              f"(host clock, median of 5, turns plain/features/features/plain); EMA update "
+              f"{ema_ms:.4f} ms (CUDA events; bound {ema_bound:.4f} ms = 3 x {param_bytes} bytes "
+              f"at 3.35 TB/s, the two foreach passes move 5 x); augment {aug_ms:.4f} ms (bound "
+              f"{aug_bound:.4f} ms); per-epoch weight summaries {summ_ms:.2f} ms (host clock, "
+              f"median of 3), {pulled} bytes pulled to the host; device busy share over 5 "
+              f"featured train steps (utils.profiling.trace): {share}")
+        model.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {k: counts[k] + ema_counts[k] for k in counts}
+
+
 def main() -> None:
     smi = phase_card()
     dev = torch.device("cuda", 0)
@@ -1093,6 +1337,12 @@ def main() -> None:
     measured["conv1_core"] = conv1_measured
     phase_persistence(dev, trained, smi)
     trained.close()
+    del trained
+    torch.cuda.empty_cache()
+    feature_counts = phase_training_features(dev, smi)
+    for name in ("maxpool2x2_code_nhwc", "maxpool2x2_bwd_nhwc", "ce_sum_per_sample", "ce_grad",
+                 "maxpool2x2_nhwc", "confusion_matrix_accumulate"):
+        check(feature_counts[name] > 0, f"{name} was never launched on the training-features path")
     paths = {"serve+eval": serve_counts, "train": train_counts, "train weighted": weighted_counts,
              "conv1 calibration": conv1_counts}
     source_path = {"maxpool2x2_nhwc": "serve+eval", "ce_sum_per_sample": "serve+eval",
@@ -1103,7 +1353,8 @@ def main() -> None:
         check(paths[source_path[name]][name] > 0, f"{name} never launched on its path")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],
-         "launches": paths[source_path[name]][name], "path": source_path[name], **measured[name]}
+         "launches": paths[source_path[name]][name], "path": source_path[name],
+         "launches_train_features": feature_counts[name], **measured[name]}
         for name in WRAPPERS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -18,8 +18,8 @@ and the facade's bookkeeping). The payload:
   and nu (each in the params' order and layout), for momentum the trace,
   for sgd nothing (global-norm clipping and weight decay hold no state).
   The port's ``OptimizerState`` carries the same values;
-* ``ema_leaves``: the JAX package's EMA average, carried through unchanged
-  (the port has no EMA yet).
+* ``ema_leaves``: the EMA average of ``train(ema_decay=...)``, in the
+  params' order and layout (absent when no average is kept).
 
 Writers take the port's ``TrainState`` (or a bare port params tree) and
 convert on the way out; readers return port trees on the CPU.
@@ -113,18 +113,19 @@ def _opt_leaves(opt_state: OptimizerState, params: dict, copy: bool) -> list:
     return leaves
 
 
-def _payload(state, ema_leaves, copy: bool) -> tuple[dict, list[str]]:
+def _payload(state, ema, copy: bool) -> tuple[dict, list[str]]:
     """The payload (tensors still on their device) and its ``param_paths``.
     ``state`` is a ``TrainState`` whose ``opt_state`` is an
-    ``OptimizerState``, or a bare port params tree."""
+    ``OptimizerState``, or a bare port params tree; ``ema`` a port tree of
+    the params' structure, or None."""
     params = state.params if isinstance(state, TrainState) else state
     leaves = bridge.param_leaves(params)
     payload = {"params_leaves": _in_jax_order(leaves, params, copy)}
     if isinstance(state, TrainState):
         payload["step"] = np.asarray(state.step, np.int32)
         payload["opt_leaves"] = _opt_leaves(state.opt_state, params, copy)
-    if ema_leaves is not None:
-        payload["ema_leaves"] = list(ema_leaves)
+    if ema is not None:
+        payload["ema_leaves"] = _in_jax_order(bridge.param_leaves(ema), params, copy)
     paths = bridge.jax_leaf_paths(params)
     return payload, [paths[i] for i in bridge.jax_order(params)]
 
@@ -144,13 +145,13 @@ def _write(directory: str, payload: dict, param_paths: list[str], metadata: dict
 
 
 def save_checkpoint(directory: str, state, metadata: dict, *, max_to_keep: int | None = None,
-                    ema_leaves=None) -> str:
+                    ema=None) -> str:
     """Serialize a ``TrainState`` (or a bare port params tree) into
     ``directory``: ``checkpoint.msgpack`` + ``metadata.json``. Returns the
     directory. With ``max_to_keep``, the oldest sibling checkpoints beyond
-    the limit are pruned (by mtime). ``ema_leaves``: the JAX package's EMA
-    leaves of a restored checkpoint, written back as they are."""
-    payload, paths = _payload(state, ema_leaves, copy=False)
+    the limit are pruned (by mtime). ``ema``: the EMA average (a port tree
+    of the params' structure), written as ``ema_leaves``."""
+    payload, paths = _payload(state, ema, copy=False)
     _write(directory, payload, paths, metadata)
     if max_to_keep is not None:
         _prune_old_checkpoints(os.path.dirname(directory.rstrip("/")), max_to_keep)
@@ -174,12 +175,13 @@ def _prune_old_checkpoints(parent: str, max_to_keep: int) -> None:
 
 
 def save_checkpoint_async(directory: str, state, metadata: dict, *,
-                          max_to_keep: int | None = None, ema_leaves=None) -> threading.Thread:
+                          max_to_keep: int | None = None, ema=None) -> threading.Thread:
     """Non-blocking ``save_checkpoint``. Returns a started
     ``threading.Thread``; ``join()`` it before reading the checkpoint, and
     read its ``exc`` (None, or the exception the write raised).
 
-    The port's optimizer updates params and moments IN PLACE, so the writer
+    The port's optimizer updates params and moments IN PLACE, and the EMA
+    update its average, so the writer
     never reads the live tensors: here, on the caller's current stream,
     every payload tensor is copied (in its JAX layout) on its device, and an
     event is recorded behind the copies. The writer thread streams that
@@ -191,7 +193,7 @@ def save_checkpoint_async(directory: str, state, metadata: dict, *,
     instant one complete checkpoint is visible to ``latest_checkpoint``.
     The snapshot costs one transient state-sized device allocation."""
     with torch.no_grad():
-        payload, paths = _payload(state, ema_leaves, copy=True)
+        payload, paths = _payload(state, ema, copy=True)
     tensors = [x for v in payload.values() for x in (v if isinstance(v, list) else [v])
                if isinstance(x, torch.Tensor) and x.device.type == "cuda"]
     ready = None
@@ -315,22 +317,25 @@ def load_checkpoint(directory: str, optimizer: Optimizer | None = None) -> dict:
     """Restore a checkpoint on the CPU: ``{'params'``: the port's fp32 tree
     (in JAX's key order), ``'step'``: int or None, ``'opt_state'``: an
     ``OptimizerState`` for ``optimizer`` (None without one or without
-    optimizer leaves), ``'ema_leaves'``: the EMA leaves as stored (numpy
-    copies) or None, ``'metadata'``: the manifest``}``."""
+    optimizer leaves), ``'ema'``: the EMA average as a port tree of the
+    params' structure, or None, ``'metadata'``: the manifest``}``."""
     raw, meta = _read(directory)
     paths = meta.get("param_paths")
     tree = _tree_from_paths(directory, paths, _leaf_list(raw["params_leaves"]))
     params = bridge.to_port(tree)
-    out = {"params": params, "step": None, "opt_state": None, "ema_leaves": None,
-           "metadata": meta}
+    out = {"params": params, "step": None, "opt_state": None, "ema": None, "metadata": meta}
     if "step" in raw:
         out["step"] = int(raw["step"])
     if optimizer is not None and "opt_leaves" in raw:
         out["opt_state"] = _opt_state_from_leaves(_leaf_list(raw["opt_leaves"]), optimizer,
                                                   params, paths)
     if "ema_leaves" in raw:
-        out["ema_leaves"] = [x.clone() if isinstance(x, torch.Tensor) else np.array(x)
-                             for x in _leaf_list(raw["ema_leaves"])]
+        leaves = _leaf_list(raw["ema_leaves"])
+        if len(leaves) != len(paths):
+            raise ValueError(f"checkpoint has {len(leaves)} EMA leaves but {len(paths)} params")
+        ema = iter(_to_port_leaves(leaves, params, paths, "EMA"))
+        out["ema"] = {part: {name: {k: next(ema) for k in layer} for name, layer in layers.items()}
+                      for part, layers in params.items()}
     return out
 
 

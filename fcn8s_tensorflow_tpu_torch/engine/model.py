@@ -5,13 +5,15 @@ Port of ``fcn8s_tensorflow_tpu/engine/model.py``: construction from a seed,
 a JAX param tree, a checkpoint (``model_load_dir``, ``resume``) or a partial
 restore on a fresh model (``variables_load_dir``, ``vgg16_dir``); ``train``
 (LR schedule, dropout, L2, gradient accumulation, class weights,
-ignore_label, periodic evaluation, best-value bookkeeping, periodic and
-best-only asynchronous saves, a JSONL train log, prefetch); ``predict``
-(stride-32 padding and crop back, on-device overlay); ``evaluate``;
-``save``/``load_variables``; and ``close``, with the JAX facade's argument
-names. Checkpoints are the JAX package's format (``engine/checkpoint.py``):
-one written by either package loads in the other. Summaries, tiling, TTA,
-EMA, int8, device augmentation, the plateau and early-stopping observers
+ignore_label, device augmentation, periodic evaluation, TensorBoard
+summaries, an EMA of the weights, early stopping and the LR-plateau
+observer, best-value bookkeeping, periodic and best-only asynchronous
+saves, a JSONL train log, prefetch); ``predict`` (stride-32 padding and
+crop back, on-device overlay, ``use_ema``); ``evaluate`` (``use_ema``);
+``ema_params``/``adopt_ema``; ``save``/``load_variables``; and ``close``,
+with the JAX facade's argument names. Checkpoints are the JAX package's
+format (``engine/checkpoint.py``): one written by either package loads in
+the other, EMA average and observer counters included. Tiling, TTA, int8
 and spatial partitioning belong to later parts of the port: their
 arguments are accepted and raise ``NotImplementedError`` when set.
 """
@@ -31,6 +33,7 @@ from ..kernels import resolve_device
 from . import checkpoint as ckpt
 from ..data.prefetch import DevicePrefetcher, host_tensors, to_device
 from ..models.fcn8s import decoder_variant, init_fcn8s
+from ..ops.augment_device import make_augment_fn
 from ..ops.metrics import empty_metrics_state, finalize_metrics
 from ..parallel.steps import (
     Optimizer,
@@ -41,12 +44,19 @@ from ..parallel.steps import (
     predict_step,
     train_step,
 )
+from .summaries import SummaryLogger
 
 _ALLOWED_METRICS = {"loss", "mean_iou", "accuracy"}
 
 
 def _not_ported(what: str):
     raise NotImplementedError(f"{what} is not ported to the PyTorch package yet")
+
+
+def _map_tree(fn, tree: dict) -> dict:
+    """``fn`` over every tensor of a port tree ({part: {layer: {key: t}}})."""
+    return {part: {name: {k: fn(t) for k, t in layer.items()} for name, layer in layers.items()}
+            for part, layers in tree.items()}
 
 
 class FCN8s:
@@ -127,8 +137,14 @@ class FCN8s:
             # staged on the host: a model loaded to serve never puts the
             # optimizer's moments on the card; the first train() moves them
             self._staged_opt_state = restored["opt_state"]
-            self._ema_leaves = restored["ema_leaves"]
-            self._observer_state = dict(restored["metadata"].get("train_observer") or {})
+            # a live device tree, so that train(ema_decay=...) continues it
+            if restored["ema"] is not None:
+                self._ema = _map_tree(lambda t: t.to(self.device), restored["ema"])
+            # the interrupted run's observer counters: carried through saves,
+            # and continued by the next train() call only
+            observer = restored["metadata"].get("train_observer") or {}
+            self._observer_state = dict(observer)
+            self._observer_pending = dict(observer)
         else:
             # the reference's order: pretrained encoder, then a variables restore
             if vgg16_dir is not None:
@@ -171,9 +187,7 @@ class FCN8s:
         """``params``: the port's fp32 tree on the CPU."""
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
-        self.params = {part: {name: {k: t.to(self.device) for k, t in layer.items()}
-                              for name, layer in layers.items()}
-                       for part, layers in params.items()}
+        self.params = _map_tree(lambda t: t.to(self.device), params)
         self.num_classes = int(self.params["decoder"]["fc7_1x1"]["bias"].shape[0])
         self.variant = decoder_variant(self.params["decoder"])
         self.remat = remat
@@ -202,8 +216,12 @@ class FCN8s:
         # the first train(), so a serving model never holds it
         self.state = TrainState(step=0, params=self.params, opt_state=None)
         self._staged_opt_state = None
-        self._ema_leaves = None  # a restored JAX EMA average, carried through saves
-        self._observer_state = {}  # restored observer counters, carried through saves
+        self._ema = None  # the EMA average of train(ema_decay=...), a port tree
+        self._ema_run = None  # its compute-dtype cast for predict/evaluate
+        self._observer_state = {}  # the observers' counters, written by save()
+        self._observer_pending = {}  # restored counters for the next train() only
+        self._summary_logger = None
+        self._augment_fn = self._device_augment_cfg = None
         self._save_thread = None
         for t in bridge.param_leaves(self.params):
             t.requires_grad_(True)
@@ -225,6 +243,61 @@ class FCN8s:
         from the current masters. Stale after any optimizer step."""
         with torch.no_grad():
             self._run_params = bridge.cast_params(self.params, self.compute_dtype)
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _update_ema(self, decay: float) -> None:
+        """One EMA step over the fp32 masters, in place on their device:
+        ``ema = ema * d + p * (1 - d)``, in that order (not ``lerp``), as
+        two multi-tensor passes, ``_foreach_mul_`` then ``_foreach_add_``
+        with ``alpha = 1 - d``; ``d`` and ``1 - d`` are rounded to fp32, as
+        JAX's traced scalars are. The first call seeds ``ema`` with a copy
+        of the params."""
+        self._ema_run = None
+        if self._ema is None:
+            self._ema = _map_tree(lambda t: t.detach().clone(), self.params)
+            return
+        d = np.float32(decay)
+        ema = bridge.param_leaves(self._ema)
+        torch._foreach_mul_(ema, float(d))
+        torch._foreach_add_(ema, bridge.param_leaves(self.params), alpha=float(np.float32(1) - d))
+
+    @property
+    def ema_params(self) -> dict:
+        """The EMA average (the port's fp32 tree; see ``train(ema_decay=...)``)."""
+        if self._ema is None:
+            raise ValueError("No EMA params: train with ema_decay=<float> first.")
+        return self._ema
+
+    def adopt_ema(self) -> None:
+        """Copy the EMA average into the live params, in place (the optimizer
+        keeps its state: Adam's moments then describe the pre-adoption
+        trajectory, the usual finalize-for-serving move), mark the model
+        dirty so a following ``save()`` persists the averaged weights, and
+        drop the EMA tree."""
+        ema = self.ema_params
+        with torch.no_grad():
+            torch._foreach_copy_(bridge.param_leaves(self.params), bridge.param_leaves(ema))
+        self._ema = self._ema_run = None
+        self.variables_updated = True
+        self._refresh_run_params()
+
+    def _resolve_ema(self, use_ema: bool, quantized: bool):
+        """The compute-dtype params that ``use_ema`` asks for (None: the live
+        ones), cast once per EMA update. EMA excludes ``quantized``: int8
+        scales are calibrated against the live params."""
+        if not use_ema:
+            return None
+        if quantized:
+            raise ValueError(
+                "use_ema and quantized are mutually exclusive: int8 "
+                "activation scales are calibrated for the live params. "
+                "adopt_ema() first, then recalibrate and quantize.")
+        ema = self.ema_params
+        if self._ema_run is None:
+            with torch.no_grad():
+                self._ema_run = bridge.cast_params(ema, self.compute_dtype)
+        return self._ema_run
 
     # ------------------------------------------------------------------
     def _overlay_lut(self, color_map) -> np.ndarray:
@@ -285,19 +358,21 @@ class FCN8s:
         to stride 32, output cropped back). Returns (N, H, W) int32 ids, the
         (N, H, W, C) softmax with ``argmax=False``, or with ``overlay`` (a
         class_id -> RGBA dict) the composited uint8 RGB, computed on the
-        device. ``tile_overlap`` only matters with ``tile``."""
+        device. ``tile_overlap`` only matters with ``tile``. ``use_ema=True``
+        runs the EMA average (``train(ema_decay=...)``) instead of the live
+        params; it excludes ``quantized``."""
+        ema = self._resolve_ema(use_ema, quantized)
         if spatial_partition:
             _not_ported("predict(spatial_partition=True)")
         if quantized:
             _not_ported("predict(quantized=True)")
         if tile is not None or tile_blend:
             _not_ported("tiled predict")
-        if use_ema:
-            _not_ported("predict(use_ema=True)")
         lut = self._overlay_lut(overlay) if overlay is not None else None
         padded, (n, h, w) = self._prepare_images(images)
         compact = argmax and lut is None and self.num_classes <= 255
-        out = predict_step(self._run_params, self._to_device(padded), argmax=argmax,
+        out = predict_step(self._run_params if ema is None else ema, self._to_device(padded),
+                           argmax=argmax,
                            compute_dtype=self.compute_dtype,
                            id_dtype=torch.uint8 if compact else torch.int32, overlay_lut=lut)
         out = out.cpu().numpy()[:n, :h, :w]
@@ -342,10 +417,41 @@ class FCN8s:
         ``monitor`` improved (``_monitor_improved``); ``saver``,
         ``save_tags`` and ``save_name`` are ``save``'s.
 
-        Not ported yet (``NotImplementedError``): ``record_summaries`` (the JAX default True first requires
-        ``summaries_dir``, as there; pass ``record_summaries=False``),
-        ``device_augment``, ``ema_decay``, ``spatial_partition``,
-        ``early_stopping`` and ``reduce_lr_on_plateau``."""
+        ``record_summaries`` (the default, as in the JAX facade; it
+        requires ``summaries_dir``) writes TensorBoard event files
+        ``<summaries_name or 'summaries'>_training`` and ``..._evaluation``
+        under ``summaries_dir``: ``total_loss`` and ``learning_rate`` every
+        ``summaries_frequency`` steps (from the loss read-back above), the
+        weight summaries of ``engine/summaries.py`` at each epoch's end,
+        and each evaluation's metrics.
+
+        ``device_augment``: a dict of kwargs for
+        ``ops.augment_device.make_augment_fn`` (e.g. ``{'flip': 0.5,
+        'brightness': (0.8, 1.2, 0.5)}``); each padded batch is augmented on
+        the card inside the step, with draws from (``seed``, step) alone.
+
+        ``ema_decay``: keep an exponential moving average of the fp32
+        masters, ``ema = d * ema + (1 - d) * params`` after every optimizer
+        step, seeded with a copy of the params at the first step; it
+        persists across ``train`` calls and in checkpoints (a resumed
+        ``train(ema_decay=...)`` continues it). Serve or evaluate it with
+        ``use_ema=True``, or make it the params with ``adopt_ema()``.
+
+        ``early_stopping``: an int patience or ``{"patience": int,
+        "min_delta": float}``: stop once the ``monitor``-ed value has gone
+        ``patience`` observations without improving by more than
+        ``min_delta``. An observation is each epoch's training loss when
+        ``monitor='loss'`` and loss is not among ``metrics``, otherwise each
+        periodic evaluation. ``reduce_lr_on_plateau``: an int patience or
+        ``{"patience", "factor" (0.1), "min_delta" (0), "min_lr" (0)}``:
+        after ``patience`` stale observations the schedule's LR is scaled by
+        a further cumulative ``factor``; ``min_lr`` bounds the value right
+        after a reduction, never the base schedule. Both observers' counters
+        are written into checkpoints, and the first ``train`` on a model
+        restored by ``resume``/``model_load_dir`` continues them; later
+        calls start fresh.
+
+        Not ported yet (``NotImplementedError``): ``spatial_partition``."""
         metrics = set(metrics)  # the reference's default `{}` is a dict literal
         if not metrics <= _ALLOWED_METRICS:
             raise ValueError(f"metrics must be a subset of {_ALLOWED_METRICS}, got {metrics}")
@@ -361,12 +467,48 @@ class FCN8s:
             raise ValueError(f"monitor '{monitor}' requires it to be in metrics {metrics}")
         if ema_decay is not None and not (0.0 < float(ema_decay) < 1.0):
             raise ValueError(f"ema_decay must be in (0, 1), got {ema_decay}")
-        if ema_decay is not None:
-            _not_ported("train(ema_decay=...)")
+
+        def _observer_cfg(value, name, defaults):
+            """Int patience or a dict with patience and the observer's keys."""
+            d = dict(value) if isinstance(value, dict) else {"patience": value}
+            out = {"patience": int(d.pop("patience"))}
+            for key, default in defaults.items():
+                out[key] = float(d.pop(key, default))
+            if d:
+                raise ValueError(f"unknown {name} keys: {sorted(d)}")
+            if out["patience"] < 1:
+                raise ValueError(f"{name} patience must be >= 1, got {out['patience']}")
+            if monitor != "loss" and not (metrics and eval_frequency):
+                raise ValueError(
+                    f"{name} on an eval metric requires metrics and "
+                    f"eval_frequency so the monitor is ever measured")
+            return out
+
+        # counters staged by a checkpoint restore: consumed by this call
+        pending_observer = self._observer_pending or {}
+        self._observer_pending = {}
+        lr_scale = 1.0  # cumulative plateau factor; 1.0 when disabled
         if early_stopping is not None:
-            _not_ported("train(early_stopping=...)")
+            es_cfg = _observer_cfg(early_stopping, "early_stopping", {"min_delta": 0.0})
+            es_patience, es_min_delta = es_cfg["patience"], es_cfg["min_delta"]
+            es_best = pending_observer.get("es_best")
+            es_stale = int(pending_observer.get("es_stale", 0))
         if reduce_lr_on_plateau is not None:
-            _not_ported("train(reduce_lr_on_plateau=...)")
+            rp_cfg = _observer_cfg(reduce_lr_on_plateau, "reduce_lr_on_plateau",
+                                   {"factor": 0.1, "min_delta": 0.0, "min_lr": 0.0})
+            rp_patience, rp_factor = rp_cfg["patience"], rp_cfg["factor"]
+            rp_min_delta, rp_min_lr = rp_cfg["min_delta"], rp_cfg["min_lr"]
+            if not 0.0 < rp_factor < 1.0:
+                raise ValueError(f"reduce_lr_on_plateau factor must be in (0, 1), got {rp_factor}")
+            rp_best = pending_observer.get("rp_best")
+            rp_stale = int(pending_observer.get("rp_stale", 0))
+            lr_scale = float(pending_observer.get("lr_scale", 1.0))
+
+        def _improved(obs, best, delta):
+            """Lower is better for loss, higher otherwise; the first
+            observation always improves."""
+            return best is None or (obs < best - delta if monitor == "loss" else obs > best + delta)
+
         if class_weights is not None:
             cw = tuple(float(w) for w in np.asarray(class_weights).reshape(-1))
             if len(cw) != self.num_classes:
@@ -383,13 +525,20 @@ class FCN8s:
         if spatial_partition:
             _not_ported("train(spatial_partition=True)")
         if device_augment is not None:
-            _not_ported("train(device_augment=...)")
+            if self._device_augment_cfg != device_augment:  # built once per distinct config
+                self._augment_fn = make_augment_fn(**device_augment)
+            self._device_augment_cfg = device_augment
+        else:
+            self._device_augment_cfg = self._augment_fn = None
         self.eval_dataset = eval_dataset
         self._initialize_metrics(metrics)
+        logger = None
         if record_summaries:
             if summaries_dir is None:
                 raise ValueError("record_summaries requires summaries_dir")
-            _not_ported("train(record_summaries=True)")
+            if self._summary_logger is not None:
+                self._summary_logger.close()
+            logger = self._summary_logger = SummaryLogger(summaries_dir, summaries_name)
 
         if self.state.opt_state is None:
             if self._staged_opt_state is not None:  # restored from a checkpoint
@@ -399,7 +548,11 @@ class FCN8s:
                 self.state = create_train_state(self.params, self.optimizer)
                 self.state.step = self.g_step
         g_step = self.state.step
-        learning_rate = float(learning_rate_schedule(g_step))
+
+        def _lr(step):
+            return float(learning_rate_schedule(step)) * lr_scale
+
+        learning_rate = _lr(g_step)
         loss_history = deque(maxlen=training_loss_display_averaging)
         train_stream = self._make_train_stream(train_generator, prefetch)
         try:
@@ -411,27 +564,84 @@ class FCN8s:
                         l2_regularization, keep_prob, optimizer=self.optimizer,
                         num_classes=self.num_classes, compute_dtype=self.compute_dtype,
                         remat=self.remat, grad_accum=self._grad_accum,
-                        ignore_label=self.ignore_label, class_weights=self._class_weights)
+                        ignore_label=self.ignore_label, class_weights=self._class_weights,
+                        augment_fn=self._augment_fn)
                     g_step += 1
                     self.variables_updated = True
+                    if ema_decay is not None:
+                        self._update_ema(ema_decay)
                     loss_history.append(loss)  # a device scalar: no sync
-                    # read the loss back only on the display cadence and at the
-                    # epoch's end, so the host runs ahead of the card between
+                    # read the losses back (one copy) only on the summaries
+                    # cadence and at the epoch's end, so the host runs ahead
+                    # of the card between
                     if g_step % summaries_frequency == 0 or step_i == steps_per_epoch - 1:
-                        self.training_loss = float(torch.stack(list(loss_history)).mean())
-                    learning_rate = float(learning_rate_schedule(g_step))
+                        vals = torch.stack(list(loss_history)).cpu().numpy()
+                        self.training_loss = float(vals.mean())
+                        if logger is not None and g_step % summaries_frequency == 0:
+                            logger.log_training_step(g_step, float(vals[-1]), learning_rate)
+                    learning_rate = _lr(g_step)
                 self.g_step = g_step
-                epoch_lr = learning_rate  # what the train log of the JAX facade records
                 print(f"Epoch {epoch}/{epochs}: training loss {self.training_loss}, "
-                      f"learning rate {epoch_lr:.3g}")
+                      f"learning rate {learning_rate:.3g}")
+                if logger is not None:
+                    logger.log_weight_summaries(g_step, self.params)
 
-                evaluated = bool(metrics and eval_frequency and epoch % eval_frequency == 0)
-                if evaluated:
+                eval_epoch = bool(metrics and eval_frequency and epoch % eval_frequency == 0)
+                if eval_epoch:
                     self._refresh_run_params()
                     if eval_dataset == "train":
                         self._evaluate(train_stream, steps_per_epoch, device_stream=True)
                     else:
                         self._evaluate(val_generator, val_steps)
+                    if logger is not None:
+                        logger.log_evaluation(g_step, dict(zip(self.metric_names,
+                                                               self.metric_values)))
+                evaluated = eval_epoch and bool(self.metric_values)
+                epoch_lr = learning_rate  # the LR the train log records for this epoch
+
+                # the observers, updated before the save so that a checkpoint
+                # carries this epoch's counters
+                stop_early = False
+                if early_stopping is not None or reduce_lr_on_plateau is not None:
+                    if monitor == "loss" and "loss" not in self.metric_names:
+                        obs = self.training_loss
+                    elif evaluated:
+                        obs = float(self.metric_values[self.metric_names.index(monitor)])
+                    else:
+                        obs = None  # the monitor was not measured this epoch
+                    if obs is not None and reduce_lr_on_plateau is not None:
+                        if _improved(obs, rp_best, rp_min_delta):
+                            rp_best, rp_stale = obs, 0
+                        else:
+                            rp_stale += 1
+                            if rp_stale >= rp_patience:
+                                new_scale = lr_scale * rp_factor
+                                base = float(learning_rate_schedule(g_step))
+                                # min_lr bounds the reduced value only, and a
+                                # reduction never raises the scale
+                                if base > 0.0 and base * new_scale < rp_min_lr:
+                                    new_scale = min(rp_min_lr / base, lr_scale)
+                                lr_scale = new_scale
+                                rp_stale = 0
+                                learning_rate = _lr(g_step)
+                                print(f"Plateau: '{monitor}' stalled {rp_patience} observations "
+                                      f"— learning rate scaled to {learning_rate:.3e}.")
+                    if obs is not None and early_stopping is not None:
+                        if _improved(obs, es_best, es_min_delta):
+                            es_best, es_stale = obs, 0
+                        else:
+                            es_stale += 1
+                            if es_stale >= es_patience:
+                                print(f"Early stopping: '{monitor}' has not improved in "
+                                      f"{es_stale} observations (best {es_best:.6f}).")
+                                stop_early = True
+                    observer_state = {}
+                    if reduce_lr_on_plateau is not None:
+                        observer_state.update(lr_scale=lr_scale, rp_best=rp_best,
+                                              rp_stale=rp_stale)
+                    if early_stopping is not None:
+                        observer_state.update(es_best=es_best, es_stale=es_stale)
+                    self._observer_state = observer_state
 
                 if save_during_training and epoch % save_frequency == 0:
                     if not save_best_only or self._monitor_improved(monitor):
@@ -454,11 +664,15 @@ class FCN8s:
                     record = {"epoch": epoch, "global_step": g_step,
                               "training_loss": self.training_loss, "learning_rate": epoch_lr,
                               "time": time.time()}
-                    if evaluated and self.metric_values:
+                    if evaluated:
                         record.update({f"eval_{n}": float(v) for n, v in
                                        zip(self.metric_names, self.metric_values)})
                     with open(train_log, "a") as log_f:
                         log_f.write(json.dumps(record) + "\n")
+                if stop_early:
+                    break
+            if logger is not None:
+                logger.flush()
         finally:
             self._close_train_stream()
             self._refresh_run_params()
@@ -497,11 +711,13 @@ class FCN8s:
         self.best_metric_values = [99999999.9 if n == "loss" else -1.0 for n in self.metric_names]
 
     @torch.inference_mode()
-    def _evaluate(self, data_generator, num_batches, device_stream=False):
+    def _evaluate(self, data_generator, num_batches, device_stream=False, params=None):
         """Reset the accumulators, run ``eval_step`` on ``num_batches``
         batches, finalize, print. ``data_generator`` yields host (images,
         labels) pairs, or with ``device_stream`` the training stream's device
-        (images, label_ids, mask) triples."""
+        (images, label_ids, mask) triples. ``params``: compute-dtype params
+        to run instead of the live ones (the EMA's)."""
+        run = self._run_params if params is None else params
         state = empty_metrics_state(self.num_classes, device=self.device)
         for _ in range(num_batches):
             if device_stream:
@@ -513,7 +729,7 @@ class FCN8s:
                 mask = np.ones(len(label_ids), np.float32)
                 im_d, lb_d, mask_d = (self._to_device(np.asarray(images)),
                                       self._to_device(label_ids), self._to_device(mask))
-            state = eval_step(self._run_params, state, im_d, lb_d, mask_d,
+            state = eval_step(run, state, im_d, lb_d, mask_d,
                               num_classes=self.num_classes, compute_dtype=self.compute_dtype,
                               ignore_label=self.ignore_label, class_weights=self._class_weights)
         self.metrics_state = state
@@ -530,7 +746,8 @@ class FCN8s:
         matrix stays in ``self.metrics_state``. The loss honours
         ``ignore_label`` and the class weights of the last ``train``.
         ``l2_regularization`` is accepted for parity and, as in the JAX
-        facade, does not change the reported loss."""
+        facade, does not change the reported loss. ``use_ema=True``
+        evaluates the EMA average (``train(ema_decay=...)``)."""
         metrics = set(metrics)
         if not metrics <= _ALLOWED_METRICS:
             raise ValueError(f"metrics must be a subset of {_ALLOWED_METRICS}")
@@ -538,11 +755,10 @@ class FCN8s:
             raise ValueError("dataset must be 'train' or 'val'")
         if spatial_partition:
             _not_ported("evaluate(spatial_partition=True)")
-        if use_ema:
-            _not_ported("evaluate(use_ema=True)")
         self.eval_dataset = dataset
         self._initialize_metrics(metrics)
-        return self._evaluate(data_generator, num_batches)
+        return self._evaluate(data_generator, num_batches,
+                              params=self._resolve_ema(use_ema, False))
 
     def _monitor_improved(self, monitor) -> bool:
         """Save-best-only, as in the JAX facade: save iff the monitored value
@@ -569,8 +785,9 @@ class FCN8s:
         ``saver``/``tags`` are accepted for parity. The five newest
         checkpoints in ``model_save_dir`` are kept.
 
-        ``block=False`` snapshots params and optimizer state on the device
-        (the optimizer updates them in place) and writes on a thread
+        ``block=False`` snapshots params, optimizer state and the EMA on the
+        device (the optimizer and the EMA update them in place) and writes
+        on a thread
         (``checkpoint.save_checkpoint_async``); the previous writer is joined
         first, so one save is in flight at a time, and a failed write raises
         at the next join (the next save, ``train``'s end or ``close``)."""
@@ -598,18 +815,17 @@ class FCN8s:
             "saved_at": time.time(),
         }
         if self._observer_state:
+            # the observers' counters, so a resumed run continues them
             metadata["train_observer"] = dict(self._observer_state)
         opt_state = (self.state.opt_state or self._staged_opt_state
                      or self.optimizer.init(self.params, device="cpu"))
         state = TrainState(step=step, params=self.params, opt_state=opt_state)
         self._join_pending_save()
         if block:
-            ckpt.save_checkpoint(directory, state, metadata, max_to_keep=5,
-                                 ema_leaves=self._ema_leaves)
+            ckpt.save_checkpoint(directory, state, metadata, max_to_keep=5, ema=self._ema)
         else:
             self._save_thread = ckpt.save_checkpoint_async(directory, state, metadata,
-                                                           max_to_keep=5,
-                                                           ema_leaves=self._ema_leaves)
+                                                           max_to_keep=5, ema=self._ema)
         self.variables_updated = False
         return directory
 
@@ -650,11 +866,16 @@ class FCN8s:
         self._refresh_run_params()
 
     def close(self):
-        """Stop the input pipeline, join an in-flight checkpoint write and
-        release the device tensors (the reference closes its session)."""
+        """Stop the input pipeline, join an in-flight checkpoint write, close
+        the summary writers and release the device tensors (the reference
+        closes its session)."""
         self._close_train_stream()
         try:
             self._join_pending_save()
         finally:
+            if self._summary_logger is not None:
+                self._summary_logger.close()
+                self._summary_logger = None
             self.params = self._run_params = self.state = None
+            self._ema = self._ema_run = None
         print("The session has been closed.")

@@ -195,6 +195,19 @@ def dropout_generator(device, seed: int, step: int, microbatch: int | None = Non
     return torch.Generator(device=device).manual_seed(draw)
 
 
+AUGMENT_STREAM = 1  # the spawn key that sets the augmentation draws apart
+
+
+def augment_key(seed: int, step: int) -> np.random.SeedSequence:
+    """The key of one step's device augmentation (``make_augment_fn``),
+    derived from (seed, step) alone, like ``dropout_generator``'s draw: a
+    run restarted at step k augments as the uninterrupted run did. It
+    carries the spawn key ``(AUGMENT_STREAM,)`` (each transform appends its
+    slot), and dropout's keys carry none, so no augmentation key is ever a
+    dropout key, of any step or grad-accum microbatch."""
+    return np.random.SeedSequence([seed, step], spawn_key=(AUGMENT_STREAM,))
+
+
 def loss_and_grads(params: dict, images: torch.Tensor, label_ids: torch.Tensor,
                    sample_mask: torch.Tensor, *, seed: int, step: int, l2_rate: float,
                    keep_prob: float, compute_dtype=torch.bfloat16, remat: bool = False,
@@ -256,13 +269,16 @@ def train_step(state: TrainState, images: torch.Tensor, label_ids: torch.Tensor,
                sample_mask: torch.Tensor, seed: int, learning_rate: float, l2_rate: float,
                keep_prob: float, *, optimizer: Optimizer, num_classes: int,
                compute_dtype=torch.bfloat16, remat: bool = False, grad_accum: int = 1,
-               ignore_label: int | None = None, class_weights=None):
+               ignore_label: int | None = None, class_weights=None, augment_fn=None):
     """One optimization step; returns ``(state, loss)`` with ``state``
     advanced in place and ``loss`` a 0-d fp32 device tensor (no sync).
 
     ``images`` NHWC uint8, ``label_ids`` NHW uint8/int32, ``sample_mask``
     (N,) float 0/1, zero for batch-padding samples: the masked mean makes
-    the gradient exactly the short-batch gradient. Loss = mean softmax CE +
+    the gradient exactly the short-batch gradient. ``augment_fn`` (from
+    ``ops.augment_device.make_augment_fn``) first augments the whole padded
+    batch on its device, outside autograd, with the key
+    ``augment_key(seed, state.step)``. Loss = mean softmax CE +
     ``l2_rate * decoder_l2_loss``. The CE runs through the kernels (K1 with
     the sample mask; K3 with per-pixel weights when ``ignore_label`` or
     ``class_weights``, an (num_classes,) vector, is set), each with the
@@ -271,6 +287,9 @@ def train_step(state: TrainState, images: torch.Tensor, label_ids: torch.Tensor,
     weighted by their real-sample (or pixel-weight) share. ``num_classes``
     is kept for the JAX signature; the logits carry it."""
     del num_classes
+    if augment_fn is not None:
+        with torch.no_grad():
+            images, label_ids = augment_fn(augment_key(seed, state.step), images, label_ids)
     loss, grads = loss_and_grads(
         state.params, images, label_ids, sample_mask, seed=seed, step=state.step,
         l2_rate=l2_rate, keep_prob=keep_prob, compute_dtype=compute_dtype, remat=remat,

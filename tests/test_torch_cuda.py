@@ -422,3 +422,104 @@ def test_async_save_snapshot_on_the_card(dev, tmp_path):
                for k in want)
     now = by_path(model.params, bridge.param_leaves(model.params))
     assert not all(torch.equal(now[k], want[k]) for k in want)
+
+
+# ---------------------------------------------------------------------------
+# the training features' plain PyTorch on the card: EMA, augmentation,
+# summary statistics
+# ---------------------------------------------------------------------------
+
+
+def test_ema_foreach_update_on_the_card_equals_the_cpu(dev):
+    """Three ``_update_ema`` calls (a seed copy, two ``_foreach_`` updates)
+    on the card and on the CPU from the same trees: within 1e-6 of the
+    update's terms (the card may fuse the add into an FMA)."""
+    import types
+
+    from fcn8s_tensorflow_tpu_torch.engine.model import FCN8s
+
+    g = torch.Generator().manual_seed(0)
+    trees = [{"encoder": {"a": {"weight": torch.randn(64, 32, 3, 3, generator=g),
+                                "bias": torch.randn(64, generator=g)}},
+              "decoder": {"b_deconv": {"kernel": torch.randn(4, 4, 8, 8, generator=g),
+                                       "bias": torch.randn(8, generator=g)}}} for _ in range(3)]
+    runs = {}
+    for device in ("cpu", dev):
+        ns = types.SimpleNamespace(_ema=None, _ema_run=None, params=None)
+        for tree in trees:
+            ns.params = {p: {n: {k: t.to(device) for k, t in layer.items()}
+                             for n, layer in part.items()} for p, part in tree.items()}
+            FCN8s._update_ema(ns, 0.999)
+        runs[str(device)] = ns._ema
+    cpu, card = runs["cpu"], runs[str(dev)]
+    for part in cpu:
+        for name in cpu[part]:
+            for k, want in cpu[part][name].items():
+                got = card[part][name][k].cpu()
+                bound = 1e-6 * (want.abs() + trees[2][part][name][k].abs()) + 1e-30
+                assert bool(((got - want).abs() <= bound).all()), (part, name, k)
+
+
+def test_augment_applies_on_the_card_equal_the_cpu(dev):
+    """Every apply function on the card against its CPU run on the same
+    draws (made on the card): labels and the exact transforms bit-equal,
+    rounded fp32 blends within 1 LSB."""
+    from fcn8s_tensorflow_tpu_torch.ops import augment_device as A
+
+    n, h, w = 4, 96, 160
+    g = torch.Generator(device=dev).manual_seed(1)
+    images = torch.randint(0, 256, (n, h, w, 3), generator=g, device=dev, dtype=torch.uint8)
+    labels = torch.randint(0, 20, (n, h, w), generator=g, device=dev, dtype=torch.uint8)
+    factor = A.draw_photometric(g, n, 0.6, 1.6, 1.0, 1.0)
+    dx, dy = A.draw_translate(g, n, (4, 40), 12, 1.0)
+    zoom = A.draw_scale(g, n, 0.7, 1.4, 1.0)
+    y0, x0 = A.draw_crop(g, n, h, w, 64, 128)
+    fire, values = A.draw_label_noise(g, (n, h, w), 0.2, 4, 20)
+    cases = {
+        "flip": (lambda im, lb, d: A.apply_flip(im, lb, d[0]), [A.draw_flip(g, n, 0.5)], 0),
+        "brightness": (lambda im, lb, d: (A.apply_brightness(im, d[0]), lb), [factor], 1),
+        "contrast": (lambda im, lb, d: (A.apply_contrast(im, d[0]), lb), [factor], 1),
+        "saturation": (lambda im, lb, d: (A.apply_saturation(im, d[0]), lb), [factor], 1),
+        "gamma": (lambda im, lb, d: (A.apply_gamma(im, d[0]), lb), [factor], 1),
+        "hue": (lambda im, lb, d: (A.apply_hue(im, d[0] - 1.0), lb), [factor], 1),
+        "crop": (lambda im, lb, d: A.apply_crop(im, lb, d[0], d[1], 64, 128), [y0, x0], 0),
+        "translate": (lambda im, lb, d: A.apply_translate(im, lb, d[0], d[1], 3), [dx, dy], 0),
+        "scale": (lambda im, lb, d: A.apply_scale(im, lb, d[0], 3), [zoom], 1),
+        "translate_scale": (lambda im, lb, d: A.apply_translate_scale(im, lb, *d, 3),
+                            [dx, dy, zoom], 1),
+        "resize": (lambda im, lb, d: A.resize(im, lb, (57, 203)), [], 1),
+        "grayscale": (lambda im, lb, d: (A.grayscale(im), lb), [], 0),
+        "label_noise": (lambda im, lb, d: (im, A.apply_label_noise(lb, d[0], d[1], 4)),
+                        [fire, values], 0),
+    }
+    for name, (fn, draws, lsb) in cases.items():
+        ci, cl = fn(images, labels, draws)
+        hi, hl = fn(images.cpu(), labels.cpu(), [d.cpu() for d in draws])
+        assert ci.device == dev and ci.dtype == torch.uint8, name
+        assert torch.equal(cl.cpu(), hl), name
+        assert int((ci.cpu().int() - hi.int()).abs().max()) <= lsb, name
+
+
+def test_summary_stats_pull_one_sample_per_leaf(dev, monkeypatch):
+    """fc6's kernel (4096 x 512 x 7 x 7, 411 MB) in its JAX layout: one
+    device-to-host copy of 4 statistics + 65,536 samples, not the leaf."""
+    from fcn8s_tensorflow_tpu_torch import bridge
+    from fcn8s_tensorflow_tpu_torch.engine import summaries
+
+    w = torch.randn((4096, 512, 7, 7), device=dev)
+    view = bridge.leaf_to_jax(w, "encoder/fc6/kernel")
+    pulled = []
+    real_cpu = torch.Tensor.cpu
+
+    def spy(t, *a, **k):
+        pulled.append(t.numel())
+        return real_cpu(t, *a, **k)
+
+    monkeypatch.setattr(torch.Tensor, "cpu", spy)
+    stats, sample = summaries.summary_stats(view)
+    monkeypatch.undo()
+    assert pulled == [4 + 65536] and sample.shape == (65536,)
+    flat_idx = torch.arange(0, w.numel(), w.numel() // 65536, device=dev)
+    want = view.reshape(-1)[flat_idx].cpu().numpy()  # the reshape copies: the reference only
+    assert (sample == want).all()
+    assert abs(float(stats[2]) - float(w.min())) == 0 and abs(float(stats[3]) - float(w.max())) == 0

@@ -381,20 +381,43 @@ def test_facade_train_then_predict_uses_new_weights(tmp_path):
 
 
 @pytest.mark.parametrize("option", [
-    # saving during training is ported; an unported option beside it still
-    # raises before any step runs or anything is written
+    # every other option is ported; spatial partitioning beside any of them
+    # still raises before any step runs or anything is written
     dict(save_during_training=True, save_dir="x", early_stopping=2),
     dict(record_summaries=True, summaries_dir="x"),
-    dict(device_augment={"flip": 0.5}), dict(ema_decay=0.9), dict(spatial_partition=True),
+    dict(device_augment={"flip": 0.5}), dict(ema_decay=0.9), dict(),
     dict(early_stopping=2), dict(reduce_lr_on_plateau=2)])
-def test_train_options_not_ported_raise(option):
+def test_train_options_not_ported_raise(option, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
     model = FCN8s(num_classes=C, compute_dtype=torch.float32, device="cpu", **SMALL)
-    kw = dict(record_summaries=False)
+    kw = dict(record_summaries=False, spatial_partition=True)
     kw.update(option)
     with pytest.raises(NotImplementedError):
         model.train(_stream(), 1, 1, lambda s: 1e-4, **kw)
+    assert model.state.step == 0 and not os.listdir(tmp_path)
     with pytest.raises(ValueError, match="summaries_dir"):
         model.train(_stream(), 1, 1, lambda s: 1e-4)  # JAX's own check comes first
+
+
+@pytest.mark.parametrize("option", [
+    dict(record_summaries=True, summaries_dir="s"), dict(device_augment={"flip": 0.5}),
+    dict(ema_decay=0.9), dict(early_stopping=2), dict(reduce_lr_on_plateau=2)])
+def test_train_options_run(option, tmp_path, monkeypatch):
+    """The options the JAX facade's train() takes, one at a time: a step
+    runs, and predict/evaluate with use_ema after an EMA run."""
+    monkeypatch.chdir(tmp_path)
+    model = FCN8s(num_classes=C, compute_dtype=torch.float32, device="cpu", **SMALL)
+    kw = dict(record_summaries=False)
+    kw.update(option)
+    model.train(_stream(), 1, 1, lambda s: 1e-4, **kw)
+    assert model.state.step == 1 and np.isfinite(model.training_loss)
+    if "ema_decay" in option:
+        images, labels = next(_stream(3, n=2))
+        assert model.predict(images, use_ema=True).shape == (2, 64, 64)
+        assert np.isfinite(model.evaluate(iter([(images, labels)]), 1, use_ema=True)["loss"])
+    if "summaries_dir" in option:
+        assert sorted(os.listdir(tmp_path / "s")) == ["summaries_evaluation", "summaries_training"]
+    model.close()
 
 
 def test_prefetcher_yields_in_order_and_closes():
