@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, eval, training, KB calibration,
-checkpoint and training-feature paths once on one CUDA card.
+checkpoint, training-feature and int8/TTA/tiled predict paths once on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -55,15 +56,33 @@ Phases, in order; any failure raises and the script exits non-zero:
     the apply functions' CPU run on the card's draws; then the step with
     augment + EMA against the plain one, the EMA update, the augment and
     the weight summaries timed, and the device busy share of 5 such steps
-    read from ``utils.profiling.trace``.
+    read from ``utils.profiling.trace``;
+17. the rest of predict at full width (batch 8 x 512x1024, bf16, a fresh
+    seeded model, its decoder redrawn at unit fan-in scale so that pixels
+    have clear top-2 margins): (a) the int8 conv route (``_int_mm`` over
+    an explicit im2col) against its fp64 twin at every encoder layer on the
+    quantized forward's own int8 inputs (exact int32; batch 1 for
+    conv1_1-conv2_2), and each layer's route, int8 conv and bf16 cuDNN conv
+    timed; (b) ``predict(quantized=True)``, dynamic then calibrated static
+    on 16 images, against the int8 path on its twin, times against bf16 at
+    batch 8 and 1, peak memory; (c) ``predict_tta`` with scales (0.75, 1.0,
+    1.25) and flip: probabilities sum to 1, the identity view equals
+    ``predict``, the mirror's ids are the mirrored ids where the top-2
+    margin exceeds 0.05, once quantized;
+    (d) a 1024x2048 frame in (512, 512) tiles, overlap 128: the hard paste
+    equals its host composition, the blend sums to 1 and equals the lone
+    tile where one covers a pixel; (e) the service with ``quantized=True,
+    tile=(512, 512)``.
 
 Kernel launch counts are zeroed just before each path is driven and read
 just after it: serving + evaluation (phases 5-6), training (phase 10), the
 weighted training (phase 12), the conv1 calibration's timed runs (phase
-14) and the training features (phase 16: the train run, then the use_ema
-inference); every kernel of a path must have launched. The line before the
-last is ``{"kernels": [...]}``: ``launches`` from the path named in
-``path``; ``ms``,
+14), the training features (phase 16: the train run, then the use_ema
+inference) and the rest of predict (phase 17: each of b-e); every kernel of
+a path must have launched. A ``{"library_routes": [...]}`` line gives the
+int8 conv route per layer (ms, its bound over 1,979 TOP/s int8 or the
+bytes, share). The line before the last is ``{"kernels": [...]}``:
+``launches`` from the path named in ``path``; ``ms``,
 ``plain_ms`` and ``library_ms`` (one PyTorch call of the same function, where
 there is one; ``null`` otherwise) per call, from back-to-back calls between
 CUDA events; ``graph_ms``, the same call as ``ms`` replayed from a CUDA graph
@@ -71,7 +90,8 @@ of 20 calls, which leaves the host's launch work out (K5's row adds
 ``coherent_graph_ms`` on eval-like ids); ``bound_ms``, the larger of the
 bytes the kernel must move over 3.35 TB/s and its operations over 989
 TFLOP/s bf16 (``bound_by`` says which; ``bytes`` and ``flops`` are the
-counts; ``launches_train_features`` is the kernel's count in phase 16).
+counts; ``launches_train_features`` is the kernel's count in phase 16,
+``launches_predict_rest`` in phase 17).
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -104,12 +124,15 @@ from fcn8s_tensorflow_tpu_torch.engine.summaries import (DEFAULT_INSTRUMENTED, S
 from fcn8s_tensorflow_tpu_torch.kernels import build
 from fcn8s_tensorflow_tpu_torch.labels import TRAINIDS_TO_RGBA_DICT
 from fcn8s_tensorflow_tpu_torch.models.fcn8s import apply_fcn8s, decoder_l2_loss
+from fcn8s_tensorflow_tpu_torch.models.vgg16 import _BLOCK_ENDS as BLOCK_ENDS
+from fcn8s_tensorflow_tpu_torch.models.vgg16 import VGG16_CONV_LAYERS, VGG_MEAN_RGB
 from fcn8s_tensorflow_tpu_torch.ops import augment_device as A
 from fcn8s_tensorflow_tpu_torch.ops import conv1_core as KB
 from fcn8s_tensorflow_tpu_torch.ops import kernels as K
 from fcn8s_tensorflow_tpu_torch.ops import pool as P
+from fcn8s_tensorflow_tpu_torch.ops import quantize as Q
 from fcn8s_tensorflow_tpu_torch.ops.metrics import empty_metrics_state
-from fcn8s_tensorflow_tpu_torch.ops.nn import max_pool_2x2
+from fcn8s_tensorflow_tpu_torch.ops.nn import conv2d, max_pool_2x2, nchw, nhwc
 from fcn8s_tensorflow_tpu_torch.ops.pool import maxpool2x2_nhwc
 from fcn8s_tensorflow_tpu_torch.parallel import steps as S
 from fcn8s_tensorflow_tpu_torch.parallel.steps import eval_step
@@ -207,12 +230,13 @@ def graph_ms(fn, reps: int = 5, n: int = 20, reset=None) -> float:
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor cores (data sheet)
 
 
-def bound(bytes_moved: float, flops: float = 0.0) -> dict:
+def bound(bytes_moved: float, flops: float = 0.0, peak: float = BF16_FLOPS_PER_S) -> dict:
     """The least time the card could take: the larger of the bytes over the
-    memory rate and the operations over the bf16 peak."""
-    by_bytes, by_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    memory rate and the operations over the peak (bf16 unless given)."""
+    by_bytes, by_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "bytes": bytes_moved, "flops": flops}
@@ -1309,6 +1333,324 @@ def phase_training_features(dev, smi: str) -> dict:
     return {k: counts[k] + ema_counts[k] for k in counts}
 
 
+# ---------------------------------------------------------------------------
+# the rest of predict: int8 serving, TTA, tiled inference, the service
+# ---------------------------------------------------------------------------
+
+EARLY = ("conv1_1", "conv1_2", "conv2_1", "conv2_2")  # the twin checks batch 1 here
+INT8_LAYERS = [name for name, _, _ in VGG16_CONV_LAYERS] + ["fc6", "fc7"]
+FRAME = (1024, 2048)  # Cityscapes' full frame, for the tiled predict
+TILE, TILE_OVERLAP = (512, 512), 128
+TTA_SCALES = (0.75, 1.0, 1.25)
+# The resize is mirror-symmetric only to fp32 rounding (~5e-6), and the bf16
+# forward of a view turns that into input values a bf16 ulp apart: the
+# mirror's probabilities then differ by up to ~0.008 at 1/32 width on the CPU
+MIRROR_MARGIN = 0.05
+
+
+def _k4f_window(fn):
+    """``fn()``'s result and the K4f launches it made."""
+    before = maxpool2x2_nhwc.launches
+    out = fn()
+    return out, maxpool2x2_nhwc.launches - before
+
+
+def phase_int8_route(model: FCN8s, images: np.ndarray, dev) -> list[dict]:
+    """(a) The quantized encoder layer by layer on ``images`` (dynamic
+    scales): at every layer the route's int32 accumulators equal the fp64
+    twin's on the same int8 input, and ``conv2d_int8``'s bf16 output equals
+    the twin's accumulators dequantized alike; then the route, the whole
+    int8 conv and the bf16 cuDNN conv are timed. Returns the library-route
+    rows."""
+    q = model._quantized_params()["encoder_q"]
+    run = model._run_params["encoder"]
+    rows = []
+    with torch.inference_mode():
+        x = torch.from_numpy(images).to(dev).float() - torch.tensor(VGG_MEAN_RGB, device=dev)
+        x = nchw(x.to(torch.bfloat16).contiguous())
+        for name in INT8_LAYERS:
+            layer = q[name]
+            xq, scale = Q.quantize_activation(x)
+            xn = nhwc(xq)
+            acc = Q.conv2d_int8_im2col(xn, layer["kernel_q"], layer["kernel_mat"])
+            sub = 1 if name in EARLY else xn.shape[0]
+            twin = Q.conv2d_int8_reference(xn[:sub], layer["kernel_q"])
+            check(torch.equal(acc[:sub], twin), f"int8 route differs from its twin at {name}")
+            out = Q.conv2d_int8(x, layer)
+            ref = torch.addcmul(layer["bias"], twin.float(), scale * layer["scale"]).to(
+                torch.bfloat16)
+            check(torch.equal(nhwc(out)[:sub], ref), f"int8 dequant differs at {name}")
+            del twin, ref
+            m, o = acc.shape[0] * acc.shape[1] * acc.shape[2], acc.shape[3]
+            k = layer["kernel_q"][0].numel()
+            b = bound(nbytes(xq, layer["kernel_mat"], acc), 2.0 * m * k * o, INT8_OPS_PER_S)
+            del acc
+            w, bias = run[name]["weight"], run[name]["bias"]
+            t = {"route_ms": cuda_ms(lambda: Q.conv2d_int8_im2col(xn, layer["kernel_q"],
+                                                                  layer["kernel_mat"]),
+                                     reps=3, n=5, warmup=1),
+                 "int8_conv_ms": cuda_ms(lambda: Q.conv2d_int8(x, layer), reps=3, n=5, warmup=1),
+                 "bf16_conv_ms": cuda_ms(lambda: conv2d(x, w, bias), reps=3, n=5, warmup=1)}
+            if name == "fc6":  # batch 1 too: bf16's batch-8 fc6 sits on a cuDNN cliff
+                x1 = x[:1]
+                t["int8_conv_b1_ms"] = cuda_ms(lambda: Q.conv2d_int8(x1, layer), reps=3, n=5)
+                t["bf16_conv_b1_ms"] = cuda_ms(lambda: conv2d(x1, w, bias), reps=3, n=5)
+            rows.append({"name": "conv2d_int8_im2col", "layer": name,
+                         "gemm": [m, k, o], "twin_batch": sub, **t, **b,
+                         "share": b["bound_ms"] / t["route_ms"]})
+            del xq, xn
+            x = torch.relu_(out)
+            if name in BLOCK_ENDS:
+                x = maxpool2x2_nhwc(x)
+        del x, out
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _twin_route(fn):
+    """``fn()`` with every int8 conv on the fp64 twin (on the card)."""
+    route = Q.int8_conv_acc
+    Q.int8_conv_acc = lambda xq, qlayer: Q.conv2d_int8_reference(xq, qlayer["kernel_q"])
+    try:
+        return fn()
+    finally:
+        Q.int8_conv_acc = route
+
+
+def phase_int8_predict(model: FCN8s, images: np.ndarray, rng, smi: str) -> dict:
+    """(b) ``predict(quantized=True)`` at 8 x 512x1024, dynamic, then after
+    ``calibrate_quantization`` on 16 images (static). Returns the K4f
+    launches of the checked calls and the measurements."""
+    launches, out = 0, {}
+    bf16_ids = model.predict(images)
+    for mode in ("dynamic", "static"):
+        if mode == "static":
+            calib = rng.integers(0, 256, (16, H, W, 3), dtype=np.uint8)
+            absmax = model.calibrate_quantization(calib, batch_size=8)
+            check(set(absmax) == set(INT8_LAYERS) and all(
+                math.isfinite(float(v)) and float(v) > 0 for v in absmax.values()),
+                "calibrate_quantization gave no positive absmax per layer")
+            check("act_scale" in model._quantized_params()["encoder_q"]["fc7"],
+                  "the calibrated scales are not in the int8 tree")
+        routes = Q.conv2d_int8_im2col.launches
+        ids, k4f = _k4f_window(lambda: model.predict(images, quantized=True))
+        routes = Q.conv2d_int8_im2col.launches - routes
+        launches += k4f
+        check(k4f == 5 and routes == 15, f"int8 predict launched K4f {k4f}, the route {routes}")
+        check(ids.shape == (BATCH, H, W) and ids.dtype == np.int32 and 0 <= ids.min()
+              and ids.max() < C, "int8 predict ids")
+        twin = _twin_route(lambda: model.predict(images, quantized=True))
+        agree_twin = float((ids == twin).mean())
+        check(agree_twin >= 0.999, f"{mode} int8 ids agree with the twin path on {agree_twin}")
+        out[mode] = {"agree_twin": agree_twin, "agree_bf16": float((ids == bf16_ids).mean())}
+        del twin
+        for b in (8, 1):
+            out[mode][f"ms_b{b}"] = host_ms(lambda: model.predict(images[:b], quantized=True))
+        torch.cuda.reset_peak_memory_stats()
+        model.predict(images, quantized=True)
+        out[mode]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["bf16"] = {f"ms_b{b}": host_ms(lambda: model.predict(images[:b])) for b in (8, 1)}
+    torch.cuda.reset_peak_memory_stats()
+    model.predict(images)
+    out["bf16"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"int8 predict at full width, ({BATCH}, {H}, {W}, 3), on {smi}: " + "; ".join(
+        f"{m}: {v}" for m, v in out.items()) + " (ms: host clock, median of 5, H2D + D2H in; "
+        "agree_twin: ids equal to the int8 path on its fp64 twin on the card; agree_bf16: to "
+        "bf16 predict, random-init weights, no threshold); K4f 5 and the route 15 launches a "
+        "dispatch")
+    return {"launches": launches, **out}
+
+
+def phase_tta(model: FCN8s, images: np.ndarray, smi: str) -> dict:
+    """(c) ``predict_tta`` at 8 x 512x1024 with three scales and the flip."""
+    launches = 0
+    probs, k4f = _k4f_window(lambda: model.predict_tta(images, scales=TTA_SCALES, argmax=False))
+    launches += k4f
+    check(k4f == 5 * len(TTA_SCALES), f"TTA launched K4f {k4f} times")
+    check(probs.shape == (BATCH, H, W, C) and probs.dtype == np.float32
+          and float(np.abs(probs.sum(-1) - 1).max()) <= 1e-5 and probs.min() >= 0,
+          "TTA probabilities are no distribution")
+    ids = probs.argmax(-1)
+    top2 = np.sort(probs, axis=-1)[..., -2:]
+    clear = (top2[..., 1] - top2[..., 0]) > MIRROR_MARGIN
+    del top2
+    mirrored, k4f = _k4f_window(lambda: model.predict_tta(images[:, :, ::-1], scales=TTA_SCALES,
+                                                          argmax=False))
+    launches += k4f
+    mirrored = mirrored[:, :, ::-1]
+    mirror_dev = float(np.abs(mirrored - probs).max())
+    mirrored = mirrored.argmax(-1)
+    del probs
+    check(np.array_equal(mirrored[clear], ids[clear]),
+          f"the mirrored input's TTA ids are not the mirrored ids where the margin > "
+          f"{MIRROR_MARGIN}")
+    flip_agree = float((mirrored == ids).mean())
+    # the identity view is predict's softmax; its ids (the argmax of fp32
+    # probabilities) are predict's (the packed argmax of bf16 logits) wherever
+    # the top two are clearly apart
+    identity, k4f = _k4f_window(lambda: model.predict_tta(images, scales=(1.0,), flip=False,
+                                                          argmax=False))
+    launches += k4f
+    check(np.array_equal(identity, model.predict(images, argmax=False)),
+          "predict_tta(scales=(1.0,), flip=False) differs from predict's softmax")
+    top2 = np.sort(identity, axis=-1)[..., -2:]
+    clear_id = (top2[..., 1] - top2[..., 0]) > 1e-3
+    identity_ids, predict_ids = identity.argmax(-1), model.predict(images)
+    del identity, top2
+    check(np.array_equal(identity_ids[clear_id], predict_ids[clear_id]),
+          "predict_tta(scales=(1.0,), flip=False) ids differ from predict's where the margin "
+          "is clear")
+    identity_agree = float((identity_ids == predict_ids).mean())
+    t0 = time.perf_counter()
+    q_ids, k4f = _k4f_window(lambda: model.predict_tta(images, scales=TTA_SCALES,
+                                                       quantized=True))
+    q_ms = (time.perf_counter() - t0) * 1e3
+    launches += k4f
+    check(q_ids.shape == (BATCH, H, W) and 0 <= q_ids.min() and q_ids.max() < C,
+          "quantized TTA ids")
+    ms = host_ms(lambda: model.predict_tta(images, scales=TTA_SCALES), reps=3, warmup=1)
+    out = {"launches": launches, "ms": ms, "quantized_ms_once": q_ms,
+           "clear_share": float(clear.mean()), "mirror_agree": flip_agree,
+           "mirror_max_prob_dev": mirror_dev, "identity_vs_predict_agree": identity_agree,
+           "int8_vs_bf16_agree": float((q_ids == ids).mean())}
+    print(f"predict_tta at full width, ({BATCH}, {H}, {W}, 3), scales {TTA_SCALES} + flip, on "
+          f"{smi}: {out} (ms: host clock, median of 3; the quantized call once, static scales); "
+          f"probabilities sum to 1 within 1e-5; the identity view = predict's softmax, its ids "
+          f"= predict's where the top-2 margin > 1e-3; the mirror's ids = the mirrored ids "
+          f"where it is > {MIRROR_MARGIN} (clear_share)")
+    return out
+
+
+def phase_tiled(model: FCN8s, rng, smi: str) -> dict:
+    """(d) One 1024x2048 frame in (512, 512) tiles, overlap 128."""
+    frame = rng.integers(0, 256, (1, *FRAME, 3), dtype=np.uint8)
+    kw = dict(tile=TILE, tile_overlap=TILE_OVERLAP)
+    launches = 0
+    hard, k4f = _k4f_window(lambda: model.predict(frame, **kw))
+    launches += k4f
+    rows = model._tile_grid(FRAME[0], TILE[0], TILE_OVERLAP)
+    cols = model._tile_grid(FRAME[1], TILE[1], TILE_OVERLAP)
+    grid = [(r, c) for r in rows for c in cols]
+    tiles = np.concatenate([frame[:, ys:ys + TILE[0], xs:xs + TILE[1]]
+                            for (ys, _, _), (xs, _, _) in grid])
+    check(k4f == 5 * math.ceil(len(grid) / 8), f"tiled predict launched K4f {k4f} times")
+    parts = np.concatenate([model.predict(tiles[i:i + 8]) for i in range(0, len(tiles), 8)])
+    composed = np.zeros((1, *FRAME), np.int32)
+    coverage = np.zeros(FRAME, np.int32)
+    for i, ((ys, ylo, yhi), (xs, xlo, xhi)) in enumerate(grid):
+        composed[:, ys + ylo:ys + yhi, xs + xlo:xs + xhi] = parts[i:i + 1, ylo:yhi, xlo:xhi]
+        coverage[ys:ys + TILE[0], xs:xs + TILE[1]] += 1
+    check(np.array_equal(hard, composed), "the hard paste differs from its host composition")
+    hard_p, k4f = _k4f_window(lambda: model.predict(frame, argmax=False, **kw))
+    launches += k4f
+    blend_p, k4f = _k4f_window(lambda: model.predict(frame, argmax=False, tile_blend=True, **kw))
+    launches += k4f
+    check(float(np.abs(blend_p.sum(-1) - 1).max()) <= 1e-5, "blended probabilities")
+    lone = coverage == 1
+    check(np.allclose(blend_p[0][lone], hard_p[0][lone], rtol=2.0 ** -22, atol=0),
+          "the blend differs from the lone tile where one covers a pixel")
+    full = model.predict(frame)
+    out = {"launches": launches, "tiles": len(grid), "lone_share": float(lone.mean()),
+           "hard_vs_full_agree": float((hard == full).mean()),
+           "blend_vs_full_agree": float((blend_p.argmax(-1) == full).mean()),
+           "tiled_ms": host_ms(lambda: model.predict(frame, **kw), reps=3, warmup=1),
+           "blend_ms": host_ms(lambda: model.predict(frame, tile_blend=True, **kw), reps=3,
+                               warmup=1),
+           "full_ms": host_ms(lambda: model.predict(frame), reps=3, warmup=1)}
+    print(f"tiled predict of one {FRAME[0]}x{FRAME[1]} frame, tiles {TILE}, overlap "
+          f"{TILE_OVERLAP}, on {smi}: {out} (ms: host clock, median of 3); hard paste = host "
+          f"composition of the tiles' predict, blend sums to 1 and = the lone tile where one "
+          f"covers a pixel")
+    return out
+
+
+def phase_int8_tiled_service(model: FCN8s, rng) -> int:
+    """(e) The HTTP service with ``quantized=True, tile=(512, 512)``;
+    returns its K4f launches."""
+    service = InferenceService(model, color_map=TRAINIDS_TO_RGBA_DICT, quantized=True, tile=TILE)
+    srv = make_server(service, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = "http://127.0.0.1:%d" % srv.server_address[1]
+    frame = rng.integers(0, 256, (*FRAME, 3), dtype=np.uint8)
+    k4f = maxpool2x2_nhwc.launches
+    try:
+        status, body = _post(base + "/predict", _png(frame))
+        check(status == 200, f"/predict of the int8 tiled service gave {status}")
+        ids = _decode(body)
+        status, body = _post(base + "/overlay", _png(frame[:H, :W]))
+        check(status == 200 and _decode(body).shape == (H, W, 3),
+              "/overlay of the int8 tiled service")
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        service.close()
+        thread.join(timeout=60)
+    k4f = maxpool2x2_nhwc.launches - k4f
+    check(health["quantized"] is True and health["tile"] == list(TILE), f"/healthz {health}")
+    want = model.predict(frame[None], quantized=True, tile=TILE)[0]
+    check(np.array_equal(ids, want), "/predict differs from predict(quantized=True, tile=...)")
+    print(f"int8 tiled service: /predict {FRAME[0]}x{FRAME[1]} = predict(quantized=True, "
+          f"tile={TILE}), /overlay {H}x{W}, /healthz {health['quantized']}, {health['tile']}; "
+          f"K4f {k4f} launches")
+    return k4f
+
+
+def _redraw_decoder(model: FCN8s, rng) -> None:
+    """Redraw the decoder's kernels at unit fan-in scale (biases at 0.1),
+    as tests/test_torch_model.py's ``_tree`` does: the fresh init's 1e-3
+    sigma leaves every pixel's top two classes within rounding of each
+    other, and the margin checks below nothing to hold."""
+    tree = bridge.to_numpy({"decoder": model.params["decoder"]})
+    for layer in tree["decoder"].values():
+        k = layer["kernel"]
+        layer["kernel"] = (rng.normal(size=k.shape) / np.sqrt(np.prod(k.shape[:-1]))).astype(
+            np.float32)
+        layer["bias"] = rng.normal(size=layer["bias"].shape).astype(np.float32) * 0.1
+    drawn = bridge.to_port(tree)["decoder"]
+    with torch.no_grad():
+        for name, layer in model.params["decoder"].items():
+            for key, t in layer.items():
+                t.copy_(drawn[name][key])
+    model._refresh_run_params()
+
+
+def phase_predict_rest(dev, smi: str) -> tuple[dict, list]:
+    """Phase 17 on a fresh full-width model with a redrawn decoder. Returns
+    (the launch counts of b-e, the library-route rows)."""
+    model = FCN8s(num_classes=C, device=dev, seed=17)
+    rng = np.random.default_rng(17)
+    _redraw_decoder(model, rng)
+    images = rng.integers(0, 256, (BATCH, H, W, 3), dtype=np.uint8)
+    t0 = time.perf_counter()
+    rows = phase_int8_route(model, images, dev)
+    print(f"int8 conv route per layer at ({BATCH}, {H}, {W}) on {smi}, exact against the fp64 "
+          f"twin: " + "; ".join(
+              f"{r['layer']} {r['route_ms']:.3f} ms (int8 conv {r['int8_conv_ms']:.3f}, bf16 "
+              f"{r['bf16_conv_ms']:.3f}; bound {r['bound_ms']:.3f} {r['bound_by']})" for r in rows))
+    zero_counts()
+    Q.conv2d_int8_im2col.launches = 0
+    measured = {"int8": phase_int8_predict(model, images, rng, smi),
+                "tta": phase_tta(model, images, smi),
+                "tiled": phase_tiled(model, rng, smi)}
+    service_k4f = phase_int8_tiled_service(model, rng)
+    counts = read_counts()
+    route_launches = Q.conv2d_int8_im2col.launches
+    paths = {"int8 predict": measured["int8"]["launches"], "tta": measured["tta"]["launches"],
+             "tiled": measured["tiled"]["launches"], "service": service_k4f}
+    for path, k4f in paths.items():
+        check(k4f > 0, f"K4f was never launched on the {path} path")
+    check(route_launches > 0, "the int8 route was never launched")
+    print(f"phase 17 launches: K4f per path {paths}, all kernels {counts}, int8 route "
+          f"{route_launches}; {time.perf_counter() - t0:.1f} s")
+    model.close()
+    del model
+    torch.cuda.empty_cache()
+    return counts, [{**r, "launches": route_launches} for r in rows]
+
+
 def main() -> None:
     smi = phase_card()
     dev = torch.device("cuda", 0)
@@ -1343,6 +1685,9 @@ def main() -> None:
     for name in ("maxpool2x2_code_nhwc", "maxpool2x2_bwd_nhwc", "ce_sum_per_sample", "ce_grad",
                  "maxpool2x2_nhwc", "confusion_matrix_accumulate"):
         check(feature_counts[name] > 0, f"{name} was never launched on the training-features path")
+    torch.cuda.empty_cache()
+    predict_counts, routes = phase_predict_rest(dev, smi)
+    print(json.dumps({"library_routes": routes}))
     paths = {"serve+eval": serve_counts, "train": train_counts, "train weighted": weighted_counts,
              "conv1 calibration": conv1_counts}
     source_path = {"maxpool2x2_nhwc": "serve+eval", "ce_sum_per_sample": "serve+eval",
@@ -1354,7 +1699,8 @@ def main() -> None:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],
          "launches": paths[source_path[name]][name], "path": source_path[name],
-         "launches_train_features": feature_counts[name], **measured[name]}
+         "launches_train_features": feature_counts[name],
+         "launches_predict_rest": predict_counts[name], **measured[name]}
         for name in WRAPPERS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,8 @@ derives its kernel on every call; the facade caches one derivation for
 inference and rebuilds it after training.
 
 ``to_port`` and ``to_numpy`` round-trip exactly: the conversions are
-transposes of fp32 values.
+transposes of fp32 values. ``quantized_to_port`` takes the JAX package's
+int8 tree (``ops/quantize.py::quantize_fcn8s_params``) the same way.
 """
 
 from __future__ import annotations
@@ -133,3 +134,25 @@ def cast_params(params: dict, dtype: torch.dtype) -> dict:
                 out[part][name][k] = (t.contiguous(memory_format=torch.channels_last)
                                       if t.dim() == 4 else t)
     return out
+
+
+def quantized_to_port(qtree: dict, compute_dtype: torch.dtype = torch.bfloat16, *,
+                      device="cpu") -> dict:
+    """The JAX package's ``quantize_fcn8s_params`` tree (numpy arrays: HWIO
+    int8 ``kernel_q``, fp32 ``scale`` and ``bias``, optional ``act_scale``
+    per encoder layer; the fp32 decoder) -> the port's quantized tree
+    (``ops/quantize.py``) on ``device``, the decoder cast as the forward
+    reads it. The int8 values are taken as they are, not requantized."""
+    from .ops.quantize import quantized_layer
+
+    encoder = {}
+    for name, layer in qtree["encoder_q"].items():
+        kernel = torch.from_numpy(np.array(layer["kernel_q"], np.int8)).permute(3, 0, 1, 2)
+        act = layer.get("act_scale")
+        encoder[name] = quantized_layer(
+            kernel.to(device), _fp32_copy(layer["scale"]).to(device),
+            _fp32_copy(layer["bias"]).to(device),
+            None if act is None else _fp32_copy(act).to(device))
+    decoder = cast_params(to_port({"decoder": qtree["decoder"]}, device=device),
+                          compute_dtype)["decoder"]
+    return {"encoder_q": encoder, "decoder": decoder}

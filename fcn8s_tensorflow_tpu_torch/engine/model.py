@@ -9,13 +9,15 @@ ignore_label, device augmentation, periodic evaluation, TensorBoard
 summaries, an EMA of the weights, early stopping and the LR-plateau
 observer, best-value bookkeeping, periodic and best-only asynchronous
 saves, a JSONL train log, prefetch); ``predict`` (stride-32 padding and
-crop back, on-device overlay, ``use_ema``); ``evaluate`` (``use_ema``);
+crop back, on-device overlay, ``use_ema``, int8 with ``quantized``, tiled
+with ``tile``/``tile_overlap``/``tile_blend``); ``predict_tta``;
+``calibrate_quantization``; ``evaluate`` (``use_ema``);
 ``ema_params``/``adopt_ema``; ``save``/``load_variables``; and ``close``,
 with the JAX facade's argument names. Checkpoints are the JAX package's
 format (``engine/checkpoint.py``): one written by either package loads in
-the other, EMA average and observer counters included. Tiling, TTA, int8
-and spatial partitioning belong to later parts of the port: their
-arguments are accepted and raise ``NotImplementedError`` when set.
+the other, EMA average and observer counters included. Spatial
+partitioning belongs to a later part of the port: its argument is accepted
+and raises ``NotImplementedError`` when set.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from ..data.prefetch import DevicePrefetcher, host_tensors, to_device
 from ..models.fcn8s import decoder_variant, init_fcn8s
 from ..ops.augment_device import make_augment_fn
 from ..ops.metrics import empty_metrics_state, finalize_metrics
+from ..ops.quantize import collect_activation_absmax, quantize_fcn8s_params
 from ..parallel.steps import (
     Optimizer,
     TrainState,
@@ -43,10 +46,12 @@ from ..parallel.steps import (
     make_optimizer,
     predict_step,
     train_step,
+    tta_step,
 )
 from .summaries import SummaryLogger
 
 _ALLOWED_METRICS = {"loss", "mean_iou", "accuracy"}
+_TILE_CHUNK = 8  # tiles per dispatch of a tiled predict
 
 
 def _not_ported(what: str):
@@ -221,6 +226,8 @@ class FCN8s:
         self._observer_state = {}  # the observers' counters, written by save()
         self._observer_pending = {}  # restored counters for the next train() only
         self._summary_logger = None
+        self._act_absmax = None  # calibrate_quantization's layer -> max|x|
+        self._qparams = None  # the int8 tree, built lazily by _quantized_params
         self._augment_fn = self._device_augment_cfg = None
         self._save_thread = None
         for t in bridge.param_leaves(self.params):
@@ -240,9 +247,52 @@ class FCN8s:
 
     def _refresh_run_params(self) -> None:
         """(Re)build the compute-dtype tree that predict and evaluate read,
-        from the current masters. Stale after any optimizer step."""
+        from the current masters, and drop the int8 tree. Stale after any
+        optimizer step; every change of the masters (``train``,
+        ``adopt_ema``, ``load_variables``, ``vgg16_dir`` and
+        ``variables_load_dir``) ends here."""
         with torch.no_grad():
             self._run_params = bridge.cast_params(self.params, self.compute_dtype)
+        self._invalidate_quantized()
+
+    # ------------------------------------------------------------------
+    def _quantized_params(self) -> dict:
+        """The int8 inference tree (``ops/quantize.py``), built lazily from
+        the fp32 masters and cached until they change
+        (``_invalidate_quantized``), with the calibrated static activation
+        scales once ``calibrate_quantization`` has run."""
+        if self._qparams is None:
+            self._qparams = quantize_fcn8s_params(self.params, self._act_absmax,
+                                                  compute_dtype=self.compute_dtype)
+        return self._qparams
+
+    @torch.inference_mode()
+    def calibrate_quantization(self, images, *, batch_size: int = 8) -> dict:
+        """Calibrate static int8 activation scales from representative
+        ``images`` (N, H, W, 3; a few dozen suffice), in chunks of
+        ``batch_size``: each conv's input scale is frozen at the max |x|
+        seen over the chunks / 127, replacing the dynamic per-tensor scales.
+        The scales persist across training (recalibrate after a large
+        distribution shift). Returns the layer -> absmax dict (0-d fp32
+        tensors on the model's device), also kept on the model."""
+        images = np.asarray(images)
+        if images.ndim == 3:
+            images = images[None]
+        absmax = None
+        for start in range(0, images.shape[0], batch_size):
+            chunk, _ = self._prepare_images(images[start:start + batch_size])
+            batch_max = collect_activation_absmax(self._run_params, self._to_device(chunk),
+                                                  compute_dtype=self.compute_dtype)
+            absmax = batch_max if absmax is None else {
+                k: torch.maximum(absmax[k], batch_max[k]) for k in absmax}
+        self._act_absmax = absmax
+        self._invalidate_quantized()
+        return absmax
+
+    def _invalidate_quantized(self) -> None:
+        """The masters or the scales moved: requantize at the next
+        quantized predict."""
+        self._qparams = None
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -346,10 +396,42 @@ class FCN8s:
         return images, (n, h, w)
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
+        """H2D of a host array; on a card from pinned memory, without
+        blocking the host (the copy is ordered on the current stream)."""
         # copies only an array torch cannot wrap (read-only, e.g. a decoded image)
-        return torch.from_numpy(np.require(array, requirements=("C", "W"))).to(self.device)
+        t = torch.from_numpy(np.require(array, requirements=("C", "W")))
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
 
     # ------------------------------------------------------------------
+    def _dispatch_predict(self, padded: np.ndarray, argmax=True, overlay_lut=None,
+                          quantized=False, params=None) -> torch.Tensor:
+        """H2D and the predict step on a padded batch; returns the device
+        output without waiting for it, so callers can overlap the next
+        dispatch with this one's D2H. ``params`` overrides the live
+        compute-dtype params (the EMA's)."""
+        compact = argmax and overlay_lut is None and self.num_classes <= 255
+        return predict_step(self._inference_params(params, quantized), self._to_device(padded),
+                            argmax=argmax, compute_dtype=self.compute_dtype,
+                            id_dtype=torch.uint8 if compact else torch.int32,
+                            overlay_lut=overlay_lut, quantized=quantized)
+
+    def _inference_params(self, ema, quantized: bool) -> dict:
+        """The tree a predict runs: the EMA's (``_resolve_ema``) when given,
+        else the int8 tree or the live compute-dtype params."""
+        if ema is not None:
+            return ema
+        return self._quantized_params() if quantized else self._run_params
+
+    @staticmethod
+    def _host_output(out: torch.Tensor, argmax, overlay_lut) -> np.ndarray:
+        """D2H of a predict output; compact ids are re-widened to the API's int32."""
+        out = out.cpu().numpy()
+        if argmax and overlay_lut is None and out.dtype == np.uint8:
+            out = out.astype(np.int32)
+        return out
+
     @torch.inference_mode()
     def predict(self, images, argmax=True, spatial_partition=False, overlay=None,
                 quantized=False, tile=None, tile_overlap=128, tile_blend=False,
@@ -358,30 +440,180 @@ class FCN8s:
         to stride 32, output cropped back). Returns (N, H, W) int32 ids, the
         (N, H, W, C) softmax with ``argmax=False``, or with ``overlay`` (a
         class_id -> RGBA dict) the composited uint8 RGB, computed on the
-        device. ``tile_overlap`` only matters with ``tile``. ``use_ema=True``
-        runs the EMA average (``train(ema_decay=...)``) instead of the live
-        params; it excludes ``quantized``."""
+        device.
+
+        ``quantized=True`` runs the int8 encoder (``ops/quantize.py``):
+        per-tensor int8 activations (dynamic, or the static scales of
+        ``calibrate_quantization``) times per-channel int8 weights, int32
+        accumulation, the decoder in ``compute_dtype``. The int8 tree is
+        built lazily and rebuilt after any change of the params.
+
+        ``tile=(th, tw)`` (multiples of 32) runs tiled inference: the image
+        is covered by overlapping tiles of that shape (``_tile_grid``), run
+        in chunks of 8, two in flight so that one chunk's D2H overlaps the
+        next one's dispatch, and each tile's core (``tile_overlap`` even and
+        >= 0, default 128, clamped to ``min(th, tw) - 32``; within
+        ``tile_overlap / 2`` of interior seams the cut truncates the
+        receptive field) is pasted into the output. ``tile_blend=True``
+        instead accumulates every tile's full softmax on the host, weighted
+        by a linear ramp over ``tile_overlap / 2`` px from each tile edge
+        (``_feather_profile``) and normalised, before the optional argmax:
+        exact where one tile covers a pixel; incompatible with ``overlay``.
+
+        ``use_ema=True`` runs the EMA average (``train(ema_decay=...)``)
+        instead of the live params; it excludes ``quantized``."""
+        lut = self._overlay_lut(overlay) if overlay is not None else None
         ema = self._resolve_ema(use_ema, quantized)
+        if tile is not None:
+            if spatial_partition:
+                raise ValueError("tile and spatial_partition are mutually exclusive")
+            return self._predict_tiled(images, argmax, lut, quantized, tile, tile_overlap,
+                                       params=ema, blend=tile_blend)
+        if tile_blend:
+            raise ValueError("tile_blend requires tile=(th, tw)")
         if spatial_partition:
             _not_ported("predict(spatial_partition=True)")
-        if quantized:
-            _not_ported("predict(quantized=True)")
-        if tile is not None or tile_blend:
-            _not_ported("tiled predict")
-        lut = self._overlay_lut(overlay) if overlay is not None else None
         padded, (n, h, w) = self._prepare_images(images)
-        compact = argmax and lut is None and self.num_classes <= 255
-        out = predict_step(self._run_params if ema is None else ema, self._to_device(padded),
-                           argmax=argmax,
-                           compute_dtype=self.compute_dtype,
-                           id_dtype=torch.uint8 if compact else torch.int32, overlay_lut=lut)
-        out = out.cpu().numpy()[:n, :h, :w]
-        if compact:
-            out = out.astype(np.int32)  # ids travel D2H compact; the API stays int32
-        return out
+        out = self._dispatch_predict(padded, argmax, lut, quantized, params=ema)
+        return self._host_output(out, argmax, lut)[:n, :h, :w]
 
-    def predict_tta(self, *args, **kwargs):
-        _not_ported("predict_tta")
+    @torch.inference_mode()
+    def predict_tta(self, images, scales=(1.0,), flip=True, argmax=True, quantized=False,
+                    use_ema=False):
+        """Test-time-augmentation prediction: class probabilities averaged
+        over the horizontal mirror (``flip``) and rescaled views
+        (``scales``, each snapped to the stride-32 grid,
+        ``max(32, round(p * s / 32) * 32)``), each scale one ``tta_step``
+        whose resize, forward and resize back stay on the card; the sum and
+        the argmax run on the card too. ``scales=(1.0,)`` with
+        ``flip=False`` is ``predict``'s softmax. Returns (N, H, W) int32
+        ids, or with ``argmax=False`` the (N, H, W, C) fp32 mean
+        probabilities. ``quantized`` and ``use_ema`` as in ``predict``."""
+        if not scales:
+            raise ValueError("predict_tta: scales must be non-empty")
+        padded, (n, h, w) = self._prepare_images(images)
+        call_params = self._inference_params(self._resolve_ema(use_ema, quantized), quantized)
+        im_d = self._to_device(padded)
+        ph, pw = padded.shape[1:3]
+        acc = None
+        for s in scales:
+            sh = max(32, int(round(ph * float(s) / 32)) * 32)
+            sw = max(32, int(round(pw * float(s) / 32)) * 32)
+            p = tta_step(call_params, im_d, scale_hw=None if (sh, sw) == (ph, pw) else (sh, sw),
+                         flip=bool(flip), compute_dtype=self.compute_dtype, quantized=quantized)
+            acc = p if acc is None else acc.add_(p)
+            del p
+        probs = acc if len(scales) == 1 else acc.div_(float(len(scales)))
+        if argmax:
+            return torch.argmax(probs[:n, :h, :w], dim=-1).to(torch.int32).cpu().numpy()
+        return probs[:n, :h, :w].cpu().numpy()
+
+    @staticmethod
+    def _tile_grid(size: int, t: int, overlap: int):
+        """1-D tile placement: start offsets with stride t-overlap, last
+        tile flush against the end; per-tile core [lo, hi) in tile-local
+        coords s.t. the cores partition [0, size) exactly."""
+        if t >= size:
+            return [(0, 0, size)]
+        stride = t - overlap
+        starts = list(range(0, size - t, stride)) + [size - t]
+        tiles = []
+        prev_end = 0
+        for i, s in enumerate(starts):
+            lo = prev_end - s  # global core start = previous core's end
+            hi = t if i == len(starts) - 1 else t - overlap // 2
+            # keep at least half the overlap as context on the trailing edge
+            hi = max(hi, lo)
+            tiles.append((s, lo, hi))
+            prev_end = s + hi
+        assert prev_end == size, (prev_end, size)
+        return tiles
+
+    @staticmethod
+    def _feather_profile(t: int, margin: float) -> np.ndarray:
+        """1-D blend weight: linear ramp over ``margin`` px from both tile
+        edges, flat 1.0 inside; strictly positive everywhere (pixel centers
+        at idx+0.5), so single-coverage pixels normalize to exactly their
+        own tile's value."""
+        idx = np.arange(t, dtype=np.float32) + 0.5
+        return np.minimum(np.minimum(idx, t - idx) / margin, 1.0).astype(np.float32)
+
+    def _predict_tiled(self, images, argmax, lut, quantized, tile, overlap, params=None,
+                       blend=False):
+        """``predict(tile=...)``: see ``predict``. Tiles go in chunks of 8,
+        the JAX facade's on one device; dynamic int8 scales are per
+        dispatch, so the chunk is part of the result. Unlike the JAX facade,
+        the last chunk is not padded to 8 tiles with copies of its last:
+        eager PyTorch compiles nothing per batch size, and the results do
+        not change."""
+        th, tw = tile
+        if th % 32 or tw % 32:
+            raise ValueError(f"tile dims must be multiples of 32, got {tile}")
+        if overlap % 2 or overlap < 0:
+            raise ValueError(f"tile_overlap must be even and >= 0, got {overlap}")
+        if blend and lut is not None:
+            raise ValueError(
+                "tile_blend composites probabilities before any overlay; "
+                "predict ids first and composite on host (viz.overlay)")
+        # the default overlap (sized for production tiles) auto-clamps so
+        # small tiles keep a positive stride
+        overlap = min(overlap, min(th, tw) - 32)
+        images = np.asarray(images)
+        if images.ndim == 3:
+            images = images[None]
+        n, h, w = images.shape[:3]
+        # pad up so every tile is full-size (cropped back at the end)
+        hp, wp = max(h, th), max(w, tw)
+        hp, wp = hp + (-hp) % 32, wp + (-wp) % 32
+        padded = np.pad(images, ((0, 0), (0, hp - h), (0, wp - w), (0, 0)))
+        rows = self._tile_grid(hp, th, overlap)
+        cols = self._tile_grid(wp, tw, overlap)
+        origins = [(ys, xs) for ys, _, _ in rows for xs, _, _ in cols]
+        # tile-major, then image: batch entry i is tile i // n of image i % n
+        batch = np.concatenate([padded[:, ys:ys + th, xs:xs + tw] for ys, xs in origins], axis=0)
+
+        if blend:
+            margin = max(overlap / 2.0, 1.0)
+            wtile = (self._feather_profile(th, margin)[:, None]
+                     * self._feather_profile(tw, margin)[None, :])
+            acc = np.zeros((n, hp, wp, self.num_classes), np.float32)
+            wsum = np.zeros((hp, wp), np.float32)
+        else:
+            outs = []
+
+        def consume(dev, start):
+            part = self._host_output(dev, argmax and not blend, lut)  # D2H sync point
+            if not blend:
+                outs.append(part)
+                return
+            for g in range(part.shape[0]):
+                ti, j = divmod(start + g, n)
+                ys, xs = origins[ti]
+                acc[j, ys:ys + th, xs:xs + tw] += part[g] * wtile[:, :, None]
+                if j == 0:  # once per tile (identical for every image)
+                    wsum[ys:ys + th, xs:xs + tw] += wtile
+
+        pending = deque()
+        for start in range(0, batch.shape[0], _TILE_CHUNK):
+            pending.append((self._dispatch_predict(
+                batch[start:start + _TILE_CHUNK], argmax and not blend, lut, quantized,
+                params=params), start))
+            if len(pending) >= 2:
+                consume(*pending.popleft())
+        while pending:
+            consume(*pending.popleft())
+
+        if blend:
+            probs = acc / wsum[None, :, :, None]
+            out = np.argmax(probs, axis=-1).astype(np.int32) if argmax else probs
+            return out[:, :h, :w]
+        out_tiles = np.concatenate(outs, axis=0)
+        out = np.zeros((n, hp, wp) + out_tiles.shape[3:], out_tiles.dtype)
+        for i, ((ys, ylo, yhi), (xs, xlo, xhi)) in enumerate(
+                (r, c) for r in rows for c in cols):
+            out[:, ys + ylo:ys + yhi, xs + xlo:xs + xhi] = (
+                out_tiles[i * n:(i + 1) * n, ylo:yhi, xlo:xhi])
+        return out[:, :h, :w]
 
     # ------------------------------------------------------------------
     def train(self, train_generator, epochs, steps_per_epoch, learning_rate_schedule,

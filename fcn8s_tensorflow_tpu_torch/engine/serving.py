@@ -13,7 +13,9 @@ the service is plain Python around ``model.predict`` (stdlib
 * ``GET  /stats``    — JSON request counters and latency percentiles.
 
 Predictions run under a lock (one device user at a time); decode/encode run
-concurrently on the request threads.
+concurrently on the request threads. The service's ``quantized``, ``tile``
+and ``tile_overlap`` go to every ``predict`` (int8 serving, tiled inference
+of large frames) and ``/healthz`` reports the first two.
 
 **Micro-batching** (``batch_window_ms > 0``): concurrent requests queue to
 a dispatcher thread that waits up to the window for more work, groups
@@ -139,14 +141,16 @@ class _MicroBatcher:
 
 class InferenceService:
     """Wraps an ``FCN8s`` model with the request-level logic (decode,
-    predict, encode, stats) — separable from the HTTP layer for tests.
-    The JAX service's ``quantized`` and ``tile`` options come with the int8
-    and tiled predict ports."""
+    predict, encode, stats) — separable from the HTTP layer for tests."""
 
-    def __init__(self, model, color_map=None, *, batch_window_ms: float = 0.0,
-                 max_batch: int = 8):
+    def __init__(self, model, color_map=None, *, quantized: bool = False,
+                 tile=None, tile_overlap: int = 128,
+                 batch_window_ms: float = 0.0, max_batch: int = 8):
         self.model = model
         self.color_map = color_map
+        self.quantized = quantized
+        self.tile = tile
+        self.tile_overlap = tile_overlap
         self._lock = threading.Lock()
         # counters/latencies get their own lock: `_lock` is held for whole
         # device predicts, and /stats must not block behind one
@@ -170,7 +174,11 @@ class InferenceService:
         if overlay and self.color_map is None:
             raise ValueError("server built without a color_map")
         with self._lock:
-            out = self.model.predict(images, overlay=self.color_map if overlay else None)
+            out = self.model.predict(
+                images, overlay=self.color_map if overlay else None,
+                quantized=self.quantized, tile=self.tile,
+                tile_overlap=self.tile_overlap,
+            )
         with self._stats_lock:
             self.dispatches += 1
         return out
@@ -220,7 +228,12 @@ class InferenceService:
         }
 
     def health(self) -> dict:
-        return {"status": "ok", "model_config": self.model.model_config}
+        return {
+            "status": "ok",
+            "model_config": self.model.model_config,
+            "quantized": self.quantized,
+            "tile": list(self.tile) if self.tile else None,
+        }
 
 
 def make_server(service: InferenceService, host: str = "127.0.0.1",

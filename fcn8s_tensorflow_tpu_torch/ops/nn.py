@@ -1,4 +1,5 @@
-"""Core NN ops: SAME convolution, the plain 2x2 max pool and dropout.
+"""Core NN ops: SAME convolution, the plain 2x2 max pool, dropout and the
+bilinear resize of the TTA head.
 
 Port of ``fcn8s_tensorflow_tpu/ops/nn.py``. Activations inside the port are
 NCHW-shaped tensors in ``torch.channels_last`` memory, which is the JAX
@@ -52,6 +53,18 @@ def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     (``ceil_mode``), matching ``lax.reduce_window(..., padding='SAME')``.
     NaN propagates like ``lax.max``. The plain twin of the K4f kernel."""
     return F.max_pool2d(x, kernel_size=2, stride=2, ceil_mode=True)
+
+
+def resize_bilinear(x_nhwc: torch.Tensor, size_hw) -> torch.Tensor:
+    """``jax.image.resize(x, (n, h, w, c), method="bilinear")`` of an NHWC
+    float tensor: half-pixel centres, and when it downscales a triangle
+    kernel widened by the scale, which is ``F.interpolate``'s
+    ``antialias=True`` (without it a downscale differs by up to half the
+    input's range). Returns a contiguous NHWC tensor."""
+    h, w = size_hw
+    out = F.interpolate(nchw(x_nhwc), size=(int(h), int(w)), mode="bilinear",
+                        align_corners=False, antialias=True)
+    return nhwc(out).contiguous()
 
 
 def dropout_mask(shape, keep_prob: float, generator: torch.Generator) -> torch.Tensor:

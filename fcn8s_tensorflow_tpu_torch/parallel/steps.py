@@ -5,8 +5,9 @@ One card needs no mesh or sharding, and eager PyTorch needs no compiled
 executable per shape, so each step is a plain function of (params, device
 tensors). ``eval_step``/``predict_step`` take the compute-dtype params of
 ``bridge.cast_params``; ``train_step`` takes a ``TrainState`` over the fp32
-masters and derives that cast inside autograd on every step. The TTA step
-comes with a later part of the port.
+masters and derives that cast inside autograd on every step.
+``predict_step(quantized=True)`` and ``tta_step(quantized=True)`` take the
+int8 tree of ``ops.quantize.quantize_fcn8s_params`` instead.
 
 JAX's arrays are immutable and its optimizer returns new trees; here the
 optimizer updates the params and its moments IN PLACE under
@@ -27,6 +28,8 @@ from ..models.fcn8s import apply_fcn8s, decoder_l2_loss
 from ..ops.kernels import softmax_cross_entropy
 from ..ops.losses import class_pixel_weights, valid_pixel_weights
 from ..ops.metrics import update_metrics_state
+from ..ops.nn import resize_bilinear
+from ..ops.quantize import apply_fcn8s_int8
 
 OPTIMIZERS = ("adam", "adamw", "momentum", "sgd")
 INITIAL_LEARNING_RATE = 1e-4  # make_optimizer's injected default in the JAX package
@@ -322,6 +325,14 @@ def eval_step(params: dict, metrics_state: dict, images: torch.Tensor, label_ids
                                 num_classes=num_classes, sample_mask=sample_mask)
 
 
+def _forward(params: dict, images: torch.Tensor, quantized: bool, **kwargs) -> torch.Tensor:
+    """The inference forward: int8 encoder for a quantized tree, else the
+    compute-dtype model."""
+    if quantized:
+        return apply_fcn8s_int8(params, images, **kwargs)
+    return apply_fcn8s(params, images, **kwargs)
+
+
 def predict_step(params: dict, images: torch.Tensor, *, argmax: bool = True,
                  compute_dtype=torch.bfloat16, id_dtype=torch.int32, overlay_lut=None,
                  quantized: bool = False) -> torch.Tensor:
@@ -333,12 +344,11 @@ def predict_step(params: dict, images: torch.Tensor, *, argmax: bool = True,
     Ids are computed in the packed subpixel layout, so full-resolution
     logits never go through a depth-to-space; only the id map does. The
     overlay is the JAX package's per-class compare/select chain in fp32,
-    in the same order, with the final ``floor``."""
-    if quantized:
-        raise NotImplementedError("predict_step: int8 serving is not ported yet")
+    in the same order, with the final ``floor``. ``quantized``: ``params``
+    is a ``quantize_fcn8s_params`` tree and the encoder runs in int8."""
     want_ids = argmax or overlay_lut is not None
-    logits = apply_fcn8s(params, images, compute_dtype=compute_dtype,
-                         logits_dtype=compute_dtype, packed_final=want_ids)
+    logits = _forward(params, images, quantized, compute_dtype=compute_dtype,
+                      logits_dtype=compute_dtype, packed_final=want_ids)
     if not want_ids:
         return torch.softmax(logits.float(), dim=-1)
     pred = torch.argmax(logits, dim=-1)  # (n, H/s, W/s, s, s)
@@ -357,3 +367,33 @@ def predict_step(params: dict, images: torch.Tensor, *, argmax: bool = True,
     alpha = chan[3] * (1.0 / 255.0)
     out = [images[..., c].float() * (1.0 - alpha) + chan[c] * alpha for c in range(3)]
     return torch.floor(torch.stack(out, dim=-1)).to(torch.uint8)
+
+
+def tta_step(params: dict, images: torch.Tensor, *, scale_hw=None, flip: bool = True,
+             compute_dtype=torch.bfloat16, quantized: bool = False) -> torch.Tensor:
+    """Test-time-augmentation probability head for ONE scale: NHWC uint8
+    ``images`` -> ``(N, H, W, C)`` fp32 mean probabilities at the input
+    resolution. The view is resized to ``scale_hw`` (``ops.nn.resize_bilinear``,
+    JAX's antialiased bilinear); with ``flip`` its mirror joins the batch,
+    so one doubled forward runs (logits in ``compute_dtype``, softmax in
+    fp32), and the mirrored half is flipped back and averaged with the
+    other, ``(fwd + mir) * 0.5``; the probabilities are resized back to
+    (H, W). Bilinear weights are convex, so the result stays a
+    distribution. ``quantized`` as in ``predict_step``."""
+    n, h, w = images.shape[:3]
+    x = images.float()
+    if scale_hw is not None and tuple(scale_hw) != (h, w):
+        x = resize_bilinear(x, scale_hw)
+    if flip:
+        x = torch.cat([x, x.flip(2)], dim=0)
+    logits = _forward(params, x, quantized, compute_dtype=compute_dtype,
+                      logits_dtype=compute_dtype)
+    del x
+    probs = torch.softmax(logits.float(), dim=-1)
+    del logits
+    if flip:
+        fwd, mir = probs[:n], probs[n:]
+        probs = (fwd + mir.flip(2)) * 0.5
+    if probs.shape[1:3] != (h, w):
+        probs = resize_bilinear(probs, (h, w))
+    return probs

@@ -25,6 +25,8 @@ torch.set_num_threads(2)
 from fcn8s_tensorflow_tpu.models.fcn8s import apply_fcn8s as j_apply  # noqa: E402
 from fcn8s_tensorflow_tpu.models.fcn8s import init_fcn8s as j_init  # noqa: E402
 from fcn8s_tensorflow_tpu.ops.metrics import empty_metrics_state as j_empty  # noqa: E402
+from fcn8s_tensorflow_tpu.ops.quantize import apply_fcn8s_int8 as j_apply_int8  # noqa: E402
+from fcn8s_tensorflow_tpu.ops.quantize import quantize_fcn8s_params as j_quantize  # noqa: E402
 from fcn8s_tensorflow_tpu.parallel.steps import eval_step as j_eval  # noqa: E402
 from fcn8s_tensorflow_tpu.parallel.steps import predict_step as j_predict  # noqa: E402
 from fcn8s_tensorflow_tpu_torch import bridge  # noqa: E402
@@ -180,10 +182,28 @@ def test_eval_step_matches_jax_cpu_path(rng):
 
 
 def test_steps_raise_for_what_is_not_ported(rng):
-    params = _run_params(_tree())
-    images = torch.from_numpy(_images(rng, n=1))
-    with pytest.raises(NotImplementedError):
-        t_predict(params, images, quantized=True)
+    """What raised before int8 serving was ported: ``predict_step(quantized=
+    True)`` on JAX's quantized tree now gives JAX's ids (through the packed
+    layout), softmax and overlay (tests/test_torch_quantize.py holds the
+    int8 path's parts)."""
+    tree, images = _tree(), _images(rng)
+    jx = jnp.asarray(images)
+    jq = jax.tree.map(np.asarray, jax.jit(j_quantize)(tree, None))
+    logits = np.asarray(j_apply_int8(jq, jx, **F32))
+    params = bridge.quantized_to_port(jq, torch.float32)
+    lut = np.array([[255, 0, 0, 0], [0, 255, 0, 255], [10, 20, 30, 127], [0, 0, 0, 255],
+                    [200, 100, 50, 60]], np.float32)
+    tx = torch.from_numpy(images)
+    with torch.inference_mode():
+        ids = t_predict(params, tx, quantized=True, **TF32).numpy()
+        sm = t_predict(params, tx, argmax=False, quantized=True, **TF32).numpy()
+        ov = t_predict(params, tx, overlay_lut=lut, quantized=True, **TF32).numpy()
+    _assert_ids_agree(ids, np.asarray(j_predict(jq, jx, quantized=True, **F32)), logits)
+    np.testing.assert_allclose(sm, np.asarray(j_predict(jq, jx, argmax=False, quantized=True,
+                                                        **F32)),
+                               rtol=1e-4, atol=1e-4 * np.abs(logits).max())
+    ov_j = np.asarray(j_predict(jq, jx, overlay_lut=lut, quantized=True, **F32))
+    assert np.abs(ov.astype(int) - ov_j.astype(int))[ids == logits.argmax(-1)].max() <= 1
 
 
 # ---------------------------------------------------------------------------
@@ -208,9 +228,7 @@ def test_facade_predict_pads_crops_and_matches_jax(rng):
     assert probs.shape == (3, 50, 70, C)
     np.testing.assert_allclose(probs.sum(-1), 1.0, rtol=1e-5)
     with pytest.raises(NotImplementedError):
-        model.predict(images, tile=(64, 64))
-    with pytest.raises(NotImplementedError):
-        model.predict_tta(images)
+        model.predict(images, spatial_partition=True)
 
 
 def test_facade_evaluate_matches_jax_eval_steps(rng):
