@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, eval, training, KB calibration,
-checkpoint, training-feature and int8/TTA/tiled predict paths once on one
-CUDA card.
+checkpoint, training-feature, int8/TTA/tiled predict and offline-benchmark
+paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -72,14 +72,32 @@ Phases, in order; any failure raises and the script exits non-zero:
     (d) a 1024x2048 frame in (512, 512) tiles, overlap 128: the hard paste
     equals its host composition, the blend sums to 1 and equals the lone
     tile where one covers a pixel; (e) the service with ``quantized=True,
-    tile=(512, 512)``.
+    tile=(512, 512)``;
+18. the rest of the facade at full width (a fresh seeded model, decoder
+    redrawn as in phase 17): (a) ``summary()`` at 8 x 1024x512 equals the
+    JAX package's totals and does no device work; (b) ``find_learning_rate``
+    (batch 8 x 1024x512, 20 steps from 1e-7 to 1.0, keep_prob 1) on the
+    fresh model and after two ``train`` steps: params, Adam's moments,
+    counters and step bit-equal after it, ``opt_state`` None again on the
+    fresh model, device memory back within 1 MB, ``predict`` unchanged; ms
+    per sweep step beside the plain train step; (c) ``predict_and_save`` of
+    24 512x1024 PNGs (batch 8) with the on-card overlay, the host compositor
+    beside the image, and labelIds, plus two 1024x2048 frames in (512, 512)
+    tiles: the PNGs equal ``id_map[predict]`` on >= 99.9% of pixels, the
+    overlays within 1 LSB where the ids agree; images/s and the split into
+    decode, dispatch, D2H and encode; (d) ``score_benchmark`` on a
+    Cityscapes-layout split of 2 cities x 4 1024x2048 frames (every
+    evaluated class, void, car and person instances): the matrix sums to
+    every pixel, and collapsed to trainIds equals K5's on the card cell for
+    cell, IoUs within 1e-6; the predict and scoring seconds and the native
+    (host C++) confusion matrix's ms per frame.
 
 Kernel launch counts are zeroed just before each path is driven and read
 just after it: serving + evaluation (phases 5-6), training (phase 10), the
 weighted training (phase 12), the conv1 calibration's timed runs (phase
 14), the training features (phase 16: the train run, then the use_ema
-inference) and the rest of predict (phase 17: each of b-e); every kernel of
-a path must have launched. A ``{"library_routes": [...]}`` line gives the
+inference), the rest of predict (phase 17: each of b-e) and the rest of the
+facade (phase 18: each of b-d); every kernel of a path must have launched. A ``{"library_routes": [...]}`` line gives the
 int8 conv route per layer (ms, its bound over 1,979 TOP/s int8 or the
 bytes, share). The line before the last is ``{"kernels": [...]}``:
 ``launches`` from the path named in ``path``; ``ms``,
@@ -91,12 +109,14 @@ of 20 calls, which leaves the host's launch work out (K5's row adds
 bytes the kernel must move over 3.35 TB/s and its operations over 989
 TFLOP/s bf16 (``bound_by`` says which; ``bytes`` and ``flops`` are the
 counts; ``launches_train_features`` is the kernel's count in phase 16,
-``launches_predict_rest`` in phase 17).
+``launches_predict_rest`` in phase 17, ``launches_facade_rest`` in phase 18).
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import gc
+import importlib
 import io
 import json
 import math
@@ -116,13 +136,18 @@ import torch.nn.functional as F
 from PIL import Image
 
 from fcn8s_tensorflow_tpu_torch import bridge
+from fcn8s_tensorflow_tpu_torch.engine import model as M
 from fcn8s_tensorflow_tpu_torch.engine import serving
 from fcn8s_tensorflow_tpu_torch.engine.model import FCN8s
 from fcn8s_tensorflow_tpu_torch.engine.serving import InferenceService, make_server
 from fcn8s_tensorflow_tpu_torch.engine.summaries import (DEFAULT_INSTRUMENTED, SummaryLogger,
                                                          summary_stats)
+from fcn8s_tensorflow_tpu_torch.evaluation import confmat as NC
+from fcn8s_tensorflow_tpu_torch.evaluation import pixel_eval
 from fcn8s_tensorflow_tpu_torch.kernels import build
-from fcn8s_tensorflow_tpu_torch.labels import TRAINIDS_TO_RGBA_DICT
+from fcn8s_tensorflow_tpu_torch.labels import (IDS_TO_TRAINIDS_ARRAY, TRAINIDS_TO_IDS_ARRAY,
+                                               TRAINIDS_TO_RGBA_DICT)
+from fcn8s_tensorflow_tpu_torch.labels import labels as CS_LABELS
 from fcn8s_tensorflow_tpu_torch.models.fcn8s import apply_fcn8s, decoder_l2_loss
 from fcn8s_tensorflow_tpu_torch.models.vgg16 import _BLOCK_ENDS as BLOCK_ENDS
 from fcn8s_tensorflow_tpu_torch.models.vgg16 import VGG16_CONV_LAYERS, VGG_MEAN_RGB
@@ -131,12 +156,14 @@ from fcn8s_tensorflow_tpu_torch.ops import conv1_core as KB
 from fcn8s_tensorflow_tpu_torch.ops import kernels as K
 from fcn8s_tensorflow_tpu_torch.ops import pool as P
 from fcn8s_tensorflow_tpu_torch.ops import quantize as Q
-from fcn8s_tensorflow_tpu_torch.ops.metrics import empty_metrics_state
+from fcn8s_tensorflow_tpu_torch.ops.metrics import (benchmark_iou_from_confusion,
+                                                    confusion_matrix, empty_metrics_state)
 from fcn8s_tensorflow_tpu_torch.ops.nn import conv2d, max_pool_2x2, nchw, nhwc
 from fcn8s_tensorflow_tpu_torch.ops.pool import maxpool2x2_nhwc
 from fcn8s_tensorflow_tpu_torch.parallel import steps as S
 from fcn8s_tensorflow_tpu_torch.parallel.steps import eval_step
 from fcn8s_tensorflow_tpu_torch.utils.profiling import device_busy, trace
+from fcn8s_tensorflow_tpu_torch.utils.summary import model_summary_rows
 
 BATCH, H, W, C = 8, 512, 1024, 20  # serving and eval: Cityscapes' landscape at half size
 TH, TW = 1024, 512  # training: bench.py's main config (H=1024, W=512)
@@ -1651,6 +1678,364 @@ def phase_predict_rest(dev, smi: str) -> tuple[dict, list]:
     return counts, [{**r, "launches": route_launches} for r in rows]
 
 
+# phase 18: the rest of the facade
+SUMMARY_HW, SUMMARY_BATCH = (1024, 512), 8
+# The JAX package's utils/summary.py totals for the full-width 20-class fcn8s at
+# 8 x 1024x512, computed on the CPU from the shapes of its init_fcn8s
+# (jax.eval_shape); tests/test_torch_facade_rest.py holds them equal to it
+SUMMARY_TOTALS = {"params": 134473144, "macs": 1780160135168, "act_bytes": 2506522624}
+SWEEP = dict(steps=20, min_lr=1e-7, max_lr=1.0, keep_prob=1.0)
+SAVE_IMAGES = 24  # 512x1024 PNGs through predict_and_save, in chunks of BATCH
+BENCH_CITIES, BENCH_FRAMES = ("aachen", "bonn"), 4  # a 1024x2048 Cityscapes-layout split
+NUM_LABEL_IDS = 34  # the scorer's labelId matrix side (ids 0..33)
+
+
+def _state_snapshot(model: FCN8s) -> dict:
+    """Clones, on the card, of what a sweep may touch."""
+    opt = model.state.opt_state
+    return {"params": [t.detach().clone() for t in bridge.param_leaves(model.params)],
+            "step": model.state.step,
+            "opt": None if opt is None else (M._opt_scalars(opt),
+                                             [t.clone() for t in M._opt_tensors(opt)])}
+
+
+def _check_restored(model: FCN8s, snap: dict, what: str) -> None:
+    check(model.state.step == snap["step"], f"{what}: the step moved")
+    check(all(torch.equal(a, b) for a, b in zip(bridge.param_leaves(model.params),
+                                                snap["params"])), f"{what}: the params moved")
+    opt = model.state.opt_state
+    if snap["opt"] is None:
+        check(opt is None, f"{what}: the optimizer state is not None again")
+        return
+    scalars, tensors = snap["opt"]
+    check(M._opt_scalars(opt) == scalars, f"{what}: the optimizer counters moved")
+    check(all(torch.equal(a, b) for a, b in zip(M._opt_tensors(opt), tensors)),
+          f"{what}: Adam's moments moved")
+
+
+def phase_summary(model: FCN8s, dev) -> None:
+    """(a) ``summary()`` at 8 x 1024x512: the JAX package's totals, no device work."""
+    mem = torch.cuda.memory_allocated(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    text = model.summary(SUMMARY_HW, SUMMARY_BATCH)
+    ms = (time.perf_counter() - t0) * 1e3
+    rows = model_summary_rows(model.params, SUMMARY_HW, SUMMARY_BATCH)
+    totals = {key: sum(r[key] for r in rows) for key in SUMMARY_TOTALS}
+    check(totals == SUMMARY_TOTALS, f"summary totals {totals}, the JAX package's {SUMMARY_TOTALS}")
+    check(f"params {SUMMARY_TOTALS['params']:,} " in text, "summary text lacks the param total")
+    check(torch.cuda.memory_allocated(dev) == mem and not any(read_counts().values()),
+          "summary did device work")
+    print(f"summary({SUMMARY_HW}, batch={SUMMARY_BATCH}) in {ms:.2f} ms (host, no device work): "
+          f"{len(rows)} layers, {totals} = the JAX package's; " + text.splitlines()[-1])
+
+
+def _allocated(dev) -> tuple[int, int]:
+    """Bytes and number of live allocations on the card, after collecting
+    tensors of earlier phases held in reference cycles and dropping the
+    cuBLAS workspaces PyTorch keeps per handle and stream."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    stats = torch.cuda.memory_stats(dev)
+    return stats["allocated_bytes.all.current"], stats["allocation.all.current"]
+
+
+def phase_lr_sweep(model: FCN8s, dev, smi: str) -> tuple[dict, dict]:
+    """(b) ``find_learning_rate`` at 8 x 1024x512, on the fresh model
+    (``opt_state`` None) and after two ``train`` steps: everything restored
+    bit for bit, memory back within 1 MB, ``predict`` unchanged (each after
+    a 2-step warm-up sweep, which must restore too). Returns
+    (the launch counts of both sweeps, the measurements)."""
+    rng = np.random.default_rng(182)
+    images, labels = _synthetic(rng, BATCH)
+    probe = rng.integers(0, 256, (BATCH, H, W, 3), dtype=np.uint8)
+
+    def stream():
+        while True:
+            yield images, labels
+
+    total, out = dict.fromkeys(WRAPPERS, 0), {}
+    for when in ("fresh", "after 2 train steps"):
+        if when != "fresh":
+            model.train(stream(), epochs=1, steps_per_epoch=2, learning_rate_schedule=lambda s: 1e-4,
+                        keep_prob=0.5, record_summaries=False)
+        check((model.state.opt_state is None) == (when == "fresh"), f"{when}: opt_state")
+        snap = _state_snapshot(model)
+        ids = model.predict(probe)
+        # a short sweep first: what the libraries under the step keep once
+        # made (handles, workspaces) is then made before the reading
+        model.find_learning_rate(stream(), **{**SWEEP, "steps": 2})
+        mem, allocs = _allocated(dev)
+        zero_counts()
+        t0 = time.perf_counter()
+        result = model.find_learning_rate(stream(), **SWEEP)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        mem_after, allocs_after = _allocated(dev)
+        drift = mem_after - mem
+        check(abs(drift) <= 2**20, f"{when}: device memory moved by {drift} bytes "
+                                   f"({allocs_after - allocs} allocations) over the sweep")
+        _check_restored(model, snap, f"sweep ({when})")
+        check(np.array_equal(model.predict(probe), ids), f"{when}: predict differs after the sweep")
+        for name in ("maxpool2x2_code_nhwc", "maxpool2x2_bwd_nhwc", "ce_sum_per_sample", "ce_grad"):
+            check(counts[name] > 0, f"the sweep ({when}) never launched {name}")
+        steps = len(result["losses"])
+        out[when] = {"steps": steps, "ms_per_step": seconds * 1e3 / steps,
+                     "first_loss": result["losses"][0], "last_loss": result["losses"][-1],
+                     "suggestion": result["suggestion"], "memory_drift_bytes": drift,
+                     "allocation_drift": allocs_after - allocs}
+        total = {k: total[k] + counts[k] for k in total}
+        del snap
+    im, lb = torch.from_numpy(images).to(dev), torch.from_numpy(labels).to(dev)
+    mask = torch.ones(BATCH, device=dev)
+    out["plain_step_ms"] = host_ms(lambda: float(S.train_step(
+        model.state, im, lb, mask, 0, 1e-7, 0.0, 1.0, optimizer=model.optimizer,
+        num_classes=C)[1]))
+    model._refresh_run_params()  # the plain steps moved the masters
+    print(f"find_learning_rate at full width, ({BATCH}, {TH}, {TW}, 3), {SWEEP}, on {smi}: {out} "
+          f"(ms_per_step: host clock over the sweep, H2D and the loss read-back in; "
+          f"plain_step_ms: train_step on device tensors + the loss read-back, median of 5); "
+          f"params, moments, counters and step bit-equal after each sweep, opt_state None again "
+          f"on the fresh model, predict unchanged; launches {total}")
+    return total, out
+
+
+def _decode_dir(directory: str) -> dict:
+    return {name: np.asarray(Image.open(os.path.join(directory, name)))
+            for name in sorted(os.listdir(directory)) if name.endswith(".png")}
+
+
+def phase_predict_and_save(model: FCN8s, root: str, smi: str) -> tuple[dict, dict]:
+    """(c) ``predict_and_save`` over 24 512x1024 PNGs (batch 8): on-device
+    overlay, host compositor beside the image, labelIds; and two 1024x2048
+    frames in (512, 512) tiles. Returns (launch counts, measurements)."""
+    rng = np.random.default_rng(183)
+    src = os.path.join(root, "images")
+    os.makedirs(src)
+    images = rng.integers(0, 256, (SAVE_IMAGES, H, W, 3), dtype=np.uint8)
+    for i, image in enumerate(images):
+        Image.fromarray(image).save(os.path.join(src, f"frame_{i:03d}.png"), compress_level=1)
+    runs = {"overlay, on the card": dict(color_map=TRAINIDS_TO_RGBA_DICT),
+            "overlay, host compositor + image": dict(color_map=TRAINIDS_TO_RGBA_DICT,
+                                                     on_device_overlay=False,
+                                                     include_unprocessed_image=True),
+            "labelIds": dict(output_format="ids", id_map=TRAINIDS_TO_IDS_ARRAY)}
+    out, saved = {}, {}
+    zero_counts()
+    for name, kw in runs.items():
+        target = os.path.join(root, name.split(",")[0] + str(len(saved)))
+        model.predict_and_save(target, src, batch_size=BATCH, verbose=False, **kw)
+        t = model.predict_and_save_timings
+        out[name] = {"images_per_s": t["images"] / t["seconds"],
+                     **{k: v for k, v in t.items() if k != "images"}}
+        saved[name] = _decode_dir(target)
+    frames = rng.integers(0, 256, (2, *FRAME, 3), dtype=np.uint8)
+    big = os.path.join(root, "frames")
+    os.makedirs(big)
+    for i, frame in enumerate(frames):
+        Image.fromarray(frame).save(os.path.join(big, f"big_{i}.png"), compress_level=1)
+    model.predict_and_save(os.path.join(root, "tiled"), big, output_format="ids",
+                           id_map=TRAINIDS_TO_IDS_ARRAY, tile=TILE, tile_overlap=TILE_OVERLAP,
+                           batch_size=BATCH, verbose=False)
+    t = model.predict_and_save_timings
+    out["labelIds, tiled 1024x2048"] = {"images_per_s": t["images"] / t["seconds"],
+                                        **{k: v for k, v in t.items() if k != "images"}}
+    counts = read_counts()
+    check(counts["maxpool2x2_nhwc"] > 0, "predict_and_save never launched K4f")
+
+    want = np.concatenate([model.predict(images[i:i + BATCH])
+                           for i in range(0, SAVE_IMAGES, BATCH)])
+    got = np.stack(list(saved["labelIds"].values()))
+    check(got.dtype == np.uint8 and got.shape == want.shape, "labelId PNGs' dtype or shape")
+    agree = float((got == TRAINIDS_TO_IDS_ARRAY[want]).mean())
+    check(agree >= 0.999, f"labelId PNGs equal id_map[predict] on {agree} of pixels")
+    tiled = np.stack(list(_decode_dir(os.path.join(root, "tiled")).values()))
+    tiled_agree = float((tiled == TRAINIDS_TO_IDS_ARRAY[model.predict(frames, tile=TILE,
+                                                                      tile_overlap=TILE_OVERLAP)]
+                         ).mean())
+    check(tiled_agree >= 0.999, f"tiled labelId PNGs equal id_map[predict] on {tiled_agree}")
+    device_ov = np.stack(list(saved["overlay, on the card"].values()))
+    split = np.stack(list(saved["overlay, host compositor + image"].values()))
+    check(split.shape == (SAVE_IMAGES, 2 * H, W, 3) and np.array_equal(split[:, H:], images),
+          "the split view's lower half is not the image")
+    same_ids = got == TRAINIDS_TO_IDS_ARRAY[want]
+    diff = np.abs(device_ov.astype(np.int16) - split[:, :H])[same_ids]
+    check(int(diff.max()) <= 1, f"on-card and host overlays differ by {int(diff.max())} LSB")
+    out["checks"] = {"ids_agree": agree, "tiled_ids_agree": tiled_agree,
+                     "overlay_exact_share": float((diff == 0).mean())}
+    print(f"predict_and_save at full width, {SAVE_IMAGES} x ({H}, {W}) PNGs, batch {BATCH}, and "
+          f"2 x {FRAME} in {TILE} tiles, on {smi}: {out} (seconds, host clock: decode and encode "
+          f"summed over their 4-thread pools, decode_wait/encode_wait the caller's waits, "
+          f"dispatch = pad + H2D + launch, d2h = the copy back with the wait for the card; "
+          f"overlay_exact_share: on-card overlay = host compositor, else 1 LSB, where the ids "
+          f"agree); launches {counts}")
+    return counts, out
+
+
+def _benchmark_split(root: str, rng) -> tuple[str, list]:
+    """Two cities x 4 Cityscapes-size frames: labelId GT over every evaluated
+    class and void in 8 x 16 blocks (128x128 px), 12 car and person
+    instances (ids > 1000) in instanceIds. Returns (dataset dir, [(gt path,
+    gt labelIds)])."""
+    ds = os.path.join(root, "cityscapes")
+    evaluated = [l.id for l in CS_LABELS if l.id >= 0 and not l.ignoreInEval]
+    void = [l.id for l in CS_LABELS if l.id >= 0 and l.ignoreInEval]
+    fh, fw = FRAME
+    block, small, large = fh // 8, max(4, fh // 25), fh // 5
+    gts = []
+    for city in BENCH_CITIES:
+        img_dir = os.path.join(ds, "leftImg8bit", "val", city)
+        gt_dir = os.path.join(ds, "gtFine", "val", city)
+        os.makedirs(img_dir)
+        os.makedirs(gt_dir)
+        for n in range(BENCH_FRAMES):
+            blocks = rng.choice(evaluated + void, size=(fh // block, fw // block))
+            blocks.flat[:len(evaluated)] = evaluated  # every evaluated class, every frame
+            gt = np.repeat(np.repeat(blocks, block, 0), block, 1).astype(np.uint8)
+            inst = gt.astype(np.uint16)
+            for k in range(12):
+                label = 26 if k % 2 else 24
+                y, x = int(rng.integers(0, fh - large)), int(rng.integers(0, fw - large))
+                hh, ww = (int(v) for v in rng.integers(small, large, 2))
+                gt[y:y + hh, x:x + ww] = label
+                inst[y:y + hh, x:x + ww] = label * 1000 + k
+            name = f"{city}_{n:06d}_000019"
+            Image.fromarray(rng.integers(0, 256, (fh, fw, 3), dtype=np.uint8)).save(
+                os.path.join(img_dir, f"{name}_leftImg8bit.png"), compress_level=1)
+            gt_path = os.path.join(gt_dir, f"{name}_gtFine_labelIds.png")
+            Image.fromarray(gt).save(gt_path, compress_level=1)
+            Image.fromarray(inst).save(os.path.join(gt_dir, f"{name}_gtFine_instanceIds.png"),
+                                       compress_level=1)
+            gts.append((gt_path, gt))
+    return ds, gts
+
+
+def phase_score_benchmark(model: FCN8s, root: str, dev, smi: str) -> tuple[dict, dict]:
+    """(d) ``score_benchmark`` on a 2 x 4-frame 1024x2048 split; the closed
+    loop against K5 on the card; the native confusion matrix timed per frame.
+    Returns (launch counts, measurements)."""
+    rng = np.random.default_rng(184)
+    ds, gts = _benchmark_split(root, rng)
+    results_dir = os.path.join(root, "results")
+    real, scoring = pixel_eval.evaluate_img_lists, {}
+
+    def timed_scorer(*args, **kwargs):
+        t0 = time.perf_counter()
+        result = real(*args, **kwargs)
+        scoring["s"] = time.perf_counter() - t0
+        return result
+
+    zero_counts()
+    pixel_eval.evaluate_img_lists = timed_scorer
+    try:
+        t0 = time.perf_counter()
+        result = model.score_benchmark(ds, results_dir, batch_size=BATCH)
+        seconds = time.perf_counter() - t0
+    finally:
+        pixel_eval.evaluate_img_lists = real
+    n_px = len(gts) * FRAME[0] * FRAME[1]
+    conf = np.asarray(result["confMatrix"], np.int64)
+    check(conf.shape == (NUM_LABEL_IDS, NUM_LABEL_IDS) and conf.sum() == n_px,
+          f"the scorer's matrix sums to {conf.sum()}, not {n_px}")
+    check(result["classInstScores"]["car"] == result["classInstScores"]["car"]
+          and result["classInstScores"]["person"] == result["classInstScores"]["person"],
+          "iIoU of car or person is NaN: the instances were not scored")
+
+    # closed loop: the written labelIds and the GT in trainId space through K5
+    args = pixel_eval.EvalArgs()
+    args.prediction_path = results_dir
+    preds = np.stack([np.asarray(Image.open(pixel_eval.get_prediction(args, path)))
+                      for path, _ in gts])
+    gt_ids = np.stack([gt for _, gt in gts])
+    to_train = IDS_TO_TRAINIDS_ARRAY
+    k5 = confusion_matrix(torch.from_numpy(to_train[preds]).to(dev),
+                          torch.from_numpy(to_train[gt_ids]).to(dev), C)
+    counts = read_counts()
+    check(counts["confusion_matrix_accumulate"] > 0, "the closed loop never launched K5")
+    collapsed = np.zeros((C, C), np.int64)
+    rows, cols = np.nonzero(conf)
+    np.add.at(collapsed, (to_train[rows], to_train[cols]), conf[rows, cols])
+    check(np.array_equal(collapsed, k5.cpu().numpy().astype(np.int64)),
+          "the scorer's matrix collapsed to trainIds differs from K5's")
+    iou, valid = (t.cpu().numpy() for t in benchmark_iou_from_confusion(k5, void_class=0))
+    worst = 0.0
+    for label in CS_LABELS:
+        if label.id < 0 or label.ignoreInEval:
+            continue
+        score = result["classScores"][label.name]
+        check(bool(valid[label.trainId]) == (score == score), f"{label.name}: validity differs")
+        if valid[label.trainId]:
+            worst = max(worst, abs(score - float(iou[label.trainId])))
+    check(worst <= 1e-6, f"per-class IoU differs from K5's by {worst}")
+
+    # the native confusion matrix on one frame, against its numpy twin
+    frame_pred, frame_gt = preds[0], gt_ids[0]
+    native = np.zeros((NUM_LABEL_IDS, NUM_LABEL_IDS), np.uint64)
+    NC.accumulate_confusion(frame_pred, frame_gt, native)
+    twin = NC.accumulate_confusion_plain(frame_pred, frame_gt, np.zeros_like(native))
+    check(np.array_equal(native, twin), "the native confusion matrix differs from its twin")
+
+    def median_ms(fn, reps):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    native_ms = median_ms(lambda: NC.accumulate_confusion(frame_pred, frame_gt, native), 21)
+    plain_ms = median_ms(lambda: NC.accumulate_confusion_plain(frame_pred, frame_gt, native), 5)
+    out = {"seconds": seconds, "predict_and_save_s": seconds - scoring["s"],
+           "scoring_s": scoring["s"], "frames": len(gts), "pixels": n_px,
+           "native_confmat_ms_per_frame": native_ms, "numpy_twin_ms_per_frame": plain_ms,
+           "host_threads": os.cpu_count(), "mIoU_classes": result["averageScoreClasses"],
+           "iIoU_classes": result["averageScoreInstClasses"], "closed_loop_max_iou_diff": worst}
+    print(f"score_benchmark at full width, {len(BENCH_CITIES)} cities x {BENCH_FRAMES} frames "
+          f"of {FRAME}, on {smi}: {out} (seconds, host clock; the native confusion matrix and "
+          f"its numpy twin median of 21 / 5 calls on one 2 MP frame); matrix sums to {n_px}, "
+          f"collapsed to trainIds = K5's on the card cell for cell; launches {counts}")
+    return counts, out
+
+
+def phase_facade_rest(dev, smi: str) -> dict:
+    """Phase 18 on a fresh full-width model with a redrawn decoder; returns
+    the launch counts summed over b-d (each read just after its path)."""
+    def version(module: str) -> str:
+        try:
+            return getattr(importlib.import_module(module), "__version__", "present")
+        except ImportError as e:
+            return f"absent ({e})"
+
+    gxx = shutil.which("g++")
+    gxx_version = subprocess.run([gxx, "--version"], capture_output=True, text=True).stdout \
+        .splitlines()[0] if gxx else "absent"
+    print(f"card installation: cv2 {version('cv2')}, tqdm {version('tqdm')}, g++ {gxx_version}")
+    t0 = time.perf_counter()
+    model = FCN8s(num_classes=C, device=dev, seed=18)
+    _redraw_decoder(model, np.random.default_rng(18))
+    phase_summary(model, dev)
+    total = dict.fromkeys(WRAPPERS, 0)
+    root = tempfile.mkdtemp(prefix="fcn8s_facade_")
+    try:
+        sweep_counts, _ = phase_lr_sweep(model, dev, smi)
+        save_counts, _ = phase_predict_and_save(model, root, smi)
+        score_counts, _ = phase_score_benchmark(model, root, dev, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for counts in (sweep_counts, save_counts, score_counts):
+        total = {k: total[k] + counts[k] for k in total}
+    check(model.device.type == "cuda" and all(
+        t.device.type == "cuda" for t in bridge.param_leaves(model._run_params)),
+        "phase 18's model left the card")
+    print(f"phase 18 launches: {total}; {time.perf_counter() - t0:.1f} s")
+    model.close()
+    del model
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> None:
     smi = phase_card()
     dev = torch.device("cuda", 0)
@@ -1688,6 +2073,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     predict_counts, routes = phase_predict_rest(dev, smi)
     print(json.dumps({"library_routes": routes}))
+    facade_counts = phase_facade_rest(dev, smi)
+    for name in ("maxpool2x2_nhwc", "maxpool2x2_code_nhwc", "maxpool2x2_bwd_nhwc",
+                 "ce_sum_per_sample", "ce_grad", "confusion_matrix_accumulate"):
+        check(facade_counts[name] > 0, f"{name} was never launched on the facade's rest")
     paths = {"serve+eval": serve_counts, "train": train_counts, "train weighted": weighted_counts,
              "conv1 calibration": conv1_counts}
     source_path = {"maxpool2x2_nhwc": "serve+eval", "ce_sum_per_sample": "serve+eval",
@@ -1700,7 +2089,8 @@ def main() -> None:
         {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],
          "launches": paths[source_path[name]][name], "path": source_path[name],
          "launches_train_features": feature_counts[name],
-         "launches_predict_rest": predict_counts[name], **measured[name]}
+         "launches_predict_rest": predict_counts[name],
+         "launches_facade_rest": facade_counts[name], **measured[name]}
         for name in WRAPPERS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,10 @@ for one NVIDIA H100.
 The JAX package beside it is the reference: every module here names its
 counterpart there, and ``tests/test_torch_*.py`` run both on the same
 weights and inputs. This package imports ``torch``, ``numpy``, PIL and the
-standard library, and nothing of the JAX package (``labels`` holds its own
-copy of the overlay colours).
+standard library, and nothing of the JAX package: ``labels``, ``utils``,
+``viz`` and ``evaluation`` hold its own copies of the label registry, the
+model summary, the overlay and the offline Cityscapes scorers, and
+``native/confusion_matrix.cpp`` is built with g++ at first use.
 
 Quick start::
 

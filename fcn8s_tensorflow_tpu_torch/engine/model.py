@@ -12,23 +12,35 @@ saves, a JSONL train log, prefetch); ``predict`` (stride-32 padding and
 crop back, on-device overlay, ``use_ema``, int8 with ``quantized``, tiled
 with ``tile``/``tile_overlap``/``tile_blend``); ``predict_tta``;
 ``calibrate_quantization``; ``evaluate`` (``use_ema``);
-``ema_params``/``adopt_ema``; ``save``/``load_variables``; and ``close``,
-with the JAX facade's argument names. Checkpoints are the JAX package's
-format (``engine/checkpoint.py``): one written by either package loads in
-the other, EMA average and observer counters included. Spatial
-partitioning belongs to a later part of the port: its argument is accepted
-and raises ``NotImplementedError`` when set.
+``ema_params``/``adopt_ema``; ``save``/``load_variables``; ``summary``
+(``utils/summary.py``); ``find_learning_rate`` (the LR range test, which
+leaves the model bit for bit as it found it); ``predict_and_save`` (a
+directory of images to overlay or id PNGs, the Cityscapes submission
+format); ``score_benchmark`` (predict a split, write labelId PNGs and run
+the offline scorer, ``evaluation/pixel_eval.py``); and ``close``, with the
+JAX facade's argument names. Checkpoints are the JAX package's format
+(``engine/checkpoint.py``): one written by either package loads in the
+other, EMA average and observer counters included. Spatial partitioning
+(its argument raises ``NotImplementedError`` when set) and
+``export_serving`` belong to a later part of the port.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
+import shutil
+import sys
+import threading
 import time
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from glob import glob
 
 import numpy as np
 import torch
+from PIL import Image
 
 from .. import bridge
 from ..kernels import resolve_device
@@ -40,6 +52,7 @@ from ..ops.metrics import empty_metrics_state, finalize_metrics
 from ..ops.quantize import collect_activation_absmax, quantize_fcn8s_params
 from ..parallel.steps import (
     Optimizer,
+    ScaleByAdamTF1State,
     TrainState,
     create_train_state,
     eval_step,
@@ -52,6 +65,7 @@ from .summaries import SummaryLogger
 
 _ALLOWED_METRICS = {"loss", "mean_iou", "accuracy"}
 _TILE_CHUNK = 8  # tiles per dispatch of a tiled predict
+_DECODE_AHEAD = 3  # predict_and_save: chunks decoded ahead of the dispatch
 
 
 def _not_ported(what: str):
@@ -62,6 +76,22 @@ def _map_tree(fn, tree: dict) -> dict:
     """``fn`` over every tensor of a port tree ({part: {layer: {key: t}}})."""
     return {part: {name: {k: fn(t) for k, t in layer.items()} for name, layer in layers.items()}
             for part, layers in tree.items()}
+
+
+def _opt_tensors(opt_state) -> list:
+    """The tensors of an ``OptimizerState``: Adam's moments, the momentum
+    traces, or none (sgd)."""
+    inner = opt_state.inner
+    if isinstance(inner, ScaleByAdamTF1State):
+        return inner.mu + inner.nu
+    return list(inner or [])
+
+
+def _opt_scalars(opt_state) -> tuple:
+    """(count, last learning rate, Adam's own count or None)."""
+    inner = opt_state.inner
+    adam_count = inner.count if isinstance(inner, ScaleByAdamTF1State) else None
+    return (opt_state.count, opt_state.learning_rate, adam_count)
 
 
 class FCN8s:
@@ -230,6 +260,7 @@ class FCN8s:
         self._qparams = None  # the int8 tree, built lazily by _quantized_params
         self._augment_fn = self._device_augment_cfg = None
         self._save_thread = None
+        self.predict_and_save_timings = None  # the last predict_and_save's time split
         for t in bridge.param_leaves(self.params):
             t.requires_grad_(True)
         self._refresh_run_params()
@@ -254,6 +285,15 @@ class FCN8s:
         with torch.no_grad():
             self._run_params = bridge.cast_params(self.params, self.compute_dtype)
         self._invalidate_quantized()
+
+    def summary(self, input_hw=(1024, 512), batch: int = 1) -> str:
+        """Per-layer report: kernel (HWIO, as the JAX package gives them) and
+        output shapes, params, forward MACs, activation bytes, with model
+        totals (``utils/summary.py``): analytic, from the param tree's
+        shapes, no device work. ``input_hw`` must be multiples of 32."""
+        from ..utils.summary import model_summary
+
+        return model_summary(self.params, input_hw, batch)
 
     # ------------------------------------------------------------------
     def _quantized_params(self) -> dict:
@@ -616,6 +656,254 @@ class FCN8s:
         return out[:, :h, :w]
 
     # ------------------------------------------------------------------
+    def predict_and_save(self, results_dir, images_dir, color_map=None, resize=False,
+                         image_file_extension="png", include_unprocessed_image=False,
+                         arrangement="vertical", overwrite_existing=True, batch_size=8,
+                         on_device_overlay=True, tile=None, tile_overlap=128, tile_blend=False,
+                         output_format="overlay", id_map=None, use_ema=False, quantized=False,
+                         verbose=True):
+        """Segment every ``*.<image_file_extension>`` image in ``images_dir``
+        and save one PNG per image, named as the image, into
+        ``results_dir`` (emptied first unless ``overwrite_existing`` is
+        False), with the JAX facade's arguments and checks.
+
+        Images are grouped by size (``resize=(h, w)`` resizes all of them,
+        ``viz.overlay.resize_linear_u8``, OpenCV's bilinear) and run in
+        chunks of ``batch_size``: chunks are decoded ahead on a thread pool,
+        two are in flight on the card (one chunk's D2H overlaps the next
+        one's dispatch), and PNGs are encoded on another pool.
+
+        ``output_format='overlay'`` (``color_map``, a class_id -> RGBA dict,
+        required) composites on the card (``on_device_overlay``), or with
+        ``on_device_overlay=False`` (and always with ``tile_blend``) on the
+        host (``viz.overlay.print_segmentation_onto_image``);
+        ``include_unprocessed_image`` puts the image beside the overlay
+        (``arrangement`` 'vertical' or else horizontal).
+        ``output_format='ids'`` writes the class ids, mapped through the 1-D
+        LUT ``id_map`` when given (``labels.TRAINIDS_TO_IDS_ARRAY``: the
+        Cityscapes submission's labelIds), as uint8 PNGs, or uint16 when an
+        id exceeds 255. ``tile``/``tile_overlap``/``tile_blend``,
+        ``use_ema`` and ``quantized`` are ``predict``'s.
+
+        ``verbose`` prints the banner and a progress line. The time split of
+        the last call is kept in ``predict_and_save_timings`` (seconds:
+        ``decode`` and ``encode`` summed over their pools' threads,
+        ``decode_wait`` and ``encode_wait`` the caller's waits for them,
+        ``dispatch`` padding, H2D and launch, ``d2h`` the copy back with
+        the wait for the card; a tiled chunk's whole predict counts as
+        dispatch)."""
+        from ..viz.overlay import (create_split_view, print_segmentation_onto_image,
+                                   resize_linear_u8)
+
+        t_start = time.perf_counter()
+        ema = self._resolve_ema(use_ema, False)
+        if quantized and use_ema:
+            raise ValueError("quantized and use_ema are mutually exclusive")
+        if overwrite_existing and os.path.exists(results_dir):
+            shutil.rmtree(results_dir)
+        os.makedirs(results_dir, exist_ok=True)
+
+        image_paths = sorted(glob(os.path.join(images_dir, "*." + image_file_extension)))
+        if verbose:
+            print(f'The segmented images will be saved to "{results_dir}"')
+
+        # group by output size (PIL reads the size from the header)
+        groups: dict = {}
+        if resize:
+            groups[tuple(resize)] = list(image_paths)
+        else:
+            for p in image_paths:
+                with Image.open(p) as im:
+                    w, h = im.size
+                groups.setdefault((h, w), []).append(p)
+
+        if tile_blend and tile is None:
+            raise ValueError("tile_blend requires tile=(th, tw)")
+        if output_format not in ("overlay", "ids"):
+            raise ValueError(f"output_format must be 'overlay' or 'ids', got {output_format!r}")
+        if output_format == "ids":
+            if include_unprocessed_image:
+                raise ValueError(
+                    "include_unprocessed_image is incompatible with output_format='ids'")
+            lut = None
+        else:
+            if color_map is None:
+                raise ValueError("color_map is required for output_format='overlay'")
+            lut = (self._overlay_lut(color_map)
+                   if on_device_overlay and not (tile is not None and tile_blend) else None)
+        id_lut = np.asarray(id_map) if id_map is not None else None
+        max_id = int(id_lut.max()) if id_lut is not None else self.num_classes - 1
+        id_dtype = np.uint8 if max_id <= 255 else np.uint16
+        timings = dict.fromkeys(("decode", "decode_wait", "dispatch", "d2h", "encode",
+                                 "encode_wait"), 0.0)
+        pool_lock = threading.Lock()
+
+        def timed(key, fn, *args):
+            """``fn(*args)`` on a pool thread, its seconds added to ``key``."""
+            t0 = time.perf_counter()
+            out = fn(*args)
+            with pool_lock:
+                timings[key] += time.perf_counter() - t0
+            return out
+
+        def write_png(path, out, image):
+            if output_format == "ids":
+                ids = id_lut[out] if id_lut is not None else out
+                Image.fromarray(np.ascontiguousarray(ids.astype(id_dtype))).save(
+                    os.path.join(results_dir, os.path.basename(path)))
+                return
+            overlaid = out if lut is not None else print_segmentation_onto_image(
+                image, out.astype(np.int32), color_map)
+            if include_unprocessed_image:
+                h, w = overlaid.shape[:2]
+                if arrangement == "vertical":
+                    overlaid = create_split_view((2 * h, w), [overlaid, image],
+                                                 [(0, 0), (h, 0)], [(h, w)] * 2)
+                else:
+                    overlaid = create_split_view((h, 2 * w), [overlaid, image],
+                                                 [(0, 0), (0, w)], [(h, w)] * 2)
+            Image.fromarray(overlaid).save(os.path.join(results_dir, os.path.basename(path)))
+
+        def load_chunk(chunk, gh, gw):
+            imgs = []
+            for p in chunk:
+                image = np.asarray(Image.open(p).convert("RGB"))
+                if resize:
+                    image = resize_linear_u8(image, (gh, gw))
+                imgs.append(image)
+            return np.stack(imgs)
+
+        chunks = [(grp[start:start + batch_size], gh, gw)
+                  for (gh, gw), grp in groups.items()
+                  for start in range(0, len(grp), batch_size)]
+        reader = ThreadPoolExecutor(max_workers=4)
+        writer = ThreadPoolExecutor(max_workers=4)
+        write_futures = []
+        done = 0
+
+        def flush(pending):
+            nonlocal done
+            chunk_paths, out, images_host = pending.popleft()
+            t0 = time.perf_counter()
+            if isinstance(out, torch.Tensor):
+                h, w = images_host.shape[1:3]
+                out = out.cpu().numpy()[:, :h, :w]  # D2H: waits for the card
+            timings["d2h"] += time.perf_counter() - t0
+            for j, path in enumerate(chunk_paths):
+                write_futures.append(writer.submit(timed, "encode", write_png, path, out[j],
+                                                   images_host[j]))
+            done += len(chunk_paths)
+            if verbose:
+                print(f"\rProcessing images: {done}/{len(image_paths)}", end="", flush=True)
+
+        decode_futs = deque((c, reader.submit(timed, "decode", load_chunk, c, gh, gw))
+                            for c, gh, gw in chunks[:_DECODE_AHEAD])
+        next_decode = _DECODE_AHEAD
+        pending = deque()
+        try:
+            with torch.inference_mode():
+                while decode_futs:
+                    chunk, fut = decode_futs.popleft()
+                    t0 = time.perf_counter()
+                    images_host = fut.result()
+                    t1 = time.perf_counter()
+                    if next_decode < len(chunks):
+                        c, gh, gw = chunks[next_decode]
+                        decode_futs.append((c, reader.submit(timed, "decode", load_chunk, c,
+                                                             gh, gw)))
+                        next_decode += 1
+                    if tile is not None:  # synchronous per chunk: predict(tile=...)
+                        out = self._predict_tiled(images_host, True, lut, quantized, tile,
+                                                  tile_overlap, params=ema, blend=tile_blend)
+                    else:
+                        padded, _ = self._prepare_images(images_host)
+                        out = self._dispatch_predict(padded, argmax=True, overlay_lut=lut,
+                                                     quantized=quantized, params=ema)
+                    timings["decode_wait"] += t1 - t0
+                    timings["dispatch"] += time.perf_counter() - t1
+                    pending.append((chunk, out, images_host))
+                    if len(pending) >= 2:  # keep one chunk in flight
+                        flush(pending)
+                while pending:
+                    flush(pending)
+            t0 = time.perf_counter()
+            for f in write_futures:
+                f.result()
+            timings["encode_wait"] = time.perf_counter() - t0
+        finally:
+            reader.shutdown(wait=True)
+            writer.shutdown(wait=True)
+        if verbose:
+            print()
+        self.predict_and_save_timings = {"images": len(image_paths),
+                                         "seconds": time.perf_counter() - t_start, **timings}
+
+    def score_benchmark(self, dataset_dir, results_dir, *, split="val", id_map=None,
+                        batch_size=8, use_ema=False, quantized=False, tile=None,
+                        tile_overlap=128, tile_blend=False, instance_level=True, quiet=True,
+                        export_file=None):
+        """One-call Cityscapes-benchmark scoring, as the JAX facade's: predict
+        every ``split`` image under ``dataset_dir``, write the labelId PNGs
+        into ``results_dir`` (``predict_and_save(output_format='ids')`` per
+        city) and run the offline pixel-level scorer
+        (``evaluation.pixel_eval.evaluate_img_lists``).
+
+        ``dataset_dir`` has the standard layout
+        (``leftImg8bit/<split>/<city>/*_leftImg8bit.png`` and
+        ``gtFine/<split>/<city>/*_gtFine_labelIds.png``, instanceIds too
+        unless ``instance_level=False``); the image root and the ground
+        truth are checked before any inference. ``id_map`` maps predicted
+        ids to labelIds: ``labels.TRAINIDS_TO_IDS_ARRAY`` by default for the
+        20-class trainId scheme, required otherwise. The scorer's arguments
+        are built here, so a stale ``CITYSCAPES_EXPORT_DIR`` is ignored;
+        ``quiet`` (default) keeps stdout silent. The prediction arguments
+        pass through. Returns the scorer's result dict, also written as JSON
+        to ``export_file`` (default: inside ``results_dir``)."""
+        from ..evaluation import pixel_eval
+
+        img_root = os.path.join(dataset_dir, "leftImg8bit", split)
+        if not os.path.isdir(img_root):
+            raise ValueError(f"no such image root: {img_root}")
+        if id_map is None:
+            from ..labels import NUM_TRAIN_CLASSES, TRAINIDS_TO_IDS_ARRAY
+
+            if self.num_classes != NUM_TRAIN_CLASSES:
+                raise ValueError(
+                    "id_map is required when the model's class space is not "
+                    "the modified 20-class Cityscapes trainId scheme")
+            id_map = TRAINIDS_TO_IDS_ARRAY
+
+        # built directly, not by default_args(), which reads the CITYSCAPES_*
+        # environment: every field it would set is set here
+        args = pixel_eval.EvalArgs()
+        args.cityscapes_path = dataset_dir
+        args.ground_truth_search = os.path.join(
+            dataset_dir, "gtFine", split, "*", "*_gtFine_labelIds.png")
+        args.prediction_path = results_dir
+        args.eval_inst_level_score = instance_level
+        args.quiet = quiet
+        args.colorized = hasattr(sys.stderr, "isatty") and sys.stderr.isatty()
+        args.export_file = export_file or os.path.join(
+            results_dir, "resultPixelLevelSemanticLabeling.json")
+        ground_truths = sorted(glob(args.ground_truth_search))
+        if not ground_truths:
+            raise ValueError(f"no ground truth found under {args.ground_truth_search}")
+
+        os.makedirs(results_dir, exist_ok=True)
+        for city in sorted(os.listdir(img_root)):
+            city_dir = os.path.join(img_root, city)
+            if not os.path.isdir(city_dir):
+                continue
+            self.predict_and_save(
+                results_dir, city_dir, output_format="ids", id_map=id_map,
+                batch_size=batch_size, overwrite_existing=False, use_ema=use_ema,
+                quantized=quantized, tile=tile, tile_overlap=tile_overlap,
+                tile_blend=tile_blend, verbose=not quiet)
+
+        predictions = [pixel_eval.get_prediction(args, gt) for gt in ground_truths]
+        return pixel_eval.evaluate_img_lists(predictions, ground_truths, args)
+
+    # ------------------------------------------------------------------
     def train(self, train_generator, epochs, steps_per_epoch, learning_rate_schedule,
               keep_prob=0.5, l2_regularization=0.0, eval_dataset="train", eval_frequency=5,
               val_generator=None, val_steps=None, metrics={}, save_during_training=False,
@@ -909,6 +1197,106 @@ class FCN8s:
             self._close_train_stream()
             self._refresh_run_params()
         self._join_pending_save()  # don't return with a checkpoint mid-write
+
+    def find_learning_rate(self, train_generator, *, min_lr=1e-7, max_lr=1.0, steps=50,
+                           keep_prob=1.0, l2_regularization=0.0, smoothing=0.9,
+                           divergence_factor=4.0):
+        """LR range test (Smith 2015, arXiv:1506.01186 §3.3), as the JAX
+        facade's: the learning rate sweeps exponentially from ``min_lr`` to
+        ``max_lr`` over ``steps`` real optimizer steps (``train_step`` with
+        the settings of the last ``train``: gradient accumulation, class
+        weights, device augmentation), the loss read back after each; the
+        sweep stops once the loss is not finite or, from step 10, the
+        debiased smoothed loss passes ``divergence_factor`` x its best.
+
+        The model is left exactly as found. The optimizer updates the params
+        and its state in place, so the params, the optimizer state and the
+        step are cloned before the sweep and copied back into the same
+        tensors after it (in a ``finally``: a sweep that ends on a NaN
+        leaves no trace either), and the inference trees are rebuilt. A
+        model that never trained has no optimizer state on the card: the
+        sweep allocates one (a copy of a checkpoint's staged state, where
+        there is one) and drops it again. ``variables_updated``, the EMA and
+        the observers' counters are untouched.
+
+        Returns ``{"learning_rates", "losses", "smoothed", "suggestion"}``:
+        ``suggestion`` is the LR at the steepest descent of the smoothed
+        curve (``min_lr`` when nothing descended)."""
+        if not (0.0 < min_lr < max_lr):
+            raise ValueError(f"need 0 < min_lr < max_lr, got {min_lr}, {max_lr}")
+        if steps < 2:
+            raise ValueError(f"steps must be >= 2, got {steps}")
+        was_dirty = self.variables_updated
+        state = self.state
+        leaves = bridge.param_leaves(self.params)
+        saved_step = state.step
+        with torch.no_grad():
+            saved_params = [t.detach().clone() for t in leaves]
+        transient = state.opt_state is None
+        if transient:
+            state.opt_state = (self._staged_opt_state.to(self.device, copy=True)
+                               if self._staged_opt_state is not None
+                               else self.optimizer.init(self.params))
+            saved_opt = None
+        else:
+            saved_opt = (_opt_scalars(state.opt_state),
+                         [t.clone() for t in _opt_tensors(state.opt_state)])
+        stream = self._make_train_stream(train_generator, prefetch=0)
+        lrs, losses, smoothed = [], [], []
+        avg, best = 0.0, math.inf
+        try:
+            for i in range(steps):
+                lr = min_lr * (max_lr / min_lr) ** (i / (steps - 1))
+                im_d, lb_d, mask_d = next(stream)
+                _, loss = train_step(
+                    state, im_d, lb_d, mask_d, self._train_seed, lr, l2_regularization,
+                    keep_prob, optimizer=self.optimizer, num_classes=self.num_classes,
+                    compute_dtype=self.compute_dtype, remat=self.remat,
+                    grad_accum=self._grad_accum, ignore_label=self.ignore_label,
+                    class_weights=self._class_weights, augment_fn=self._augment_fn)
+                loss = float(loss)
+                lrs.append(lr)
+                losses.append(loss)
+                avg = smoothing * avg + (1.0 - smoothing) * loss
+                debiased = avg / (1.0 - smoothing ** (i + 1))
+                smoothed.append(debiased)
+                if math.isfinite(debiased):
+                    best = min(best, debiased)
+                if not math.isfinite(loss) or (i >= 10 and debiased > divergence_factor * best):
+                    break
+        finally:
+            self._close_train_stream()
+            with torch.no_grad():
+                torch._foreach_copy_(leaves, saved_params)
+            del saved_params
+            state.step = saved_step
+            if transient:
+                state.opt_state = None
+            else:
+                (count, lr_last, inner_count), tensors = saved_opt
+                state.opt_state.count, state.opt_state.learning_rate = count, lr_last
+                if inner_count is not None:
+                    state.opt_state.inner.count = inner_count
+                if tensors:  # sgd keeps none
+                    with torch.no_grad():
+                        torch._foreach_copy_(_opt_tensors(state.opt_state), tensors)
+            del saved_opt
+            self.variables_updated = was_dirty
+            self._refresh_run_params()
+        # steepest descent of the smoothed curve over log-spaced LRs (equal
+        # log spacing: the index of the most negative finite difference)
+        diffs = [b - a for a, b in zip(smoothed, smoothed[1:])
+                 if math.isfinite(a) and math.isfinite(b)]
+        if diffs and min(diffs) < 0:
+            idx = min(range(len(smoothed) - 1),
+                      key=lambda j: (smoothed[j + 1] - smoothed[j]
+                                     if math.isfinite(smoothed[j + 1] - smoothed[j])
+                                     else math.inf))
+            suggestion = lrs[idx]
+        else:
+            suggestion = min_lr  # nothing descended: the sweep range is too hot
+        return {"learning_rates": lrs, "losses": losses, "smoothed": smoothed,
+                "suggestion": float(suggestion)}
 
     def _make_train_stream(self, train_generator, prefetch: int):
         """Iterator of device (images, label_ids, mask) triples. The host

@@ -57,10 +57,11 @@ class OptimizerState:
     learning_rate: float
     inner: Any
 
-    def to(self, device) -> "OptimizerState":
-        """A copy with every tensor on ``device``."""
+    def to(self, device, copy: bool = False) -> "OptimizerState":
+        """A copy with every tensor on ``device``; a tensor already there is
+        shared unless ``copy``."""
         def move(ts):
-            return [t.to(device) for t in ts]
+            return [t.to(device, copy=copy) for t in ts]
 
         inner = self.inner
         if isinstance(inner, ScaleByAdamTF1State):

@@ -658,3 +658,158 @@ def test_tta_and_tiled_predict_on_the_card_equal_the_cpu(dev, no_tf32, monkeypat
                             lambda xq, qlayer: Q.conv2d_int8_reference(xq, qlayer["kernel_q"]))
         for name, call in calls.items():
             np.testing.assert_array_equal(routed[name], call(card, argmax=False), err_msg=name)
+
+
+def _narrow_pair(dev, num_classes=20, seed=8):
+    """A narrow fp32 model on the card and on the CPU from the same weights,
+    the decoder redrawn at unit fan-in scale (margins for the ids)."""
+    import numpy as np
+
+    from fcn8s_tensorflow_tpu_torch import bridge
+    from fcn8s_tensorflow_tpu_torch.engine.model import FCN8s
+
+    kw = dict(width_mult=1 / 32, fc_channels=32, compute_dtype=torch.float32)
+    rng = np.random.default_rng(seed)
+    tree = bridge.to_numpy(FCN8s(num_classes=num_classes, seed=seed, device="cpu", **kw).params)
+    for layer in tree["decoder"].values():
+        k = layer["kernel"]
+        layer["kernel"] = (rng.normal(size=k.shape) / np.sqrt(np.prod(k.shape[:-1]))).astype(
+            np.float32)
+        layer["bias"] = rng.normal(size=layer["bias"].shape).astype(np.float32) * 0.1
+    return FCN8s.from_params(tree, device="cpu", **kw), FCN8s.from_params(tree, device=dev, **kw)
+
+
+def _margins(model, paths, threshold=1e-3):
+    """Per file: the CPU softmax's top-2 margin > ``threshold``."""
+    import numpy as np
+    from PIL import Image
+
+    out = {}
+    for p in paths:
+        probs = model.predict(np.asarray(Image.open(p).convert("RGB"))[None], argmax=False)[0]
+        top2 = np.sort(probs, axis=-1)[..., -2:]
+        out[p.name] = (top2[..., 1] - top2[..., 0]) > threshold
+    return out
+
+
+def test_predict_and_save_on_the_card_equals_the_cpu(dev, no_tf32, tmp_path):
+    """The same files from the card and the CPU (TF32 off): ids and the host
+    overlay equal where the CPU's top-2 margin exceeds 1e-3 and on >= 99.9%
+    of pixels, the on-card overlay within 1 LSB there; a tiled directory too."""
+    import numpy as np
+    from PIL import Image
+
+    from fcn8s_tensorflow_tpu_torch.labels import TRAINIDS_TO_IDS_ARRAY, TRAINIDS_TO_RGBA_DICT
+
+    cpu, card = _narrow_pair(dev)
+    rng = np.random.default_rng(4)
+    src = tmp_path / "images"
+    src.mkdir()
+    for i, (h, w) in enumerate([(64, 128), (64, 128), (96, 64)]):
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(src / f"i{i}.png")
+    clear = _margins(cpu, sorted(src.glob("*.png")))
+    clear_tiled = {}
+    for p in sorted(src.glob("*.png")):
+        probs = cpu.predict(np.asarray(Image.open(p))[None], argmax=False, tile=(64, 64),
+                            tile_overlap=32)[0]
+        top2 = np.sort(probs, axis=-1)[..., -2:]
+        clear_tiled[p.name] = (top2[..., 1] - top2[..., 0]) > 1e-3
+    cases = {"ids": dict(output_format="ids", id_map=TRAINIDS_TO_IDS_ARRAY),
+             "device_overlay": dict(color_map=TRAINIDS_TO_RGBA_DICT),
+             "host_overlay": dict(color_map=TRAINIDS_TO_RGBA_DICT, on_device_overlay=False),
+             "tiled": dict(output_format="ids", tile=(64, 64), tile_overlap=32)}
+    for name, kw in cases.items():
+        files = []
+        for m, tag in ((cpu, "cpu"), (card, "card")):
+            out = tmp_path / f"{name}_{tag}"
+            m.predict_and_save(str(out), str(src), batch_size=2, verbose=False, **kw)
+            files.append({p.name: np.asarray(Image.open(p)) for p in sorted(out.glob("*.png"))})
+        want, got = files
+        assert sorted(got) == sorted(want) == ["i0.png", "i1.png", "i2.png"], name
+        agree = []
+        for f in want:
+            c = (clear_tiled if name == "tiled" else clear)[f]
+            if name == "device_overlay":
+                assert np.abs(got[f][c].astype(int) - want[f][c]).max() <= 1, (name, f)
+            else:
+                np.testing.assert_array_equal(got[f][c], want[f][c], err_msg=f"{name} {f}")
+            agree.append((got[f] == want[f]).reshape(c.shape[0], c.shape[1], -1).all(-1).ravel())
+        assert np.concatenate(agree).mean() >= 0.999, name
+
+
+def test_score_benchmark_on_the_card_equals_the_cpu(dev, no_tf32, tmp_path):
+    """One split scored from the card and from the CPU: the labelId matrices
+    differ by at most 2 counts per pixel whose CPU margin is below 1e-3."""
+    import numpy as np
+    from PIL import Image
+
+    cpu, card = _narrow_pair(dev)
+    rng = np.random.default_rng(5)
+    ds = tmp_path / "ds"
+    img_dir, gt_dir = ds / "leftImg8bit" / "val" / "c", ds / "gtFine" / "val" / "c"
+    img_dir.mkdir(parents=True)
+    gt_dir.mkdir(parents=True)
+    for n in range(3):
+        gt = rng.choice([0, 7, 11, 24, 26], size=(64, 128)).astype(np.uint8)
+        Image.fromarray(rng.integers(0, 256, (64, 128, 3), dtype=np.uint8)).save(
+            img_dir / f"c_{n:06d}_000019_leftImg8bit.png")
+        Image.fromarray(gt).save(gt_dir / f"c_{n:06d}_000019_gtFine_labelIds.png")
+        inst = gt.astype(np.uint16)
+        inst[10:30, 20:60] = 26001
+        Image.fromarray(inst).save(gt_dir / f"c_{n:06d}_000019_gtFine_instanceIds.png")
+    want = cpu.score_benchmark(str(ds), str(tmp_path / "cpu"))
+    got = card.score_benchmark(str(ds), str(tmp_path / "card"))
+    unclear = sum(int((~c).sum()) for c in _margins(cpu, sorted(img_dir.glob("*.png"))).values())
+    diff = np.abs(np.asarray(got["confMatrix"], np.int64) - np.asarray(want["confMatrix"]))
+    assert np.asarray(got["confMatrix"]).sum() == 3 * 64 * 128
+    assert diff.sum() <= 2 * unclear
+
+
+@pytest.mark.parametrize("optimizer", ["adam", "momentum"])
+def test_find_learning_rate_on_the_card_restores_bit_for_bit(dev, optimizer):
+    """On the card, fresh and after two train steps: params, the optimizer's
+    tensors and counters and the step bit-equal after the sweep,
+    ``opt_state`` None again on the fresh model, device memory back within
+    1 MB, predict unchanged; the sweep launched the train kernels."""
+    import numpy as np
+
+    from fcn8s_tensorflow_tpu_torch import bridge
+    from fcn8s_tensorflow_tpu_torch.engine.model import FCN8s, _opt_scalars, _opt_tensors
+
+    model = FCN8s(num_classes=20, width_mult=1 / 16, fc_channels=64, device=dev, seed=1,
+                  optimizer=optimizer)
+    rng = np.random.default_rng(6)
+    images = rng.integers(0, 256, (2, 128, 128, 3), dtype=np.uint8)
+    labels = rng.integers(0, 20, (2, 128, 128), dtype=np.uint8)
+
+    def gen():
+        while True:
+            yield images, labels
+
+    for trained in (False, True):
+        if trained:
+            model.train(gen(), epochs=1, steps_per_epoch=2, learning_rate_schedule=lambda s: 1e-3,
+                        keep_prob=0.5, record_summaries=False)
+        opt = model.state.opt_state
+        assert (opt is None) != trained
+        params = [t.detach().clone() for t in bridge.param_leaves(model.params)]
+        moments = None if opt is None else ([t.clone() for t in _opt_tensors(opt)],
+                                            _opt_scalars(opt))
+        step, ids = model.state.step, model.predict(images)
+        torch.cuda.synchronize()
+        mem = torch.cuda.memory_allocated(dev)
+        k4a, grad = P.maxpool2x2_code_nhwc.launches, K.ce_grad.launches
+        result = model.find_learning_rate(gen(), steps=12, min_lr=1e-6, max_lr=10.0)
+        assert P.maxpool2x2_code_nhwc.launches > k4a and K.ce_grad.launches > grad
+        assert len(result["losses"]) >= 2
+        torch.cuda.synchronize()
+        assert abs(torch.cuda.memory_allocated(dev) - mem) <= 2**20
+        assert model.state.step == step
+        assert all(torch.equal(a, b) for a, b in zip(bridge.param_leaves(model.params), params))
+        if moments is None:
+            assert model.state.opt_state is None
+        else:
+            assert _opt_scalars(model.state.opt_state) == moments[1]
+            assert all(torch.equal(a, b)
+                       for a, b in zip(_opt_tensors(model.state.opt_state), moments[0]))
+        np.testing.assert_array_equal(model.predict(images), ids)
