@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, eval, training, KB calibration,
-checkpoint, training-feature, int8/TTA/tiled predict and offline-benchmark
-paths once on one CUDA card.
+checkpoint, training-feature, int8/TTA/tiled predict, offline-benchmark,
+host data pipeline and serving-artifact paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -79,8 +79,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     (batch 8 x 1024x512, 20 steps from 1e-7 to 1.0, keep_prob 1) on the
     fresh model and after two ``train`` steps: params, Adam's moments,
     counters and step bit-equal after it, ``opt_state`` None again on the
-    fresh model, device memory back within 1 MB, ``predict`` unchanged; ms
-    per sweep step beside the plain train step; (c) ``predict_and_save`` of
+    fresh model, device memory (the bytes the live tensors requested) back
+    within 1 MB, ``predict`` unchanged; ms per sweep step beside the plain
+    train step; (c) ``predict_and_save`` of
     24 512x1024 PNGs (batch 8) with the on-card overlay, the host compositor
     beside the image, and labelIds, plus two 1024x2048 frames in (512, 512)
     tiles: the PNGs equal ``id_map[predict]`` on >= 99.9% of pixels, the
@@ -90,14 +91,32 @@ Phases, in order; any failure raises and the script exits non-zero:
     evaluated class, void, car and person instances): the matrix sums to
     every pixel, and collapsed to trainIds equals K5's on the card cell for
     cell, IoUs within 1e-6; the predict and scoring seconds and the native
-    (host C++) confusion matrix's ms per frame.
+    (host C++) confusion matrix's ms per frame;
+19. the host data pipeline and the serving artifact: (a) a synthetic
+    Cityscapes tree made from a seed (16 train + 8 val piecewise-smooth
+    2048x1024 frames with labelIds 0-33; mean PNG sizes printed) and a KITTI
+    tree (8 frames of 1242x375); (b) images/s of the host pipeline alone
+    (``examples/train_cityscapes.py``'s settings, resize to 512x1024, flip,
+    brightness, translate, scale): ``BatchGenerator`` at workers 1 and
+    min(8, cores), ``PackedDataset`` on the same tree packed at that size,
+    the KITTI generator at its example's 320x1152; (c) ``BatchGenerator``
+    and ``PackedDataset`` yield byte-identical batches for one seed; (d)
+    ``FCN8s.train`` at full width, batch 8, fed from disk by each (prefetch
+    on) with a val generator each epoch, then ms per step and the device
+    busy share against the same model fed in-memory batches, and 2 steps of
+    a 2-class model fed by the KITTI generator; (e) ``export_serving`` of
+    phase 10's weights at input_hw=(1024, 512), argmax and softmax, loaded
+    on the card: 5 K4f launches per artifact forward, ids and softmax
+    against ``model.predict`` at batch 8 and 1, export, load and predict
+    times, bytes on disk.
 
 Kernel launch counts are zeroed just before each path is driven and read
 just after it: serving + evaluation (phases 5-6), training (phase 10), the
 weighted training (phase 12), the conv1 calibration's timed runs (phase
 14), the training features (phase 16: the train run, then the use_ema
 inference), the rest of predict (phase 17: each of b-e) and the rest of the
-facade (phase 18: each of b-d); every kernel of a path must have launched. A ``{"library_routes": [...]}`` line gives the
+facade (phase 18: each of b-d) and phase 19 (each data-fed train run of
+(d), each artifact's forward in (e)); every kernel of a path must have launched. A ``{"library_routes": [...]}`` line gives the
 int8 conv route per layer (ms, its bound over 1,979 TOP/s int8 or the
 bytes, share). The line before the last is ``{"kernels": [...]}``:
 ``launches`` from the path named in ``path``; ``ms``,
@@ -109,7 +128,8 @@ of 20 calls, which leaves the host's launch work out (K5's row adds
 bytes the kernel must move over 3.35 TB/s and its operations over 989
 TFLOP/s bf16 (``bound_by`` says which; ``bytes`` and ``flops`` are the
 counts; ``launches_train_features`` is the kernel's count in phase 16,
-``launches_predict_rest`` in phase 17, ``launches_facade_rest`` in phase 18).
+``launches_predict_rest`` in phase 17, ``launches_facade_rest`` in phase 18,
+``launches_data_export`` in phase 19 (d) and (e)).
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -136,8 +156,11 @@ import torch.nn.functional as F
 from PIL import Image
 
 from fcn8s_tensorflow_tpu_torch import bridge
+from fcn8s_tensorflow_tpu_torch.data import BatchGenerator, PackedDataset, pack_dataset
+from fcn8s_tensorflow_tpu_torch.data.kitti import batch_generator as kitti_generator
 from fcn8s_tensorflow_tpu_torch.engine import model as M
 from fcn8s_tensorflow_tpu_torch.engine import serving
+from fcn8s_tensorflow_tpu_torch.engine.export import load_serving_artifact
 from fcn8s_tensorflow_tpu_torch.engine.model import FCN8s
 from fcn8s_tensorflow_tpu_torch.engine.serving import InferenceService, make_server
 from fcn8s_tensorflow_tpu_torch.engine.summaries import (DEFAULT_INSTRUMENTED, SummaryLogger,
@@ -1013,7 +1036,8 @@ def _assert_same_state(a: FCN8s, b_params: dict, b_step: int, b_opt, what: str) 
 
 
 def _dir_bytes(path: str) -> int:
-    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path)
+               for f in files)
 
 
 def phase_persistence(dev, model: FCN8s, smi: str) -> None:
@@ -1730,15 +1754,21 @@ def phase_summary(model: FCN8s, dev) -> None:
           f"{len(rows)} layers, {totals} = the JAX package's; " + text.splitlines()[-1])
 
 
-def _allocated(dev) -> tuple[int, int]:
-    """Bytes and number of live allocations on the card, after collecting
-    tensors of earlier phases held in reference cycles and dropping the
-    cuBLAS workspaces PyTorch keeps per handle and stream."""
+def _allocated(dev) -> tuple[int, int, int]:
+    """Bytes requested by the live allocations on the card, their number,
+    and the bytes of the allocator's blocks that hold them, after
+    collecting tensors of earlier phases held in reference cycles and
+    dropping the cuBLAS workspaces PyTorch keeps per handle and stream. The
+    requested bytes are the tensors' own; the block bytes also count the
+    up-to-1-MB tail the allocator leaves unsplit in a large block, which
+    moves when a tensor is made again elsewhere (the sweep rebuilds the
+    compute-dtype params), so they are printed but not held to a bound."""
     gc.collect()
     torch.cuda.synchronize()
     torch._C._cuda_clearCublasWorkspaces()
     stats = torch.cuda.memory_stats(dev)
-    return stats["allocated_bytes.all.current"], stats["allocation.all.current"]
+    return (stats["requested_bytes.all.current"], stats["allocation.all.current"],
+            stats["allocated_bytes.all.current"])
 
 
 def phase_lr_sweep(model: FCN8s, dev, smi: str) -> tuple[dict, dict]:
@@ -1766,17 +1796,18 @@ def phase_lr_sweep(model: FCN8s, dev, smi: str) -> tuple[dict, dict]:
         # a short sweep first: what the libraries under the step keep once
         # made (handles, workspaces) is then made before the reading
         model.find_learning_rate(stream(), **{**SWEEP, "steps": 2})
-        mem, allocs = _allocated(dev)
+        mem, allocs, blocks = _allocated(dev)
         zero_counts()
         t0 = time.perf_counter()
         result = model.find_learning_rate(stream(), **SWEEP)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = read_counts()
-        mem_after, allocs_after = _allocated(dev)
+        mem_after, allocs_after, blocks_after = _allocated(dev)
         drift = mem_after - mem
         check(abs(drift) <= 2**20, f"{when}: device memory moved by {drift} bytes "
-                                   f"({allocs_after - allocs} allocations) over the sweep")
+                                   f"({allocs_after - allocs} allocations, blocks "
+                                   f"{blocks_after - blocks} bytes) over the sweep")
         _check_restored(model, snap, f"sweep ({when})")
         check(np.array_equal(model.predict(probe), ids), f"{when}: predict differs after the sweep")
         for name in ("maxpool2x2_code_nhwc", "maxpool2x2_bwd_nhwc", "ce_sum_per_sample", "ce_grad"):
@@ -1785,7 +1816,8 @@ def phase_lr_sweep(model: FCN8s, dev, smi: str) -> tuple[dict, dict]:
         out[when] = {"steps": steps, "ms_per_step": seconds * 1e3 / steps,
                      "first_loss": result["losses"][0], "last_loss": result["losses"][-1],
                      "suggestion": result["suggestion"], "memory_drift_bytes": drift,
-                     "allocation_drift": allocs_after - allocs}
+                     "allocation_drift": allocs_after - allocs,
+                     "block_bytes_drift": blocks_after - blocks}
         total = {k: total[k] + counts[k] for k in total}
         del snap
     im, lb = torch.from_numpy(images).to(dev), torch.from_numpy(labels).to(dev)
@@ -2036,6 +2068,313 @@ def phase_facade_rest(dev, smi: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the host data pipeline and the torch.export artifact
+# ---------------------------------------------------------------------------
+
+DATA_SEED = 19
+DATA_FRAME = (1024, 2048)  # a Cityscapes frame
+DATA_RESIZE = (512, 1024)  # its aspect at the flagship step's 524,288 pixels
+DATA_TRAIN, DATA_VAL = 16, 8
+HOST_SETTINGS = dict(convert_ids_to_ids=IDS_TO_TRAINIDS_ARRAY, void_class_id=0,
+                     convert_to_one_hot=False)  # examples/train_cityscapes.py's
+HOST_AUG = dict(flip=0.5, brightness=(0.8, 1.2, 0.5), translate=((0, 16), (0, 8), 0.5),
+                scale=(0.8, 1.2, 0.5))
+KITTI_FRAME, KITTI_RESIZE = (375, 1242), (320, 1152)  # examples/train_kitti.py's resize
+KITTI_FRAMES = 8
+RATE_BATCHES = 4
+DATA_KERNELS = ("maxpool2x2_code_nhwc", "maxpool2x2_bwd_nhwc", "ce_sum_per_sample", "ce_grad",
+                "maxpool2x2_nhwc", "confusion_matrix_accumulate")
+
+
+def _scene(rng, h: int, w: int) -> tuple[np.ndarray, np.ndarray]:
+    """A piecewise-smooth frame and its labelIds: 64x64-pixel regions of
+    34 classes, each class a colour, a vertical gradient and +-3 noise on
+    top, so that PNG sizes and decode times look like a photograph's."""
+    ids = np.repeat(np.repeat(rng.integers(0, 34, (h // 64, w // 64)), 64, 0), 64, 1)
+    colour = rng.integers(40, 216, (34, 3)).astype(np.int16)
+    ramp = np.linspace(-30, 30, h).astype(np.int16)[:, None, None]
+    image = colour[ids] + ramp + rng.integers(-3, 4, (h, w, 3), dtype=np.int16)
+    return np.clip(image, 0, 255).astype(np.uint8), ids.astype(np.uint8)
+
+
+def _write_pngs(jobs) -> list[int]:
+    """Encode (path, array) pairs on 8 threads; returns the file sizes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def write(job):
+        path, array = job
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray(array).save(path)
+        return os.path.getsize(path)
+
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(write, jobs))
+
+
+def _cityscapes_tree(root: str, rng) -> dict:
+    """leftImg8bit/{train,val}/<city>/*_leftImg8bit.png and gtFine/.../
+    *_gtFine_labelIds.png at 2048x1024: 16 train frames in two cities, 8
+    val frames in a third. Returns the paths and the mean PNG sizes."""
+    jobs, sizes = [], {"image": [], "gt": []}
+    for split, cities, n in (("train", ("aachen", "bremen"), DATA_TRAIN // 2),
+                             ("val", ("frankfurt",), DATA_VAL)):
+        for city in cities:
+            for i in range(n):
+                stem = f"{city}_{i:06d}_000019"
+                image, ids = _scene(rng, *DATA_FRAME)
+                jobs += [(os.path.join(root, "leftImg8bit", split, city,
+                                       f"{stem}_leftImg8bit.png"), image),
+                         (os.path.join(root, "gtFine", split, city,
+                                       f"{stem}_gtFine_labelIds.png"), ids)]
+    written = _write_pngs(jobs)
+    return {"root": root, "image_png": statistics.mean(written[0::2]),
+            "gt_png": statistics.mean(written[1::2])}
+
+
+def _kitti_tree(root: str, rng) -> tuple[str, str]:
+    """image_2/um_*.png (375x1242) and gt_image_2/um_road_*.png: background
+    (255, 0, 0), road (255, 0, 255) below a random horizon."""
+    jobs = []
+    h, w = KITTI_FRAME
+    for i in range(KITTI_FRAMES):
+        image, _ = _scene(rng, 384, 1280)
+        gt = np.zeros((h, w, 3), np.uint8)
+        gt[..., 0] = 255
+        gt[int(rng.integers(180, 260)):, :, 2] = 255
+        jobs += [(os.path.join(root, "image_2", f"um_{i:06d}.png"), image[:h, :w].copy()),
+                 (os.path.join(root, "gt_image_2", f"um_road_{i:06d}.png"), gt)]
+    _write_pngs(jobs)
+    return os.path.join(root, "image_2"), os.path.join(root, "gt_image_2")
+
+
+def _generators(root: str):
+    def make(split):
+        return BatchGenerator(image_dirs=[os.path.join(root, "leftImg8bit", split)],
+                              ground_truth_dirs=[os.path.join(root, "gtFine", split)],
+                              image_name_split_separator="leftImg8bit",
+                              ground_truth_suffix="gtFine_labelIds", num_classes=C)
+
+    return make("train"), make("val")
+
+
+def _images_per_s(it, batches: int = RATE_BATCHES) -> float:
+    """Images/s of a generator over ``batches`` batches after one warm-up."""
+    next(it)
+    t0, n = time.perf_counter(), 0
+    for _ in range(batches):
+        n += len(next(it)[0])
+    rate = n / (time.perf_counter() - t0)
+    it.close()
+    return rate
+
+
+def _data_fed(model: FCN8s, stream, steps: int) -> tuple[float, dict]:
+    """ms per step of ``steps`` train steps fed by ``stream`` (host clock,
+    the first batch's host work in), then the device busy share of 3 more
+    steps under ``utils.profiling.trace``."""
+    kw = dict(learning_rate_schedule=lambda s: 1e-4, keep_prob=0.5, record_summaries=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.train(stream, epochs=1, steps_per_epoch=steps, **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    root = tempfile.mkdtemp(prefix="fcn8s_data_trace_")
+    try:
+        with trace(root) as prof:
+            model.train(stream, epochs=1, steps_per_epoch=3, **kw)
+            torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return ms, device_busy(prof)
+
+
+def _busy(b: dict) -> str:
+    if b["share"] is None:
+        return "not read (the trace holds no device events)"
+    return (f"{b['share']:.4f} ({b['busy_us'] / 1e3:.2f} of {b['window_us'] / 1e3:.2f} ms, "
+            f"{b['host_syncs']} host syncs)")
+
+
+def phase_data_pipeline(dev, root: str, smi: str) -> dict:
+    """Phase 19 (a)-(d). Returns the launch counts of the data-fed runs."""
+    rng = np.random.default_rng(DATA_SEED)
+    cores = len(os.sched_getaffinity(0))
+    workers = min(8, os.cpu_count())
+    t0 = time.perf_counter()
+    tree = _cityscapes_tree(os.path.join(root, "cityscapes"), rng)
+    kitti = _kitti_tree(os.path.join(root, "kitti"), rng)
+    print(f"phase 19 (a): {DATA_TRAIN} train + {DATA_VAL} val synthetic {DATA_FRAME[1]}x"
+          f"{DATA_FRAME[0]} Cityscapes frames and {KITTI_FRAMES} KITTI {KITTI_FRAME[1]}x"
+          f"{KITTI_FRAME[0]} frames in {time.perf_counter() - t0:.1f} s; mean PNG "
+          f"{tree['image_png'] / 1e6:.3f} MB image, {tree['gt_png'] / 1e6:.3f} MB labelIds; "
+          f"host cores {cores} (os.cpu_count() {os.cpu_count()})")
+
+    # (b) the host pipeline alone
+    train_gen, val_gen = _generators(tree["root"])
+    host = dict(resize=DATA_RESIZE, **HOST_SETTINGS, **HOST_AUG)
+    rates = {f"BatchGenerator workers={w}": _images_per_s(
+        train_gen.generate(batch_size=BATCH, seed=0, workers=w, **host)) for w in (1, workers)}
+    packed_dir = os.path.join(root, "packed")
+    t0 = time.perf_counter()
+    pack_dataset(train_gen, packed_dir, convert_ids_to_ids=IDS_TO_TRAINIDS_ARRAY,
+                 resize=DATA_RESIZE)
+    pack_s = time.perf_counter() - t0
+    packed = PackedDataset(packed_dir, num_classes=C)
+    packed_kw = dict(void_class_id=0, convert_to_one_hot=False, **HOST_AUG)
+    rates["PackedDataset"] = _images_per_s(packed.generate(BATCH, seed=0, **packed_kw))
+    rates[f"KITTI {KITTI_RESIZE}"] = _images_per_s(kitti_generator(
+        BATCH, *kitti, resize=KITTI_RESIZE, flip=0.5, seed=0, one_hot=False))
+    print(f"phase 19 (b) host pipeline alone on {cores} cores, images/s over {RATE_BATCHES} "
+          f"batches of {BATCH} after one warm-up: " + ", ".join(
+              f"{k} {v:.2f} ({1e3 / v:.1f} ms/image)" for k, v in rates.items())
+          + f"; pack_dataset of {DATA_TRAIN} frames {pack_s:.2f} s")
+
+    # (c) BatchGenerator and PackedDataset: the same bytes for one seed
+    a = train_gen.generate(batch_size=BATCH, seed=5, **host)
+    b = packed.generate(BATCH, seed=5, **packed_kw)
+    for i in range(3):
+        (ia, la), (ib, lb) = next(a), next(b)
+        check(ia.dtype == ib.dtype and la.dtype == lb.dtype and np.array_equal(ia, ib)
+              and np.array_equal(la, lb), f"BatchGenerator and PackedDataset differ at batch {i}")
+    a.close()
+    b.close()
+    print("phase 19 (c): BatchGenerator(workers=1) and PackedDataset yield byte-identical "
+          f"batches for one seed (3 batches of {BATCH}, across an epoch boundary)")
+
+    # (d) training fed from disk, with evaluation
+    model = FCN8s(num_classes=C, device=dev, seed=DATA_SEED)
+    synthetic = [(rng.integers(0, 256, (BATCH,) + DATA_RESIZE + (3,), dtype=np.uint8),
+                  rng.integers(0, C, (BATCH,) + DATA_RESIZE, dtype=np.uint8)) for _ in range(2)]
+    total = dict.fromkeys(WRAPPERS, 0)
+    feeders = {
+        f"BatchGenerator workers={workers}":
+            lambda: train_gen.generate(batch_size=BATCH, seed=1, workers=workers, **host),
+        "PackedDataset": lambda: packed.generate(BATCH, seed=1, **packed_kw),
+    }
+    lines = []
+    for name, feed in feeders.items():
+        val = val_gen.generate(batch_size=BATCH, shuffle=False, seed=0, resize=DATA_RESIZE,
+                               **HOST_SETTINGS)
+        zero_counts()
+        t0 = time.perf_counter()
+        model.train(feed(), epochs=2, steps_per_epoch=3, learning_rate_schedule=lambda s: 1e-4,
+                    keep_prob=0.5, metrics={"loss", "mean_iou"}, eval_dataset="val",
+                    val_generator=val, val_steps=1, eval_frequency=1, record_summaries=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        for kernel in DATA_KERNELS:
+            check(counts[kernel] > 0, f"{kernel} was never launched in training fed by {name}")
+        check(math.isfinite(model.training_loss), f"{name}: loss {model.training_loss}")
+        total = {k: total[k] + counts[k] for k in total}
+        lines.append(f"{name}: 6 steps + 2 val batches {seconds:.2f} s, loss "
+                     f"{model.training_loss:.5f}, eval {model.metric_values}, launches {counts}")
+    step = {"synthetic (in memory)": _data_fed(model, _cycle(synthetic), 4)}
+    for name, feed in feeders.items():
+        step[name] = _data_fed(model, feed(), 4)
+    model.close()
+    zero_counts()
+    kmodel = FCN8s(num_classes=2, device=dev, seed=DATA_SEED)
+    kmodel.train(kitti_generator(BATCH, *kitti, resize=KITTI_RESIZE, flip=0.5, seed=0,
+                                 one_hot=False),
+                 epochs=1, steps_per_epoch=2, learning_rate_schedule=lambda s: 1e-4,
+                 keep_prob=0.5, record_summaries=False)
+    torch.cuda.synchronize()
+    kcounts = read_counts()
+    for kernel in ("maxpool2x2_code_nhwc", "maxpool2x2_bwd_nhwc", "ce_sum_per_sample", "ce_grad"):
+        check(kcounts[kernel] > 0, f"{kernel} was never launched in training fed by KITTI")
+    check(math.isfinite(kmodel.training_loss), f"KITTI loss {kmodel.training_loss}")
+    kmodel.close()
+    total = {k: total[k] + kcounts[k] for k in total}
+    print(f"phase 19 (d) training fed from disk, batch {BATCH} x {DATA_RESIZE[0]}x"
+          f"{DATA_RESIZE[1]}, full width, keep_prob 0.5: "
+          + "; ".join(lines) + f"; KITTI 2 steps at {KITTI_RESIZE}, 2 classes: loss "
+          f"{kmodel.training_loss:.5f}, launches {kcounts}")
+    print(f"phase 19 (d) step times on {smi} (host clock over 4 steps, the first batch's host "
+          "work in; device busy share over 3 more under utils.profiling.trace): " + "; ".join(
+              f"{k} {ms:.2f} ms/step ({BATCH * 1e3 / ms:.2f} images/s), busy {_busy(b)}"
+              for k, (ms, b) in step.items()))
+    del model, kmodel
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_export(dev, tree: dict, root: str, smi: str) -> dict:
+    """Phase 19 (e): ``export_serving`` of phase 10's weights at
+    ``input_hw=(1024, 512)``, argmax and softmax; each artifact loaded on
+    the card against ``model.predict``. Returns the artifacts' launch counts."""
+    model = FCN8s.from_params(tree, device=dev)
+    images = np.random.default_rng(DATA_SEED).integers(0, 256, (BATCH, TH, TW, 3),
+                                                       dtype=np.uint8)
+    total = dict.fromkeys(WRAPPERS, 0)
+    out = []
+    for argmax in (True, False):
+        directory = os.path.join(root, f"artifact_{'ids' if argmax else 'softmax'}")
+        t0 = time.perf_counter()
+        model.export_serving(directory, input_hw=(TH, TW), argmax=argmax)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        art = load_serving_artifact(directory, device=dev)
+        load_s = time.perf_counter() - t0
+        program_bytes = os.path.getsize(os.path.join(directory, "forward.pt2"))
+        zero_counts()
+        got8 = art.predict(images)
+        counts = read_counts()
+        check(counts["maxpool2x2_nhwc"] == 5 and sum(counts.values()) == 5,
+              f"an artifact forward launched {counts}, expected K4f 5 times")
+        total = {k: total[k] + counts[k] for k in total}
+        # batch 1 against the facade at batch 1: cuDNN may pick other
+        # algorithms for another batch size, so ids of near-ties may differ
+        # between a batch-1 and a batch-8 forward of the same image
+        got1, want1 = art.predict(images[:1]), model.predict(images[:1], argmax=argmax)
+        want8 = model.predict(images, argmax=argmax)
+        for got, want in ((got8, want8), (got1, want1)):
+            check(got.dtype == want.dtype and got.shape == want.shape,
+                  f"artifact output {got.dtype} {got.shape}, facade {want.dtype} {want.shape}")
+        if argmax:
+            shares = [float((g == w).mean()) for g, w in ((got8, want8), (got1, want1))]
+            check(min(shares) >= 0.999, f"artifact ids equal facade ids on {shares} of pixels")
+            what = f"ids equal on {shares[0]:.6f} (batch 8), {shares[1]:.6f} (batch 1) of pixels"
+        else:
+            gaps = [float(np.abs(g - w).max()) for g, w in ((got8, want8), (got1, want1))]
+            check(max(gaps) <= 1e-2 and np.allclose(got8.sum(-1), 1.0, atol=1e-3),
+                  f"artifact softmax differs by {gaps}")
+            what = (f"softmax max gap {gaps[0]:.3g} (batch 8), {gaps[1]:.3g} (batch 1), its "
+                    f"argmax equal on {float((got8.argmax(-1) == want8.argmax(-1)).mean()):.6f}")
+        turns = [host_ms(fn, reps=5) for fn in (lambda: model.predict(images, argmax=argmax),
+                                                 lambda: art.predict(images),
+                                                 lambda: art.predict(images),
+                                                 lambda: model.predict(images, argmax=argmax))]
+        out.append(f"{'argmax' if argmax else 'softmax'}: export {export_s:.2f} s, load "
+                   f"{load_s:.2f} s, {_dir_bytes(directory)} bytes on disk (program "
+                   f"{program_bytes}); {what}; K4f {counts['maxpool2x2_nhwc']} launches per "
+                   f"forward; predict batch {BATCH} facade {turns[0]:.2f}, {turns[3]:.2f} ms vs "
+                   f"artifact {turns[1]:.2f}, {turns[2]:.2f} ms (host clock, median of 5, turns "
+                   "facade/artifact/artifact/facade)")
+        del art
+    print(f"phase 19 (e) export_serving of phase 10's weights at input_hw=({TH}, {TW}), loaded "
+          f"on the card, on {smi}: " + "; ".join(out))
+    model.close()
+    del model
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_data_export(dev, tree: dict, smi: str) -> dict:
+    """Phase 19 in a temporary directory, removed at the end; returns the
+    launch counts of (d) and (e) summed."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="fcn8s_data_")
+    try:
+        data = phase_data_pipeline(dev, root, smi)
+        export = phase_export(dev, tree, root, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 19: {time.perf_counter() - t0:.1f} s")
+    return {k: data[k] + export[k] for k in data}
+
+
 def main() -> None:
     smi = phase_card()
     dev = torch.device("cuda", 0)
@@ -2063,6 +2402,7 @@ def main() -> None:
     conv1_measured, conv1_counts = phase_conv1_calibration(dev, smi)
     measured["conv1_core"] = conv1_measured
     phase_persistence(dev, trained, smi)
+    phase10_weights = bridge.to_numpy(trained.params)  # phase 19 exports them
     trained.close()
     del trained
     torch.cuda.empty_cache()
@@ -2077,6 +2417,7 @@ def main() -> None:
     for name in ("maxpool2x2_nhwc", "maxpool2x2_code_nhwc", "maxpool2x2_bwd_nhwc",
                  "ce_sum_per_sample", "ce_grad", "confusion_matrix_accumulate"):
         check(facade_counts[name] > 0, f"{name} was never launched on the facade's rest")
+    data_counts = phase_data_export(dev, phase10_weights, smi)
     paths = {"serve+eval": serve_counts, "train": train_counts, "train weighted": weighted_counts,
              "conv1 calibration": conv1_counts}
     source_path = {"maxpool2x2_nhwc": "serve+eval", "ce_sum_per_sample": "serve+eval",
@@ -2090,7 +2431,8 @@ def main() -> None:
          "launches": paths[source_path[name]][name], "path": source_path[name],
          "launches_train_features": feature_counts[name],
          "launches_predict_rest": predict_counts[name],
-         "launches_facade_rest": facade_counts[name], **measured[name]}
+         "launches_facade_rest": facade_counts[name],
+         "launches_data_export": data_counts[name], **measured[name]}
         for name in WRAPPERS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

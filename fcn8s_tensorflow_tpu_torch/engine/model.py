@@ -18,11 +18,12 @@ leaves the model bit for bit as it found it); ``predict_and_save`` (a
 directory of images to overlay or id PNGs, the Cityscapes submission
 format); ``score_benchmark`` (predict a split, write labelId PNGs and run
 the offline scorer, ``evaluation/pixel_eval.py``); and ``close``, with the
-JAX facade's argument names. Checkpoints are the JAX package's format
+JAX facade's argument names; and ``export_serving`` (a ``torch.export``
+artifact, ``engine/export.py``). Checkpoints are the JAX package's format
 (``engine/checkpoint.py``): one written by either package loads in the
 other, EMA average and observer counters included. Spatial partitioning
-(its argument raises ``NotImplementedError`` when set) and
-``export_serving`` belong to a later part of the port.
+(its argument raises ``NotImplementedError`` when set) belongs to a later
+part of the port.
 """
 
 from __future__ import annotations
@@ -1395,6 +1396,20 @@ class FCN8s:
         return self.metric_values[i] > self.best_metric_values[i]
 
     # ------------------------------------------------------------------
+    def export_serving(self, directory, *, input_hw=(1024, 512), argmax=True,
+                       use_ema=False):
+        """Write a ``torch.export`` serving artifact (``engine/export.py``):
+        the predict head for ``input_hw`` inputs, traced on the model's
+        device with a symbolic batch, its params as inputs in a params-only
+        checkpoint beside it. ``engine.export.load_serving_artifact(directory,
+        device).predict(images)`` runs it without this facade. ``argmax``
+        exports the id head, otherwise the softmax; ``use_ema`` the EMA
+        average. Returns ``directory``."""
+        from .export import export_serving_artifact
+
+        return export_serving_artifact(self, directory, input_hw=input_hw, argmax=argmax,
+                                       use_ema=use_ema)
+
     def save(self, model_save_dir, saver="saved_model", tags=["default"], name=None,
              include_global_step=True, include_last_training_loss=True, include_metrics=True,
              force_save=False, block=True):

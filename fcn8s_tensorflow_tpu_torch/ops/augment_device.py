@@ -32,6 +32,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .resize_host import nearest_indices
+
 # make_augment_fn's per-transform key slots (the JAX package's split indices)
 CROP, BRIGHTNESS, FLIP, TRANSLATE, SCALE, CONTRAST, SATURATION, HUE, GAMMA, LABEL_NOISE = range(10)
 
@@ -343,13 +345,6 @@ def random_translate_scale(gen_translate, gen_scale, images, label_ids, x_spec, 
 # ---------------------------------------------------------------------------
 
 
-def _cv2_nearest_indices(dst: int, src: int) -> np.ndarray:
-    """cv2 INTER_NEAREST source indices for a static resize, in its double
-    arithmetic: ``min(floor(d * (1 / (dst / src))), src - 1)``."""
-    ifx = 1.0 / (dst / src)
-    return np.minimum(np.floor(np.arange(dst) * ifx), src - 1).astype(np.int64)
-
-
 def resize(images, label_ids, size_hw):
     """Batch resize to a static (h, w): bilinear for images (coordinates in
     float64 on the host, like cv2's, then fp32), nearest for labels (cv2's
@@ -368,8 +363,8 @@ def resize(images, label_ids, size_hw):
     out_img = _bilinear_sample(images, fy, fx, all_y, all_x).to(images.dtype)
     out_lbl = None
     if label_ids is not None:
-        out_lbl = _nearest_sample(label_ids, per_sample(_cv2_nearest_indices(h_out, h)),
-                                  per_sample(_cv2_nearest_indices(w_out, w)), all_y, all_x, 0)
+        out_lbl = _nearest_sample(label_ids, per_sample(nearest_indices(h_out, h)),
+                                  per_sample(nearest_indices(w_out, w)), all_y, all_x, 0)
     return out_img, out_lbl
 
 

@@ -4,7 +4,10 @@ plain twins, and the autograd pair.
 Port of ``fcn8s_tensorflow_tpu/ops/pallas_pool.py``:
 
 * ``maxpool2x2_nhwc`` (K4f) replaces ``_fwd_only_kernel``, the primal of
-  ``max_pool_2x2_pallas``; its plain twin is ``ops.nn.max_pool_2x2``;
+  ``max_pool_2x2_pallas``; its plain twin is ``ops.nn.max_pool_2x2``. It is
+  a registered ``torch.library`` op (``fcn8s_torch::maxpool2x2_nhwc``,
+  its CPU implementation the twin, its CUDA one the kernel, with a fake
+  for tracing), so that an exported graph holds the kernel;
 * ``maxpool2x2_code_nhwc`` (K4a) replaces ``_fwd_kernel``, the VJP forward:
   y plus a uint8 first-max code (the TPU stored the code in the input
   dtype only because Mosaic rejected an int8 relayout);
@@ -19,7 +22,8 @@ activations are already NHWC (channels_last), so each is a plain
 memory-bound pass. All three share ``csrc/maxpool2x2.cu``. Every wrapper
 takes its plain twin for a CPU tensor and launches its kernel for a CUDA
 tensor, raising on anything the kernel does not take; each counts its
-launches in ``<wrapper>.launches``.
+launches in ``<wrapper>.launches``. K4a/K4b stay an
+``autograd.Function``: an exported artifact is inference only.
 """
 
 from __future__ import annotations
@@ -49,15 +53,41 @@ def _check_pool_input(x: torch.Tensor, name: str) -> None:
 
 
 def maxpool2x2_nhwc(x: torch.Tensor) -> torch.Tensor:
-    """2x2/s2 max pool of an NCHW-shaped tensor.
+    """2x2/s2 max pool of an NCHW-shaped tensor: the registered op
+    ``torch.ops.fcn8s_torch.maxpool2x2_nhwc``, so that ``torch.export``
+    records the kernel itself (``engine/export.py``).
 
     A CPU tensor takes the plain twin (SAME semantics, odd dims allowed). A
     CUDA tensor takes the K4f kernel, which needs channels_last memory,
     bf16 or fp32, and even H and W (every VGG pool input is even, since the
-    facade pads images to multiples of 32); anything else raises. Counts
-    each kernel launch in ``maxpool2x2_nhwc.launches``."""
-    if x.device.type == "cpu":
-        return max_pool_2x2(x)
+    facade pads images to multiples of 32); anything else raises. The
+    output is channels_last either way. Counts each kernel launch in
+    ``maxpool2x2_nhwc.launches``.
+
+    The op's fake answers a ``meta`` tensor's call, so a meta tensor is
+    checked here, before the op, and raises as the kernel's wrapper does
+    (a CUDA tensor is checked inside the op)."""
+    if x.device.type == "meta":
+        _check_pool_input(x, "maxpool2x2_nhwc")
+        kernels.require_cuda(x)
+    return torch.ops.fcn8s_torch.maxpool2x2_nhwc(x)
+
+
+maxpool2x2_nhwc.launches = 0
+
+
+@torch.library.custom_op("fcn8s_torch::maxpool2x2_nhwc", mutates_args=())
+def _maxpool2x2_op(x: torch.Tensor) -> torch.Tensor:
+    raise ValueError(f"maxpool2x2_nhwc: no kernel for a {x.device.type} tensor")
+
+
+@_maxpool2x2_op.register_kernel("cpu")
+def _maxpool2x2_cpu(x: torch.Tensor) -> torch.Tensor:
+    return max_pool_2x2(x).contiguous(memory_format=_CL)
+
+
+@_maxpool2x2_op.register_kernel("cuda")
+def _maxpool2x2_cuda(x: torch.Tensor) -> torch.Tensor:
     _check_pool_input(x, "maxpool2x2_nhwc")
     dev = kernels.require_cuda(x)
     n, c, h, w = x.shape
@@ -73,7 +103,15 @@ def maxpool2x2_nhwc(x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-maxpool2x2_nhwc.launches = 0
+@_maxpool2x2_op.register_fake
+def _maxpool2x2_fake(x: torch.Tensor) -> torch.Tensor:
+    """The output's metadata while tracing: channels_last, as both
+    implementations write it (later ops of an exported graph assume these
+    strides). ``(d + 1) // 2`` is the twin's SAME size and the kernel's
+    ``d // 2`` for the even dims it takes."""
+    n, c, h, w = x.shape
+    return torch.empty((n, c, (h + 1) // 2, (w + 1) // 2), dtype=x.dtype, device=x.device,
+                       memory_format=_CL)
 
 
 # ---------------------------------------------------------------------------

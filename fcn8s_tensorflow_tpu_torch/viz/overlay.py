@@ -3,14 +3,9 @@
 ``create_split_view``), without OpenCV.
 
 The JAX package resizes with ``cv2.resize(..., INTER_LINEAR)``, which the
-card's installation does not have. ``resize_linear_u8`` is its own uint8
-bilinear resize with OpenCV's semantics: half-pixel centres, no
-antialiasing, 11-bit fixed-point weights, borders clamped as OpenCV clamps
-them (a column past the edge takes the edge pixel at full weight; a row
-past it reads the edge row through both taps), and the vertical pass
-rounded as OpenCV's vector path rounds it. At the image's own size it is a
-copy. ``tests/test_torch_overlay.py`` holds it bit-exact against
-``cv2.resize`` on up- and downscales of 1- and 3-channel images.
+card's installation does not have. ``resize_linear_u8``, re-exported here
+from ``ops/resize_host.py``, is the port's uint8 bilinear resize with
+OpenCV's semantics, bit for bit.
 
 Not ported: captions (``cv2.putText``), ``segment_video`` and
 ``create_video_from_images`` (OpenCV's text rendering and video I/O);
@@ -21,52 +16,7 @@ from __future__ import annotations
 
 import numpy as np
 
-COEF_BITS = 11  # OpenCV's INTER_RESIZE_COEF_BITS
-COEF_SCALE = 1 << COEF_BITS
-
-
-def _taps(src: int, dst: int, clamp_weight: bool):
-    """Per output index: the two source indices and their fixed-point
-    weights. ``clamp_weight``: OpenCV's horizontal rule (an index past an
-    edge moves onto it with weight 0 on the second tap); otherwise its
-    vertical one (the indices are clamped, the weights kept)."""
-    scale = 1.0 / (dst / src)  # OpenCV's scale_x = 1 / inv_scale_x, in double
-    f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
-    s = np.floor(f).astype(np.int64)
-    f = f - s.astype(np.float32)
-    if clamp_weight:
-        f[s < 0] = 0.0
-        s[s < 0] = 0
-        past = s >= src - 1
-        f[past] = 0.0
-        s[past] = src - 1
-    s0, s1 = np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1)
-    w0 = np.rint((np.float32(1.0) - f) * COEF_SCALE).astype(np.int64)
-    w1 = np.rint(f * COEF_SCALE).astype(np.int64)
-    return s0, s1, w0, w1
-
-
-def resize_linear_u8(image, size) -> np.ndarray:
-    """``cv2.resize(image, (w, h), interpolation=cv2.INTER_LINEAR)`` for a
-    uint8 (H, W) or (H, W, C) image and ``size = (h, w)``."""
-    image = np.asarray(image)
-    if image.dtype != np.uint8 or image.ndim not in (2, 3):
-        raise ValueError(f"expected a uint8 (H, W[, C]) image, got {image.dtype} {image.shape}")
-    h, w = int(size[0]), int(size[1])
-    if h < 1 or w < 1:
-        raise ValueError(f"size must be positive, got {size}")
-    if image.shape[:2] == (h, w):
-        return image.copy()
-    img = image if image.ndim == 3 else image[:, :, None]
-    H, W = img.shape[:2]
-    x0, x1, a0, a1 = _taps(W, w, clamp_weight=True)
-    y0, y1, b0, b1 = _taps(H, h, clamp_weight=False)
-    src = img.astype(np.int64)
-    rows = src[:, x0] * a0[None, :, None] + src[:, x1] * a1[None, :, None]  # x 2^11
-    rows >>= 4  # the vertical pass: 16-bit multiply-high of (row >> 4) and the weight
-    out = ((rows[y0] * b0[:, None, None]) >> 16) + ((rows[y1] * b1[:, None, None]) >> 16)
-    out = np.clip((out + 2) >> 2, 0, 255).astype(np.uint8)
-    return out if image.ndim == 3 else out[:, :, 0]
+from ..ops.resize_host import resize_linear_u8  # callers of viz.overlay import it from here
 
 
 def print_segmentation_onto_image(image, prediction, color_map) -> np.ndarray:

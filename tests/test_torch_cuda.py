@@ -813,3 +813,68 @@ def test_find_learning_rate_on_the_card_restores_bit_for_bit(dev, optimizer):
             assert all(torch.equal(a, b)
                        for a, b in zip(_opt_tensors(model.state.opt_state), moments[0]))
         np.testing.assert_array_equal(model.predict(images), ids)
+
+
+# ---------------------------------------------------------------------------
+# K4f as a registered op, and the torch.export artifact on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_registered_pool_op_equals_twin_and_counts(dev, dtype):
+    """``torch.ops.fcn8s_torch.maxpool2x2_nhwc`` (what an exported graph
+    calls) launches K4f: bit-exact with the twin, one launch counted."""
+    x = torch.randn((2, 64, 32, 48), device=dev).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    n = maxpool2x2_nhwc.launches
+    y = torch.ops.fcn8s_torch.maxpool2x2_nhwc(x)
+    assert maxpool2x2_nhwc.launches == n + 1
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(y, max_pool_2x2(x))
+
+
+def test_registered_pool_op_never_launches_for_a_cpu_tensor(dev, monkeypatch):
+    """A CPU tensor takes the twin inside the op; the ctypes library is
+    never reached. A CUDA tensor in NCHW memory raises, through the wrapper
+    and through the op alike."""
+    from fcn8s_tensorflow_tpu_torch.kernels import build
+
+    def no_library():
+        raise AssertionError("the CPU path reached the CUDA library")
+
+    monkeypatch.setattr(build, "library", no_library)
+    x = torch.randn((2, 8, 6, 10)).contiguous(memory_format=torch.channels_last)
+    n = maxpool2x2_nhwc.launches
+    assert torch.equal(torch.ops.fcn8s_torch.maxpool2x2_nhwc(x), max_pool_2x2(x))
+    assert torch.equal(maxpool2x2_nhwc(x), max_pool_2x2(x))
+    assert maxpool2x2_nhwc.launches == n
+    monkeypatch.undo()
+    nchw = torch.randn((2, 8, 6, 10), device=dev)
+    for fn in (maxpool2x2_nhwc, torch.ops.fcn8s_torch.maxpool2x2_nhwc):
+        with pytest.raises(ValueError, match="channels_last"):
+            fn(nchw)
+
+
+def test_card_exported_artifact_equals_predict(dev, tmp_path):
+    """Exported on the card and loaded there: ids and softmax equal the
+    facade's predict, 5 K4f launches per artifact forward."""
+    import numpy as np
+
+    from fcn8s_tensorflow_tpu_torch.engine.export import load_serving_artifact
+    from fcn8s_tensorflow_tpu_torch.engine.model import FCN8s
+
+    model = FCN8s(num_classes=5, width_mult=1 / 8, fc_channels=64, device=dev, seed=2)
+    images = np.random.default_rng(0).integers(0, 256, (3, 64, 96, 3), dtype=np.uint8)
+    for argmax in (True, False):
+        out = model.export_serving(str(tmp_path / str(argmax)), input_hw=(64, 96),
+                                   argmax=argmax)
+        art = load_serving_artifact(out, device="cuda")
+        n = maxpool2x2_nhwc.launches
+        got = art.predict(images)
+        assert maxpool2x2_nhwc.launches == n + 5
+        np.testing.assert_array_equal(got, model.predict(images, argmax=argmax))
+        np.testing.assert_array_equal(art.predict(images[:1]),
+                                      model.predict(images[:1], argmax=argmax))
+    with pytest.raises(ValueError, match="traced on cuda:0.*asked for cpu"):
+        load_serving_artifact(out, device="cpu")
+    model.close()
