@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, eval, training, KB calibration,
 checkpoint, training-feature, int8/TTA/tiled predict, offline-benchmark,
-host data pipeline and serving-artifact paths once on one CUDA card.
+host data pipeline, serving-artifact, video, viewer and annotation paths
+once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -108,15 +109,35 @@ Phases, in order; any failure raises and the script exits non-zero:
     phase 10's weights at input_hw=(1024, 512), argmax and softmax, loaded
     on the card: 5 K4f launches per artifact forward, ids and softmax
     against ``model.predict`` at batch 8 and 1, export, load and predict
-    times, bytes on disk.
+    times, bytes on disk;
+20. viz and prep at full width (a fresh seeded model, decoder redrawn as in
+    phase 17): (a) ``segment_video`` over a seeded 26-frame 1024x2048
+    ``mp4v`` video at batch 8 (3 full batches and a tail of 2), warm: the
+    output's frame count and size, the batch loop
+    (``overlay_frames``) equal to ``predict(overlay=)`` of the decoded
+    frames exactly and its encoding equal to ``segment_video``'s file byte
+    for byte, frames/s and decode, predict and encode each timed alone;
+    then 8 frames with ``quantized=True`` and in (512, 512) tiles, cold and
+    warm; (b) ``predict_and_save(output_format="ids")`` over 2 synthetic 2048x1024
+    val frames with disparity, ``view_cityscapes_split(results_dir=)``,
+    ``build_interactive_viewer`` and ``serve_viewer`` on port 0: the files
+    served equal the files, the prediction layer is the overlay of the saved
+    ids, build time per image; (c) seeded ``*_gtFine_polygons.json`` for 8
+    train + 4 val 2048x1024 frames (sky, buildings, sidewalks, road, cars,
+    persons, a ``cargroup``), one more polygon POSTed through the label
+    tool's server, both GT rasterisers (their PNGs equal the in-memory
+    images), then ``train`` for 2 steps at batch 8 fed by ``BatchGenerator``
+    on the rasterised trainIds at 512x1024 with a val batch, and the
+    data-fed step time; label tool latencies per route.
 
 Kernel launch counts are zeroed just before each path is driven and read
 just after it: serving + evaluation (phases 5-6), training (phase 10), the
 weighted training (phase 12), the conv1 calibration's timed runs (phase
 14), the training features (phase 16: the train run, then the use_ema
 inference), the rest of predict (phase 17: each of b-e) and the rest of the
-facade (phase 18: each of b-d) and phase 19 (each data-fed train run of
-(d), each artifact's forward in (e)); every kernel of a path must have launched. A ``{"library_routes": [...]}`` line gives the
+facade (phase 18: each of b-d), phase 19 (each data-fed train run of
+(d), each artifact's forward in (e)) and phase 20 (each of a-c); every
+kernel of a path must have launched. A ``{"library_routes": [...]}`` line gives the
 int8 conv route per layer (ms, its bound over 1,979 TOP/s int8 or the
 bytes, share). The line before the last is ``{"kernels": [...]}``:
 ``launches`` from the path named in ``path``; ``ms``,
@@ -129,7 +150,8 @@ bytes the kernel must move over 3.35 TB/s and its operations over 989
 TFLOP/s bf16 (``bound_by`` says which; ``bytes`` and ``flops`` are the
 counts; ``launches_train_features`` is the kernel's count in phase 16,
 ``launches_predict_rest`` in phase 17, ``launches_facade_rest`` in phase 18,
-``launches_data_export`` in phase 19 (d) and (e)).
+``launches_data_export`` in phase 19 (d) and (e), ``launches_viz_prep`` in
+phase 20). A ``{"viz_prep": {...}}`` line gives phase 20's numbers.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -185,8 +207,19 @@ from fcn8s_tensorflow_tpu_torch.ops.nn import conv2d, max_pool_2x2, nchw, nhwc
 from fcn8s_tensorflow_tpu_torch.ops.pool import maxpool2x2_nhwc
 from fcn8s_tensorflow_tpu_torch.parallel import steps as S
 from fcn8s_tensorflow_tpu_torch.parallel.steps import eval_step
+from fcn8s_tensorflow_tpu_torch.prep.annotation import Annotation
+from fcn8s_tensorflow_tpu_torch.prep.create_gt_imgs import (create_train_id_instance_imgs,
+                                                           create_train_id_label_imgs)
+from fcn8s_tensorflow_tpu_torch.prep.label_tool import AnnotationTool
+from fcn8s_tensorflow_tpu_torch.prep.label_tool import make_server as make_tool_server
+from fcn8s_tensorflow_tpu_torch.prep.rasterize import create_instance_image, create_label_image
 from fcn8s_tensorflow_tpu_torch.utils.profiling import device_busy, trace
 from fcn8s_tensorflow_tpu_torch.utils.summary import model_summary_rows
+from fcn8s_tensorflow_tpu_torch.viz.overlay import (overlay_frames, print_segmentation_onto_image,
+                                                    segment_video)
+from fcn8s_tensorflow_tpu_torch.viz.serve import build_interactive_viewer, serve_viewer
+from fcn8s_tensorflow_tpu_torch.viz.viewer import (load_disparity, load_prediction,
+                                                   view_cityscapes_split)
 
 BATCH, H, W, C = 8, 512, 1024, 20  # serving and eval: Cityscapes' landscape at half size
 TH, TW = 1024, 512  # training: bench.py's main config (H=1024, W=512)
@@ -2375,6 +2408,388 @@ def phase_data_export(dev, tree: dict, smi: str) -> dict:
     return {k: data[k] + export[k] for k in data}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: viz and prep
+# ---------------------------------------------------------------------------
+
+VIZ_SEED = 20
+VIDEO_FRAMES, VIDEO_FPS = 26, 10.0  # 3 full batches of BATCH and a tail of 2
+VIDEO_SHORT = 8  # frames of the int8 and tiled runs
+VIDEO_PAN = 16  # pixels the scene moves between frames
+VIEWER_CITY, VIEWER_FRAMES = "lindau", 2
+GT_CITIES, GT_TRAIN, GT_VAL = {"train": "hamburg", "val": "munster"}, 8, 4
+TOOL_ROUNDS = 3  # timed requests per route
+
+
+def _write_video(path: str, frames, fps: float) -> None:
+    import cv2
+
+    h, w = frames[0].shape[:2]
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+    check(writer.isOpened(), f"OpenCV cannot write {path}")
+    for frame in frames:
+        writer.write(np.ascontiguousarray(frame[:, :, ::-1]))  # RGB -> BGR
+    writer.release()
+
+
+def _read_video(path: str) -> tuple[list, float]:
+    """The RGB frames of a video and its frame rate, as segment_video reads them."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    check(cap.isOpened(), f"OpenCV cannot read {path}")
+    frames = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames.append(frame[:, :, ::-1])
+    fps = cap.get(cv2.CAP_PROP_FPS)
+    cap.release()
+    return frames, fps
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _file_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def phase_video(model: FCN8s, root: str, smi: str) -> tuple[dict, dict]:
+    """Phase 20 (a): ``segment_video`` over a seeded 26-frame Cityscapes-size
+    ``mp4v`` video at batch 8, the decode/predict/encode split, then 8
+    frames with ``quantized=True`` and in (512, 512) tiles, each twice (the
+    first run quantizes the weights and makes cuDNN's choices). Returns
+    (launch counts, measurements)."""
+    rng = np.random.default_rng(VIZ_SEED)
+    h, w = DATA_FRAME
+    scene, _ = _scene(rng, h, -(-(w + VIDEO_PAN * VIDEO_FRAMES) // 64) * 64)  # 64-pixel regions
+    frames = [scene[:, i * VIDEO_PAN:i * VIDEO_PAN + w] for i in range(VIDEO_FRAMES)]
+    src, short = os.path.join(root, "drive.mp4"), os.path.join(root, "drive_short.mp4")
+    _write_video(src, frames, VIDEO_FPS)
+    _write_video(short, frames[:VIDEO_SHORT], VIDEO_FPS)
+    cmap = TRAINIDS_TO_RGBA_DICT
+
+    (decoded, fps), decode_s = _timed(lambda: _read_video(src))
+    check(len(decoded) == VIDEO_FRAMES and decoded[0].shape == (h, w, 3) and fps == VIDEO_FPS,
+          f"decoded {len(decoded)} frames of {decoded[0].shape} at {fps}")
+    # the batches one predict at a time; the first predict at these shapes
+    # (cuDNN's choices in), so the runs below are warm
+    want, first_s = _timed(lambda: np.concatenate([
+        model.predict(np.stack(decoded[i:i + BATCH]), overlay=cmap)
+        for i in range(0, VIDEO_FRAMES, BATCH)]))
+    overlaid, predict_s = _timed(lambda: list(overlay_frames(model, iter(decoded), cmap,
+                                                             batch_size=BATCH)))
+    check(np.array_equal(np.stack(overlaid), want),
+          "the batch loop's frames differ from predict(overlay=) of the decoded frames")
+    zero_counts()
+    out, seconds = _timed(lambda: segment_video(model, src, os.path.join(root, "segmented"),
+                                                cmap, batch_size=BATCH))
+    counts = read_counts()
+    check(counts["maxpool2x2_nhwc"] > 0, "segment_video never launched K4f")
+    check(out == os.path.join(root, "segmented.mp4"), f"segment_video returned {out}")
+    written, out_fps = _read_video(out)
+    check(len(written) == VIDEO_FRAMES and written[0].shape == (h, w, 3) and out_fps == fps,
+          f"segment_video wrote {len(written)} frames of {written[0].shape} at {out_fps}")
+    again = os.path.join(root, "encoded.mp4")
+    _, encode_s = _timed(lambda: _write_video(again, overlaid, fps))
+    check(_file_bytes(again) == _file_bytes(out),
+          "segment_video's file is not the encoding of the batch loop's frames")
+
+    other = {}
+    for name, kw in (("int8", dict(quantized=True)),
+                     ("tiled", dict(tile=TILE, tile_overlap=TILE_OVERLAP))):
+        zero_counts()
+        times = []
+        for run in ("cold", "warm"):
+            target = os.path.join(root, f"{name}_{run}")
+            path, t = _timed(lambda: segment_video(model, short, target, cmap, batch_size=BATCH,
+                                                   **kw))
+            times.append(t)
+        k4f = read_counts()["maxpool2x2_nhwc"]
+        check(k4f > 0, f"segment_video({name}) never launched K4f")
+        got, _ = _read_video(path)
+        check(len(got) == VIDEO_SHORT and got[0].shape == (h, w, 3),
+              f"segment_video({name}) wrote {len(got)} frames of {got[0].shape}")
+        counts["maxpool2x2_nhwc"] += k4f
+        other[name] = {"frames_per_s_cold": VIDEO_SHORT / times[0],
+                       "frames_per_s_warm": VIDEO_SHORT / times[1], "k4f": k4f}
+    out = {"frames_per_s": VIDEO_FRAMES / seconds, "seconds": seconds, "decode_s": decode_s,
+           "predict_s": predict_s, "encode_s": encode_s, "first_predict_s": first_s,
+           "output_bytes": os.path.getsize(again), **other}
+    print(f"phase 20 (a) segment_video, {VIDEO_FRAMES} frames of {h}x{w} (mp4v, {VIDEO_FPS} "
+          f"frames/s), batch {BATCH}, on {smi}: {VIDEO_FRAMES / seconds:.2f} frames/s end to end "
+          f"({seconds:.3f} s); split, each part alone (host clock): decode {decode_s:.3f} s, "
+          f"predict (overlay_frames on the card) {predict_s:.3f} s, encode {encode_s:.3f} s, sum "
+          f"{decode_s + predict_s + encode_s:.3f} s; the first predicts at these shapes "
+          f"{first_s:.3f} s (cuDNN's choices); the batch loop's frames = predict(overlay=) "
+          f"exactly, and their encoding = segment_video's file byte for byte; {VIDEO_SHORT} "
+          f"frames int8 {other['int8']['frames_per_s_warm']:.2f} frames/s warm "
+          f"({other['int8']['frames_per_s_cold']:.2f} cold), tiled {TILE} "
+          f"{other['tiled']['frames_per_s_warm']:.2f} ({other['tiled']['frames_per_s_cold']:.2f}"
+          f" cold); launches {counts}")
+    return counts, out
+
+
+def _fetch(url: str, body: bytes | None = None) -> bytes:
+    req = urllib.request.Request(url, data=body, method="POST" if body is not None else "GET")
+    with urllib.request.urlopen(req, timeout=60) as r:
+        check(r.status == 200, f"{url}: HTTP {r.status}")
+        return r.read()
+
+
+def phase_viewer(model: FCN8s, root: str, smi: str) -> tuple[dict, dict]:
+    """Phase 20 (b): ``predict_and_save(output_format="ids")`` over a
+    synthetic val split with disparity, then ``view_cityscapes_split``,
+    ``build_interactive_viewer`` and ``serve_viewer`` on port 0. Returns
+    (launch counts, measurements)."""
+    rng = np.random.default_rng(VIZ_SEED + 1)
+    split = os.path.join(root, "cityscapes")
+    jobs = []
+    for i in range(VIEWER_FRAMES):
+        stem = os.path.join(VIEWER_CITY, f"{VIEWER_CITY}_{i:06d}_000019")
+        image, ids = _scene(rng, *DATA_FRAME)
+        disp = np.repeat(np.repeat(rng.integers(0, 30000, (DATA_FRAME[0] // 64,
+                                                           DATA_FRAME[1] // 64)), 64, 0), 64, 1)
+        jobs += [(os.path.join(split, "leftImg8bit", "val", f"{stem}_leftImg8bit.png"), image),
+                 (os.path.join(split, "gtFine", "val", f"{stem}_gtFine_labelIds.png"), ids),
+                 (os.path.join(split, "disparity", "val", f"{stem}_disparity.png"),
+                  disp.astype(np.uint16))]
+    _write_pngs(jobs)
+    images_dir = os.path.join(split, "leftImg8bit", "val", VIEWER_CITY)
+    paths = [os.path.join(images_dir, n) for n in sorted(os.listdir(images_dir))]
+    results = os.path.join(root, "predictions")
+    zero_counts()
+    _, predict_s = _timed(lambda: model.predict_and_save(results, images_dir, output_format="ids",
+                                                         batch_size=BATCH, verbose=False))
+    counts = read_counts()
+    check(counts["maxpool2x2_nhwc"] > 0, "predict_and_save never launched K4f")
+
+    gallery = os.path.join(root, "gallery")
+    index, gallery_s = _timed(lambda: view_cityscapes_split(split, "val", gallery,
+                                                            results_dir=results,
+                                                            max_images=VIEWER_FRAMES))
+    panels = sorted(n for n in os.listdir(gallery) if n.endswith("_panel.png"))
+    panel = np.asarray(Image.open(os.path.join(gallery, panels[0])))
+    check(len(panels) == VIEWER_FRAMES and panel.shape == (*DATA_FRAME[:1], 4 * DATA_FRAME[1], 3),
+          f"gallery: {len(panels)} panels of {panel.shape}")
+
+    def gt_loader(path):
+        gt = path.replace("leftImg8bit", "gtFine").replace("_gtFine.png", "_gtFine_labelIds.png")
+        return IDS_TO_TRAINIDS_ARRAY[np.asarray(Image.open(gt))]
+
+    viewer_dir = os.path.join(root, "viewer")
+    html, viewer_s = _timed(lambda: build_interactive_viewer(
+        viewer_dir, paths, gt_loader=gt_loader,
+        pred_loader=lambda p: load_prediction(p, results), disp_loader=load_disparity))
+    first = os.path.splitext(os.path.basename(paths[0]))[0]
+    image = np.asarray(Image.open(paths[0]).convert("RGB"))
+    layer = np.asarray(Image.open(os.path.join(viewer_dir, f"{first}_pred.png")))
+    check(np.array_equal(layer, print_segmentation_onto_image(
+        image, load_prediction(paths[0], results), TRAINIDS_TO_RGBA_DICT)),
+        "the viewer's prediction layer is not the overlay of the saved ids")
+    server = serve_viewer(viewer_dir, port=0, blocking=False)
+    try:
+        base = f"http://{server.server_address[0]}:{server.server_address[1]}"
+        served = {}
+        for name in ("viewer.html", f"{first}_pred.png"):
+            got = _fetch(f"{base}/{name}")
+            check(got == _file_bytes(os.path.join(viewer_dir, name)),
+                  f"{name} served differs from the file")
+            served[name] = len(got)
+        latency = [_timed(lambda: _fetch(f"{base}/{first}_img.png"))[1] for _ in range(TOOL_ROUNDS)]
+    finally:
+        server.shutdown()
+        server.server_close()
+    out = {"predict_and_save_s": predict_s, "gallery_s_per_image": gallery_s / VIEWER_FRAMES,
+           "viewer_s_per_image": viewer_s / VIEWER_FRAMES,
+           "serve_layer_ms_median": statistics.median(latency) * 1e3, "served_bytes": served}
+    print(f"phase 20 (b) viewer over {VIEWER_FRAMES} predicted {DATA_FRAME[1]}x{DATA_FRAME[0]} val "
+          f"frames with disparity, on {smi} (host clock): predict_and_save (ids) {predict_s:.3f} "
+          f"s; view_cityscapes_split {gallery_s / VIEWER_FRAMES:.3f} s per image (4-column "
+          f"panels); build_interactive_viewer {viewer_s / VIEWER_FRAMES:.3f} s per image (5 "
+          f"layers); serve_viewer: {served} bytes equal the files, a {DATA_FRAME[1]}x"
+          f"{DATA_FRAME[0]} layer in {statistics.median(latency) * 1e3:.2f} ms (median of "
+          f"{TOOL_ROUNDS}); launches {counts}")
+    return counts, out
+
+
+def _polygons(rng, h: int, w: int) -> dict:
+    """A seeded Cityscapes ``*_polygons.json`` body: sky above a horizon,
+    building blocks, sidewalks and road below it, then 2-4 cars, 2-4
+    persons and a ``cargroup`` on the road, drawn last (on top)."""
+    horizon = int(h * rng.uniform(0.35, 0.5))
+    near = h - 1
+
+    def quad(x0, y0, x1, y1):
+        return [[int(x0), int(y0)], [int(x1), int(y0)], [int(x1), int(y1)], [int(x0), int(y1)]]
+
+    objects = [{"label": "sky", "polygon": quad(0, 0, w - 1, horizon)}]
+    x = 0
+    while x < w:
+        bw = int(rng.integers(w // 12, w // 5))
+        top = rng.integers(horizon // 4, horizon - h // 50)
+        objects.append({"label": "building",
+                        "polygon": quad(x, top, min(x + bw, w - 1), horizon + h // 25)})
+        x += bw
+    far, left, right = horizon + h // 25, w // 2 - w // 20, w // 2 + w // 20
+    objects += [
+        {"label": "sidewalk", "polygon": [[0, far], [left, far], [w // 8, near], [0, near]]},
+        {"label": "sidewalk", "polygon": [[right, far], [w - 1, far], [w - 1, near],
+                                          [w - w // 8, near]]},
+        {"label": "road", "polygon": [[left, far], [right, far], [w - w // 8, near],
+                                      [w // 8, near]]},
+    ]
+    for label, n, (bw, bh) in (("car", int(rng.integers(2, 5)), (w // 10, h // 10)),
+                               ("person", int(rng.integers(2, 5)), (w // 60, h // 8)),
+                               ("cargroup", 1, (w // 5, h // 9))):
+        for _ in range(n):
+            x0 = int(rng.integers(w // 8, w - w // 8 - bw))
+            y0 = int(rng.integers(horizon + h // 20, near - bh))
+            objects.append({"label": label, "polygon": quad(x0, y0, x0 + bw, y0 + bh)})
+    return {"imgWidth": w, "imgHeight": h, "objects": objects}
+
+
+def phase_annotate_train(model: FCN8s, root: str, smi: str) -> tuple[dict, dict]:
+    """Phase 20 (c): seeded polygons for 8 train + 4 val frames, one more
+    polygon POSTed through the label tool's server, both GT rasterisers,
+    then ``train`` fed by ``BatchGenerator`` on the rasterised trainIds.
+    Returns (launch counts, measurements)."""
+    rng = np.random.default_rng(VIZ_SEED + 2)
+    h, w = DATA_FRAME
+    jobs, polygon_files = [], []
+    for split, n in (("train", GT_TRAIN), ("val", GT_VAL)):
+        city = GT_CITIES[split]
+        for i in range(n):
+            stem = os.path.join(city, f"{city}_{i:06d}_000019")
+            image, _ = _scene(rng, h, w)
+            jobs.append((os.path.join(root, "leftImg8bit", split, f"{stem}_leftImg8bit.png"),
+                         image))
+            path = os.path.join(root, "gtFine", split, f"{stem}_gtFine_polygons.json")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path, "w") as f:
+                json.dump(_polygons(rng, h, w), f)
+            polygon_files.append(path)
+    _write_pngs(jobs)
+
+    city = GT_CITIES["train"]
+    tool = AnnotationTool(os.path.join(root, "leftImg8bit", "train", city),
+                          annotation_dir=os.path.join(root, "gtFine", "train", city))
+    server = make_tool_server(tool, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    person = {"label": "person", "polygon": [[w // 2, h // 2], [w // 2 + w // 40, h // 2],
+                                             [w // 2 + w // 40, h // 2 + h // 6],
+                                             [w // 2, h // 2 + h // 6]]}
+    latency = {}
+    try:
+        base = f"http://{server.server_address[0]}:{server.server_address[1]}"
+        check(len(json.loads(_fetch(f"{base}/api/images"))) == GT_TRAIN, "/api/images")
+        payload = json.loads(_fetch(f"{base}/api/annotation/0"))
+        payload["objects"].append(person)
+        body = json.dumps(payload).encode()
+        routes = {"GET /api/images": lambda: _fetch(f"{base}/api/images"),
+                  "GET /api/annotation/0": lambda: _fetch(f"{base}/api/annotation/0"),
+                  "POST /api/annotation/0": lambda: _fetch(f"{base}/api/annotation/0", body),
+                  "GET /api/image/0": lambda: _fetch(f"{base}/api/image/0"),
+                  "GET /api/preview/0": lambda: _fetch(f"{base}/api/preview/0")}
+        for route, fn in routes.items():
+            latency[route] = statistics.median(_timed(fn)[1] for _ in range(TOOL_ROUNDS)) * 1e3
+        saved = json.loads(_fetch(f"{base}/api/annotation/0"))
+        check(saved["objects"][-1]["polygon"] == person["polygon"]
+              and len(saved["objects"]) == len(payload["objects"]),
+              "the POSTed polygon did not come back")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+
+    n_labels, labels_s = _timed(lambda: create_train_id_label_imgs(root, quiet=True))
+    n_instances, instances_s = _timed(lambda: create_train_id_instance_imgs(root, quiet=True))
+    check(n_labels == n_instances == GT_TRAIN + GT_VAL, f"rasterised {n_labels}, {n_instances}")
+    for path in polygon_files:
+        ann = Annotation()
+        ann.from_json_file(path)
+        for suffix, want in (("_labelTrainIds.png", create_label_image(ann, "trainIds")),
+                             ("_instanceTrainIds.png", create_instance_image(ann, "trainIds"))):
+            got = np.asarray(Image.open(path.replace("_polygons.json", suffix)))
+            check(np.array_equal(got, np.asarray(want)),
+                  f"{path}: the rasterised {suffix} differs from the in-memory image")
+
+    def generator(split):
+        return BatchGenerator(image_dirs=[os.path.join(root, "leftImg8bit", split)],
+                              ground_truth_dirs=[os.path.join(root, "gtFine", split)],
+                              image_name_split_separator="leftImg8bit",
+                              ground_truth_suffix="gtFine_labelTrainIds", num_classes=C)
+
+    workers = min(8, os.cpu_count())
+    host = dict(convert_ids_to_ids=None, resize=DATA_RESIZE, convert_to_one_hot=False)
+    train_gen, val_gen = generator("train"), generator("val")
+    zero_counts()
+    _, train_s = _timed(lambda: model.train(
+        train_gen.generate(batch_size=BATCH, seed=0, workers=workers, **host), epochs=1,
+        steps_per_epoch=2, learning_rate_schedule=lambda s: 1e-4, keep_prob=0.5,
+        metrics={"loss", "mean_iou"}, eval_dataset="val",
+        val_generator=val_gen.generate(batch_size=GT_VAL, shuffle=False, seed=0, **host),
+        val_steps=1, eval_frequency=1, record_summaries=False))
+    counts = read_counts()
+    for kernel in DATA_KERNELS:
+        check(counts[kernel] > 0, f"{kernel} was never launched in training on rasterised GT")
+    loss, evaluation = model.training_loss, model.metric_values
+    check(math.isfinite(loss), f"loss {loss} on rasterised GT")
+    step_ms, busy = _data_fed(model, train_gen.generate(batch_size=BATCH, seed=1,
+                                                        workers=workers, **host), 2)
+    out = {"label_images_per_s": n_labels / labels_s,
+           "instance_images_per_s": n_instances / instances_s, "tool_ms": latency,
+           "train_s": train_s, "loss": loss, "step_ms": step_ms,
+           "busy": busy["share"]}
+    print(f"phase 20 (c) annotate -> rasterise -> train, {GT_TRAIN} + {GT_VAL} frames of {w}x{h}, "
+          f"on {smi} (host clock): label tool median of {TOOL_ROUNDS} "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in latency.items())
+          + f"; rasterised PNGs = create_label_image/create_instance_image in memory; "
+          f"labelTrainIds {n_labels / labels_s:.2f} images/s, instanceTrainIds "
+          f"{n_instances / instances_s:.2f} images/s; train 2 steps + 1 val batch fed by "
+          f"BatchGenerator(workers={workers}) at {DATA_RESIZE}: {train_s:.2f} s, loss "
+          f"{loss:.5f}, eval {evaluation}; data-fed step {step_ms:.2f} "
+          f"ms (host clock over 2 steps), busy {_busy(busy)}; launches {counts}")
+    return counts, out
+
+
+def phase_viz_prep(dev, smi: str) -> dict:
+    """Phase 20 on a fresh full-width model with a redrawn decoder, in a
+    temporary directory removed at the end; returns the launch counts of
+    (a)-(c) summed."""
+    t0 = time.perf_counter()
+    model = FCN8s(num_classes=C, device=dev, seed=VIZ_SEED)
+    _redraw_decoder(model, np.random.default_rng(VIZ_SEED))
+    root = tempfile.mkdtemp(prefix="fcn8s_viz_")
+    measured = {}
+    try:
+        total = dict.fromkeys(WRAPPERS, 0)
+        for name, phase in (("video", phase_video), ("viewer", phase_viewer),
+                            ("annotate_train", phase_annotate_train)):
+            os.makedirs(os.path.join(root, name))
+            t1 = time.perf_counter()
+            counts, measured[name] = phase(model, os.path.join(root, name), smi)
+            measured[name]["phase_s"] = time.perf_counter() - t1
+            total = {k: total[k] + counts[k] for k in total}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    model.close()
+    del model
+    torch.cuda.empty_cache()
+    print(json.dumps({"viz_prep": measured}))
+    print(f"phase 20 launches: {total}; {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main() -> None:
     smi = phase_card()
     dev = torch.device("cuda", 0)
@@ -2418,6 +2833,9 @@ def main() -> None:
                  "ce_sum_per_sample", "ce_grad", "confusion_matrix_accumulate"):
         check(facade_counts[name] > 0, f"{name} was never launched on the facade's rest")
     data_counts = phase_data_export(dev, phase10_weights, smi)
+    viz_counts = phase_viz_prep(dev, smi)
+    for name in DATA_KERNELS:
+        check(viz_counts[name] > 0, f"{name} was never launched in phase 20 (viz and prep)")
     paths = {"serve+eval": serve_counts, "train": train_counts, "train weighted": weighted_counts,
              "conv1 calibration": conv1_counts}
     source_path = {"maxpool2x2_nhwc": "serve+eval", "ce_sum_per_sample": "serve+eval",
@@ -2432,7 +2850,8 @@ def main() -> None:
          "launches_train_features": feature_counts[name],
          "launches_predict_rest": predict_counts[name],
          "launches_facade_rest": facade_counts[name],
-         "launches_data_export": data_counts[name], **measured[name]}
+         "launches_data_export": data_counts[name],
+         "launches_viz_prep": viz_counts[name], **measured[name]}
         for name in WRAPPERS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -5,9 +5,12 @@ The JAX package beside it is the reference: every module here names its
 counterpart there, and ``tests/test_torch_*.py`` run both on the same
 weights and inputs. This package imports ``torch``, ``numpy``, PIL and the
 standard library, and nothing of the JAX package: ``labels``, ``utils``,
-``viz`` and ``evaluation`` hold its own copies of the label registry, the
-model summary, the overlay and the offline Cityscapes scorers, and
-``native/confusion_matrix.cpp`` is built with g++ at first use.
+``viz``, ``prep`` and ``evaluation`` hold its own copies of the label
+registry, the model summary, the overlay, video and viewer tools, the
+ground-truth tools and the offline Cityscapes scorers, and
+``native/confusion_matrix.cpp`` is built with g++ at first use. OpenCV is
+imported only inside the three ``viz.overlay`` functions whose output is
+OpenCV's own (captions, and the two MPEG-4 writers).
 
 Quick start::
 
