@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, eval, training, KB calibration,
 checkpoint, training-feature, int8/TTA/tiled predict, offline-benchmark,
-host data pipeline, serving-artifact, video, viewer and annotation paths
-once on one CUDA card.
+host data pipeline, serving-artifact, video, viewer, annotation and mesh
+paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -128,7 +128,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     tool's server, both GT rasterisers (their PNGs equal the in-memory
     images), then ``train`` for 2 steps at batch 8 fed by ``BatchGenerator``
     on the rasterised trainIds at 512x1024 with a val batch, and the
-    data-fed step time; label tool latencies per route.
+    data-fed step time; label tool latencies per route;
+21. ``parallel/mesh.py``: a group of one rank, then two ranks on the one
+    card (described after the kernel line's keys below).
 
 Kernel launch counts are zeroed just before each path is driven and read
 just after it: serving + evaluation (phases 5-6), training (phase 10), the
@@ -151,8 +153,25 @@ TFLOP/s bf16 (``bound_by`` says which; ``bytes`` and ``flops`` are the
 counts; ``launches_train_features`` is the kernel's count in phase 16,
 ``launches_predict_rest`` in phase 17, ``launches_facade_rest`` in phase 18,
 ``launches_data_export`` in phase 19 (d) and (e), ``launches_viz_prep`` in
-phase 20). A ``{"viz_prep": {...}}`` line gives phase 20's numbers.
+phase 20, ``launches_mesh`` in phase 21: ``world1`` its (a), ``world2``
+each rank's (b)). A ``{"viz_prep": {...}}`` line gives phase 20's numbers.
 The last line is ``{"ok": true, "device": {...}}``.
+
+Phase 21 (``parallel/mesh.py``) at full width, bench.py's batch 8 x
+1024x512: (a) a process group of one rank on the card (NCCL) and
+``FCN8s(mesh=create_mesh(), tensor_parallel=True)``: 3 train steps at
+keep_prob 1, evaluate, predict, tiled predict, save and load, each bit for
+bit the mesh-less facade's on the same weights; (b) two ranks on the one
+card over gloo (NCCL refuses two ranks on one device), this script run
+twice as ``chip_smoke.py --mesh-rank R 2 STORE WORK``: first each
+collective the port calls on CUDA tensors over gloo, then on the meshes
+(2, 1) and (1, 2) with the hand kernels in each rank: one fp32 SGD step
+against the single-process step (the masters within rtol 2e-4, atol
+1e-6), the fp32 eval confusion matrix and predict ids against the
+single-process ones (ids equal where the top-2 logit margin exceeds 1e-4 of
+the largest logit, the matrix up to two counts per pixel below it), the
+bf16 ids' agreement printed, and one bf16 Adam step at keep_prob 0.5 after
+which the leaves replicated over 'model' are equal across its ranks.
 """
 
 from __future__ import annotations
@@ -166,6 +185,7 @@ import os
 import shutil
 import statistics
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -2790,6 +2810,407 @@ def phase_viz_prep(dev, smi: str) -> dict:
     return total
 
 
+MESH_SEED = 21
+MESH_STEPS = 3  # phase 21 (a): train steps of each model
+MESH_TIMEOUT_S = 600  # phase 21 (b): the two ranks, launch to join
+MESH_SHAPES = ((2, 1), (1, 2))  # phase 21 (b): the meshes of the two ranks
+
+
+def _mesh_tree(dev) -> dict:
+    """Phase 21's weights: a seeded full-width model with the decoder
+    redrawn (``_redraw_decoder``), as a JAX-layout numpy tree."""
+    model = FCN8s(num_classes=C, device=dev, seed=MESH_SEED)
+    _redraw_decoder(model, np.random.default_rng(MESH_SEED))
+    tree = bridge.to_numpy(model.params)
+    model.close()
+    return tree
+
+
+def _same_params(a: dict, b: dict) -> bool:
+    """Bit-equal trees, leaf by path (a loaded tree has the checkpoint's order)."""
+    pa, pb = (_by_path(t, bridge.param_leaves(t)) for t in (a, b))
+    return pa.keys() == pb.keys() and all(torch.equal(pa[k].detach(), pb[k].detach())
+                                          for k in pa)
+
+
+def _file_bytes_of(directory: str) -> bytes:
+    with open(os.path.join(directory, "checkpoint.msgpack"), "rb") as f:
+        return f.read()
+
+
+def phase_mesh_world1(dev, tree: dict, root: str, smi: str) -> dict:
+    """Phase 21 (a): a process group of one rank on the card (NCCL) and the
+    facade on ``create_mesh()`` with ``tensor_parallel=True``, against the
+    mesh-less facade on the same weights: 3 train steps at keep_prob 1 (cuDNN
+    deterministic), evaluate, predict, tiled predict, save and load, each
+    bit for bit. Returns the launch counts of the mesh model's run."""
+    import torch.distributed as dist
+
+    from fcn8s_tensorflow_tpu_torch.parallel.mesh import create_mesh
+
+    rng = np.random.default_rng(MESH_SEED + 1)
+    batches = [_synthetic(rng, BATCH) for _ in range(MESH_STEPS)]
+    frame = rng.integers(0, 256, (1, *FRAME, 3), dtype=np.uint8)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{os.path.join(root, 'store1')}",
+                            rank=0, world_size=1)
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        mesh = create_mesh(devices=[dev])
+        check(mesh.shape == {"data": 1, "model": 1} and mesh.device_mesh is not None,
+              f"create_mesh() over a world of 1: {mesh.shape}")
+        results, counts, step_ms = [], None, {}
+        for name, kw in (("plain", {}), ("mesh", dict(mesh=mesh, tensor_parallel=True))):
+            model = FCN8s.from_params(tree, device=dev, seed=MESH_SEED, **kw)
+            if name == "mesh":
+                zero_counts()
+            train = dict(learning_rate_schedule=lambda s: 1e-4, keep_prob=1.0, metrics=set(),
+                         record_summaries=False)
+            model.train(iter(batches[:1]), epochs=1, steps_per_epoch=1, **train)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.train(iter(batches[1:]), epochs=1, steps_per_epoch=MESH_STEPS - 1, **train)
+            torch.cuda.synchronize()
+            step_ms[name] = (time.perf_counter() - t0) * 1e3 / (MESH_STEPS - 1)
+            out = {"loss": model.training_loss,
+                   "evaluate": model.evaluate(iter(batches[:2]), 2),
+                   "conf": model.metrics_state["conf_matrix"].cpu(),
+                   "predict": model.predict(batches[0][0]),
+                   "tiled": model.predict(frame, tile=TILE, tile_overlap=TILE_OVERLAP)}
+            if name == "mesh":
+                counts = read_counts()
+            path = model.save(os.path.join(root, name))
+            out["bytes"] = _file_bytes_of(path)
+            if name == "mesh":
+                loaded = FCN8s(model_load_dir=path, device=dev, **kw)
+                check(_same_params(loaded.params, model.params),
+                      "phase 21 (a): the loaded mesh model differs from the saved one")
+                loaded.close()
+                del loaded
+            out["params"] = model.params
+            results.append(out)
+            model.close()
+            del model
+        plain, meshed = results
+        for key in ("loss", "evaluate", "bytes"):
+            check(plain[key] == meshed[key], f"phase 21 (a): {key} differs from the mesh-less run")
+        for key in ("conf",):
+            check(torch.equal(plain[key], meshed[key]), f"phase 21 (a): {key} differs")
+        for key in ("predict", "tiled"):
+            check(np.array_equal(plain[key], meshed[key]), f"phase 21 (a): {key} differs")
+        check(_same_params(plain["params"], meshed["params"]),
+              "phase 21 (a): the trained params differ from the mesh-less run")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+        dist.destroy_process_group()
+    for kernel in DATA_KERNELS:
+        check(counts[kernel] > 0, f"{kernel} was never launched on the world-of-1 mesh")
+    print(f"phase 21 (a) a {backend} group of one rank, FCN8s(mesh=create_mesh(), "
+          f"tensor_parallel=True) vs the mesh-less facade at full width on {smi}: {MESH_STEPS} "
+          f"train steps of ({BATCH}, {TH}, {TW}, 3) at keep_prob 1, evaluate, predict, tiled "
+          f"predict ({FRAME[0]}x{FRAME[1]} in {TILE}), save and load bit for bit equal; step "
+          f"(host clock over steps 2-{MESH_STEPS}) mesh {step_ms['mesh']:.2f} ms, mesh-less "
+          f"{step_ms['plain']:.2f} ms; launches {counts}")
+    return {"counts": counts, "step_ms": step_ms}
+
+
+def _mesh_refs(dev, tree: dict, work: str) -> None:
+    """Phase 21 (b)'s single-process references, written into ``work`` for
+    the ranks: one fp32 SGD step's masters, the fp32 eval confusion matrix,
+    the fp32 and bf16 predict ids, and the fp32 logits' top-2 margins."""
+    rng = np.random.default_rng(MESH_SEED + 2)
+    images, labels = _synthetic(rng, BATCH)
+    np.savez(os.path.join(work, "batch.npz"), images=images, labels=labels)
+    with open(os.path.join(work, "config.json"), "w") as f:
+        json.dump({"device": str(dev), "classes": C, "batch": BATCH}, f)
+    np.savez(os.path.join(work, "tree.npz"),
+             **{f"{p}/{n}/{k}": v for p, layers in tree.items() for n, layer in layers.items()
+                for k, v in layer.items()})
+    # fp32 references with TF32 off, as the ranks run (cuDNN defaults it on)
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        _mesh_ref_runs(dev, tree, work, images, labels)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _mesh_ref_runs(dev, tree: dict, work: str, images, labels) -> None:
+    """``_mesh_refs``' device runs."""
+    f32 = torch.float32
+    params = bridge.to_port(tree, device=dev)
+    opt = S.make_optimizer("sgd")
+    state = S.create_train_state(params, opt)
+    im, lb = torch.from_numpy(images).to(dev), torch.from_numpy(labels).to(dev)
+    mask = torch.ones(BATCH, device=dev)
+    state, loss = S.train_step(state, im, lb, mask, MESH_SEED, 1e-3, 0.0, 1.0, optimizer=opt,
+                               num_classes=C, compute_dtype=f32)
+    torch.save({"loss": float(loss), "params": [t.detach().cpu() for t in
+                                                bridge.param_leaves(state.params)]},
+               os.path.join(work, "step_ref.pt"))
+    del state, params
+    refs = {}
+    with torch.inference_mode():
+        for dtype, tag in ((f32, "fp32"), (torch.bfloat16, "bf16")):
+            run = bridge.cast_params(bridge.to_port(tree, device=dev), dtype)
+            metrics = S.eval_step(run, empty_metrics_state(C, device=dev), im, lb, mask,
+                                  num_classes=C, compute_dtype=dtype)
+            refs[f"conf_{tag}"] = metrics["conf_matrix"].cpu().numpy()
+            refs[f"ids_{tag}"] = S.predict_step(run, im, compute_dtype=dtype).cpu().numpy()
+            if dtype == f32:
+                logits = apply_fcn8s(run, im, compute_dtype=f32).float()
+                top2 = torch.topk(logits, 2, dim=-1).values
+                refs["margin"] = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+                refs["scale"] = float(logits.abs().max())
+            del run
+    np.savez(os.path.join(work, "refs.npz"), **refs)
+
+
+def _gloo_cuda_check(dev) -> list:
+    """Each collective the port calls, on CUDA tensors over the gloo group;
+    returns their names. One that fails raises."""
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    done = []
+    t = torch.full((5,), float(rank + 1), device=dev)
+    dist.all_reduce(t)
+    check(torch.equal(t, torch.full_like(t, world * (world + 1) / 2)), "gloo all_reduce SUM")
+    done.append("all_reduce(SUM)")
+    t = torch.full((3,), float(rank), device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    check(torch.equal(t, torch.full_like(t, world - 1)), "gloo all_reduce MAX")
+    done.append("all_reduce(MAX)")
+    t = torch.full((2, 2), rank, dtype=torch.int32, device=dev)
+    dist.all_reduce(t)
+    check(int(t[0, 0]) == world * (world - 1) // 2, "gloo all_reduce int32")
+    done.append("all_reduce(int32)")
+    parts = [torch.empty(4, device=dev) for _ in range(world)]
+    dist.all_gather(parts, torch.full((4,), float(rank), device=dev))
+    check(all(torch.equal(p, torch.full_like(p, r)) for r, p in enumerate(parts)),
+          "gloo all_gather")
+    done.append("all_gather")
+    box = [{"rank": rank}]
+    dist.broadcast_object_list(box, src=0)
+    check(box[0] == {"rank": 0}, "gloo broadcast_object_list")
+    done.append("broadcast_object_list")
+    dist.barrier()
+    done.append("barrier")
+    return done
+
+
+def mesh_rank_main(rank: int, world: int, store: str, work: str) -> None:
+    """One rank of phase 21 (b) (``chip_smoke.py --mesh-rank R W STORE
+    WORK``): a gloo group on the one card; for each mesh of
+    ``MESH_SHAPES``, one fp32 SGD train step held against the
+    single-process step, the fp32 eval confusion matrix and predict ids
+    against the single-process ones, the bf16 ids' agreement, and one bf16
+    Adam step at keep_prob 0.5 after which the leaves replicated over
+    'model' are equal across its ranks. Writes ``rank<R>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from fcn8s_tensorflow_tpu_torch.parallel import collectives as CL
+    from fcn8s_tensorflow_tpu_torch.parallel.mesh import (MODEL_AXIS, batch_rows, create_mesh,
+                                                          gather_params, shard_params,
+                                                          sharded_leaves)
+
+    with open(os.path.join(work, "config.json")) as f:
+        config = json.load(f)
+    dev = torch.device(config["device"])
+    check(dev.type != "cuda" or torch.cuda.is_available(),
+          "no CUDA device: this script runs only on the card")
+    classes, batch = config["classes"], config["batch"]
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    report = {"rank": rank}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    try:
+        if dev.type == "cuda":
+            build.library()
+        report["gloo_cuda"] = _gloo_cuda_check(dev)
+        with np.load(os.path.join(work, "tree.npz")) as z:
+            tree = {}
+            for key in z.files:
+                part, name, leaf = key.split("/")
+                tree.setdefault(part, {}).setdefault(name, {})[leaf] = z[key]
+        whole = bridge.to_port(tree, device=dev)  # once; each use takes fresh shards of it
+        del tree
+
+        def shards(mesh):
+            return {part: {name: {k: t.clone() for k, t in layer.items()}
+                           for name, layer in layers.items()}
+                    for part, layers in shard_params(whole, mesh, True).items()}
+        with np.load(os.path.join(work, "batch.npz")) as z:
+            images, labels = z["images"], z["labels"]
+        refs = dict(np.load(os.path.join(work, "refs.npz")))
+        step_ref = torch.load(os.path.join(work, "step_ref.pt")) if rank == 0 else None
+        clear = refs["margin"] > 1e-4 * refs["scale"]
+        f32, bf16 = torch.float32, torch.bfloat16
+        zero_counts()
+        t_path = time.perf_counter()
+        for shape in MESH_SHAPES:
+            tag = f"{shape[0]}x{shape[1]}"
+            mesh = create_mesh(*shape, devices=[dev] * world)
+            rows = batch_rows(batch, mesh)
+            local = [torch.from_numpy(a if rows is None else a[rows]).to(dev)
+                     for a in (images, labels, np.ones(batch, np.float32))]
+            # (1) one fp32 SGD step against the single-process step
+            params = shards(mesh)
+            opt = S.make_optimizer("sgd")
+            state = S.create_train_state(params, opt)
+            sync()
+            t0 = time.perf_counter()
+            state, loss = S.train_step(state, *local, MESH_SEED, 1e-3, 0.0, 1.0, optimizer=opt,
+                                       num_classes=classes, compute_dtype=f32, mesh=mesh,
+                                       tensor_parallel=True)
+            sync()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            full = gather_params(state.params, mesh, True)
+            if rank == 0:
+                worst, where = 0.0, None
+                for got, want, path in zip(bridge.param_leaves(full), step_ref["params"],
+                                           bridge.jax_leaf_paths(full)):
+                    want = want.to(dev)
+                    err = float(((got.detach() - want).abs() / (1e-6 + 2e-4 * want.abs())).max())
+                    if err > worst:
+                        worst, where = err, path
+                check(worst <= 1.0, f"{tag}: fp32 masters after the step exceed rtol 2e-4, "
+                                    f"atol 1e-6 (worst {worst:.3f} of the bound, {where})")
+                check(abs(float(loss) - step_ref["loss"]) <= 1e-5 * abs(step_ref["loss"]),
+                      f"{tag}: loss {float(loss)} vs {step_ref['loss']}")
+                report[f"{tag}/step_worst_of_bound"] = worst
+            report[f"{tag}/step_ms"] = step_ms
+            del state, params, full
+            # (2) eval and predict, fp32 and bf16
+            for dtype, dtag in ((f32, "fp32"), (bf16, "bf16")):
+                run = bridge.cast_params(shards(mesh), dtype)
+                with torch.inference_mode():
+                    metrics = S.eval_step(run, empty_metrics_state(classes, device=dev), *local,
+                                          num_classes=classes, compute_dtype=dtype, mesh=mesh,
+                                          tensor_parallel=True)
+                    ids = S.predict_step(run, local[0], compute_dtype=dtype, mesh=mesh,
+                                         tensor_parallel=True).cpu().numpy()
+                conf = metrics["conf_matrix"].cpu().numpy()
+                want_ids, want_conf = refs[f"ids_{dtag}"], refs[f"conf_{dtag}"]
+                report[f"{tag}/{dtag}_ids_agree"] = float((ids == want_ids).mean())
+                report[f"{tag}/{dtag}_conf_exact"] = bool(np.array_equal(conf, want_conf))
+                if dtype == f32:
+                    check(np.array_equal(ids[clear], want_ids[clear]),
+                          f"{tag}: fp32 ids differ where the top-2 margin is clear")
+                    unclear = int((~clear).sum())
+                    check(int(np.abs(conf.astype(np.int64) - want_conf).sum()) <= 2 * unclear,
+                          f"{tag}: fp32 confusion matrix beyond its {unclear} near-tie pixels")
+                    report[f"{tag}/near_tie_pixels"] = unclear
+                del run
+            # (3) keep_prob 0.5: the leaves replicated over 'model' stay equal
+            params = shards(mesh)
+            opt = S.make_optimizer("adam")
+            state = S.create_train_state(params, opt)
+            state, _ = S.train_step(state, *local, MESH_SEED, 1e-4, 0.0, 0.5, optimizer=opt,
+                                    num_classes=classes, compute_dtype=bf16, mesh=mesh,
+                                    tensor_parallel=True)
+            same = True
+            for t, split in zip(bridge.param_leaves(state.params),
+                                sharded_leaves(state.params, mesh, tensor_parallel=True)):
+                if split:
+                    continue
+                hi, lo = t.detach().clone(), t.detach().clone()
+                CL.all_reduce(hi, mesh, MODEL_AXIS, op=dist.ReduceOp.MAX)
+                CL.all_reduce(lo, mesh, MODEL_AXIS, op=dist.ReduceOp.MIN)
+                same = same and torch.equal(hi, lo)
+            check(same, f"{tag}: replicated leaves differ across the 'model' ranks after a "
+                        "keep_prob 0.5 step")
+            report[f"{tag}/replicated_equal_kp05"] = True
+            del state, params
+            torch.cuda.empty_cache()
+        sync()
+        report["path_s"] = time.perf_counter() - t_path
+        report["launches"] = read_counts()
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+            json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh_world2(dev, tree: dict, root: str, smi: str) -> dict:
+    """Phase 21 (b): two ranks on the one card over gloo (NCCL refuses two
+    ranks on one device), this script run twice with ``--mesh-rank``;
+    returns each rank's report."""
+    work = os.path.join(root, "world2")
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    _mesh_refs(dev, tree, work)
+    refs_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    store = os.path.join(work, "store")
+    env = {k: v for k, v in os.environ.items() if k not in ("LOCAL_RANK", "RANK", "WORLD_SIZE")}
+    env["PYTHONPATH"] = os.pathsep.join([os.path.dirname(os.path.abspath(__file__))] + [
+        p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w+") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+                               "2", store, work], env=env, stdout=logs[r],
+                              stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, MESH_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks_s = time.perf_counter() - t0
+    for r, log in enumerate(logs):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if procs[r].returncode != 0:
+            print(text[-6000:])
+        check(procs[r].returncode == 0, f"phase 21 (b) rank {r} exited {procs[r].returncode}")
+    reports = []
+    for r in range(2):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    for report in reports:
+        for kernel in DATA_KERNELS:
+            check(report["launches"][kernel] > 0,
+                  f"{kernel} was never launched on rank {report['rank']}")
+    print(f"phase 21 (b) two ranks sharing one card over gloo (not a scaling figure) on {smi}: "
+          f"meshes {MESH_SHAPES} at full width, batch {BATCH} of {TH}x{TW} split over 'data': "
+          f"gloo took CUDA tensors for {reports[0]['gloo_cuda']}; references {refs_s:.1f} s, "
+          f"ranks {ranks_s:.1f} s; rank 0 {json.dumps(reports[0])}; rank 1 "
+          f"{json.dumps(reports[1])}")
+    return {"reports": reports}
+
+
+def phase_mesh(dev, smi: str) -> dict:
+    """Phase 21: ``parallel/mesh.py`` on the card, (a) then (b), in a
+    temporary directory removed at the end."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="fcn8s_mesh_")
+    try:
+        tree = _mesh_tree(dev)
+        torch.cuda.empty_cache()
+        world1 = phase_mesh_world1(dev, tree, root, smi)
+        torch.cuda.empty_cache()
+        world2 = phase_mesh_world2(dev, tree, root, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 21: {time.perf_counter() - t0:.1f} s")
+    return {"world1": world1["counts"],
+            "world2": [r["launches"] for r in world2["reports"]]}
+
+
 def main() -> None:
     smi = phase_card()
     dev = torch.device("cuda", 0)
@@ -2836,6 +3257,7 @@ def main() -> None:
     viz_counts = phase_viz_prep(dev, smi)
     for name in DATA_KERNELS:
         check(viz_counts[name] > 0, f"{name} was never launched in phase 20 (viz and prep)")
+    mesh_counts = phase_mesh(dev, smi)
     paths = {"serve+eval": serve_counts, "train": train_counts, "train weighted": weighted_counts,
              "conv1 calibration": conv1_counts}
     source_path = {"maxpool2x2_nhwc": "serve+eval", "ce_sum_per_sample": "serve+eval",
@@ -2851,7 +3273,10 @@ def main() -> None:
          "launches_predict_rest": predict_counts[name],
          "launches_facade_rest": facade_counts[name],
          "launches_data_export": data_counts[name],
-         "launches_viz_prep": viz_counts[name], **measured[name]}
+         "launches_viz_prep": viz_counts[name],
+         "launches_mesh": {"world1": mesh_counts["world1"][name],
+                           "world2": [c[name] for c in mesh_counts["world2"]]},
+         **measured[name]}
         for name in WRAPPERS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -2859,4 +3284,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) > 1 and sys.argv[1] == "--mesh-rank":
+        mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+    else:
+        main()

@@ -16,7 +16,8 @@ derives its kernel on every call; the facade caches one derivation for
 inference and rebuilds it after training.
 
 ``to_port`` and ``to_numpy`` round-trip exactly: the conversions are
-transposes of fp32 values. ``quantized_to_port`` takes the JAX package's
+transposes of fp32 values. ``to_port_shards`` carries a JAX tree onto a
+mesh rank: its blocks of the port params. ``quantized_to_port`` takes the JAX package's
 int8 tree (``ops/quantize.py::quantize_fcn8s_params``) the same way.
 """
 
@@ -56,8 +57,21 @@ def to_port(tree: dict, *, device="cpu") -> dict:
     return out
 
 
+def to_port_shards(tree: dict, mesh, *, tensor_parallel: bool = False) -> dict:
+    """A JAX-layout tree -> this rank's blocks of the port params on
+    ``mesh.device``: ``to_port``, then ``parallel.mesh.shard_params`` (fc6
+    and fc7 split over 'model' under ``tensor_parallel``)."""
+    from .parallel.mesh import shard_params
+
+    return {part: {name: {k: t.to(mesh.device) for k, t in layer.items()}
+                   for name, layer in layers.items()}
+            for part, layers in shard_params(to_port(tree), mesh, tensor_parallel).items()}
+
+
 def to_numpy(params: dict) -> dict:
-    """Port params -> the JAX-layout tree of fp32 numpy arrays."""
+    """Port params -> the JAX-layout tree of fp32 numpy arrays: copies, so
+    a later in-place optimizer step does not move them (``.numpy()`` of a
+    CPU tensor shares its memory)."""
     tree = {}
     for part, layers in params.items():
         tree[part] = {}
@@ -67,8 +81,8 @@ def to_numpy(params: dict) -> dict:
             else:
                 kernel = layer["weight"].permute(2, 3, 1, 0)
             tree[part][name] = {
-                "kernel": np.ascontiguousarray(kernel.detach().float().cpu().numpy()),
-                "bias": layer["bias"].detach().float().cpu().numpy(),
+                "kernel": np.array(kernel.detach().float().cpu().numpy(), order="C"),
+                "bias": np.array(layer["bias"].detach().float().cpu().numpy()),
             }
     return tree
 

@@ -145,13 +145,13 @@ def _write(directory: str, payload: dict, param_paths: list[str], metadata: dict
 
 
 def save_checkpoint(directory: str, state, metadata: dict, *, max_to_keep: int | None = None,
-                    ema=None) -> str:
+                    ema_params=None) -> str:
     """Serialize a ``TrainState`` (or a bare port params tree) into
     ``directory``: ``checkpoint.msgpack`` + ``metadata.json``. Returns the
     directory. With ``max_to_keep``, the oldest sibling checkpoints beyond
-    the limit are pruned (by mtime). ``ema``: the EMA average (a port tree
-    of the params' structure), written as ``ema_leaves``."""
-    payload, paths = _payload(state, ema, copy=False)
+    the limit are pruned (by mtime). ``ema_params``: the EMA average (a
+    port tree of the params' structure), written as ``ema_leaves``."""
+    payload, paths = _payload(state, ema_params, copy=False)
     _write(directory, payload, paths, metadata)
     if max_to_keep is not None:
         _prune_old_checkpoints(os.path.dirname(directory.rstrip("/")), max_to_keep)
@@ -175,7 +175,8 @@ def _prune_old_checkpoints(parent: str, max_to_keep: int) -> None:
 
 
 def save_checkpoint_async(directory: str, state, metadata: dict, *,
-                          max_to_keep: int | None = None, ema=None) -> threading.Thread:
+                          max_to_keep: int | None = None,
+                          ema_params=None) -> threading.Thread:
     """Non-blocking ``save_checkpoint``. Returns a started
     ``threading.Thread``; ``join()`` it before reading the checkpoint, and
     read its ``exc`` (None, or the exception the write raised).
@@ -193,7 +194,7 @@ def save_checkpoint_async(directory: str, state, metadata: dict, *,
     instant one complete checkpoint is visible to ``latest_checkpoint``.
     The snapshot costs one transient state-sized device allocation."""
     with torch.no_grad():
-        payload, paths = _payload(state, ema, copy=True)
+        payload, paths = _payload(state, ema_params, copy=True)
     tensors = [x for v in payload.values() for x in (v if isinstance(v, list) else [v])
                if isinstance(x, torch.Tensor) and x.device.type == "cuda"]
     ready = None

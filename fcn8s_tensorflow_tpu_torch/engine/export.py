@@ -38,6 +38,7 @@ import torch
 
 from .. import bridge
 from ..kernels import resolve_device
+from ..parallel import collectives
 from . import checkpoint as ckpt
 
 ARTIFACT_VERSION = 1
@@ -78,12 +79,27 @@ def export_serving_artifact(model, directory: str, *, input_hw=(1024, 512),
     class-id head (uint8 ids for <=255 classes), ``argmax=False`` the full
     softmax head. ``use_ema`` exports the EMA weight average instead of the
     live params. The batch dim is symbolic (traced at batch 2, so that it
-    does not specialise to 1): the artifact accepts any N at load time."""
+    does not specialise to 1): the artifact accepts any N at load time.
+
+    On a mesh every rank calls it: the params are gathered whole (the
+    artifact is a single-device program), rank 0 traces and writes, and the
+    others wait for it at a barrier."""
     h, w = int(input_hw[0]), int(input_hw[1])
     if h % 32 or w % 32:
         raise ValueError(f"input_hw must be divisible by 32, got {(h, w)}")
-    masters = model.ema_params if use_ema else model.params
-    run_params = _sorted_tree(model._resolve_ema(True, False) if use_ema else model._run_params)
+    masters = model._gather(model.ema_params if use_ema else model.params)
+    if model._tp:
+        run_params = bridge.cast_params(masters, model.compute_dtype)
+    else:
+        run_params = model._resolve_ema(True, False) if use_ema else model._run_params
+    if model.mesh.is_writer:
+        _write_artifact(model, directory, masters, _sorted_tree(run_params), h, w, argmax,
+                        use_ema)
+    collectives.barrier(model.mesh)
+    return directory
+
+
+def _write_artifact(model, directory, masters, run_params, h, w, argmax, use_ema) -> None:
     compact = argmax and model.num_classes <= 255
     head = _PredictHead(argmax, model.compute_dtype, torch.uint8 if compact else torch.int32)
     images = torch.zeros((2, h, w, 3), dtype=torch.uint8, device=model.device)
@@ -115,7 +131,6 @@ def export_serving_artifact(model, directory: str, *, input_hw=(1024, 512),
     }
     with open(os.path.join(directory, _MANIFEST), "w") as f:
         json.dump(manifest, f, indent=2, default=str)
-    return directory
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:

@@ -1,5 +1,5 @@
 """A slim ``FCN8s`` facade for training, serving, evaluation and
-checkpoints on one card.
+checkpoints, on one card or on a ('data', 'model') mesh of them.
 
 Port of ``fcn8s_tensorflow_tpu/engine/model.py``: construction from a seed,
 a JAX param tree, a checkpoint (``model_load_dir``, ``resume``) or a partial
@@ -21,9 +21,16 @@ the offline scorer, ``evaluation/pixel_eval.py``); and ``close``, with the
 JAX facade's argument names; and ``export_serving`` (a ``torch.export``
 artifact, ``engine/export.py``). Checkpoints are the JAX package's format
 (``engine/checkpoint.py``): one written by either package loads in the
-other, EMA average and observer counters included. Spatial partitioning
-(its argument raises ``NotImplementedError`` when set) belongs to a later
-part of the port.
+other, EMA average and observer counters included.
+
+``mesh=``/``tensor_parallel=`` (``parallel/mesh.py``): one process per mesh
+position, each making the same calls on the same global batch. Batches pad
+to the 'data' axis and each rank puts its rows on its card; params (and the
+EMA and the optimizer moments) live as this rank's shards; every call
+returns on every rank what the JAX facade returns, and files are written by
+rank 0, the others waiting at a barrier. Spatial partitioning (its argument
+raises ``NotImplementedError`` when set) needs a hand halo exchange that
+the port does not have yet.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from glob import glob
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from PIL import Image
 
 from .. import bridge
@@ -51,12 +59,22 @@ from ..models.fcn8s import decoder_variant, init_fcn8s
 from ..ops.augment_device import make_augment_fn
 from ..ops.metrics import empty_metrics_state, finalize_metrics
 from ..ops.quantize import collect_activation_absmax, quantize_fcn8s_params
+from ..parallel import collectives
+from ..parallel.mesh import (
+    DATA_AXIS,
+    batch_rows,
+    create_mesh,
+    gather_params,
+    param_sharding_tree,
+    shard_params,
+)
 from ..parallel.steps import (
     Optimizer,
     ScaleByAdamTF1State,
     TrainState,
     create_train_state,
     eval_step,
+    OptimizerState,
     make_optimizer,
     predict_step,
     train_step,
@@ -65,12 +83,25 @@ from ..parallel.steps import (
 from .summaries import SummaryLogger
 
 _ALLOWED_METRICS = {"loss", "mean_iou", "accuracy"}
-_TILE_CHUNK = 8  # tiles per dispatch of a tiled predict
+_TILE_CHUNK = 8  # tiles per dispatch of a tiled predict, per 'data' position
 _DECODE_AHEAD = 3  # predict_and_save: chunks decoded ahead of the dispatch
 
 
 def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported to the PyTorch package yet")
+    raise NotImplementedError(
+        f"{what} is not ported to the PyTorch package yet: it needs a hand-written halo "
+        "exchange for every conv, pool and deconv, the next slice of the port")
+
+
+def _default_mesh(device) -> "Mesh":
+    """The mesh of ``FCN8s(mesh=None)``: JAX's ``create_mesh()``, every rank
+    of an initialised group on one 'data' axis (on the card of its
+    ``LOCAL_RANK`` for the default ``"cuda"``), else this one process on
+    ``device``."""
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    if world > 1 and torch.device(device) == torch.device("cuda"):
+        return create_mesh()
+    return create_mesh(devices=[device] * world)
 
 
 def _map_tree(fn, tree: dict) -> dict:
@@ -88,6 +119,18 @@ def _opt_tensors(opt_state) -> list:
     return list(inner or [])
 
 
+def _map_opt_leaves(opt_state, fn):
+    """An ``OptimizerState`` with ``fn`` applied to each list of its
+    per-param tensors (Adam's moments, the momentum traces)."""
+    inner = opt_state.inner
+    if isinstance(inner, ScaleByAdamTF1State):
+        inner = ScaleByAdamTF1State(count=inner.count, mu=fn(inner.mu), nu=fn(inner.nu))
+    elif inner is not None:
+        inner = fn(inner)
+    return OptimizerState(count=opt_state.count, learning_rate=opt_state.learning_rate,
+                          inner=inner)
+
+
 def _opt_scalars(opt_state) -> tuple:
     """(count, last learning rate, Adam's own count or None)."""
     inner = opt_state.inner
@@ -98,11 +141,21 @@ def _opt_scalars(opt_state) -> tuple:
 class FCN8s:
     """FCN-8s semantic segmentation on one device (``device``, default
     ``"cuda"``; without a card that raises, and the CPU runs only when asked
-    for with ``device="cpu"``). Parameters are held in fp32 (``self.params``, the port's tree,
-    whose leaves require grad) and, for inference, once more in
-    ``compute_dtype`` (rebuilt whenever training moved the masters).
+    for with ``device="cpu"``) or on a mesh. Parameters are held in fp32
+    (``self.params``, the port's tree, whose leaves require grad) and, for
+    inference, once more in ``compute_dtype`` (rebuilt whenever training
+    moved the masters).
 
-    Arguments follow the JAX facade: ``num_classes``, or ``model_load_dir``
+    Arguments follow the JAX facade, positionally too: ``model_load_dir``,
+    ``tags`` (accepted for signature parity and ignored), ``vgg16_dir``,
+    ``num_classes``, ``variables_load_dir``; then by keyword ``mesh`` (a
+    ``parallel.mesh.create_mesh`` mesh over the initialised process group;
+    default ``create_mesh()``'s, which without a group is this one process)
+    and ``tensor_parallel`` (fc6/fc7 sharded over the mesh's 'model' axis).
+    On a mesh the model runs on ``mesh.device``; ``device`` must then be
+    the default or of the same type.
+
+    ``num_classes``, or ``model_load_dir``
     (a checkpoint directory: its ``model_config``, params, global step and
     optimizer state are restored, the compute dtype too unless
     ``compute_dtype`` is given, and the optimizer is rebuilt from its saved
@@ -121,12 +174,14 @@ class FCN8s:
     ``parallel.steps.make_optimizer``) with ``optimizer_kwargs`` and
     ``clip_norm``."""
 
-    def __init__(self, num_classes: int | None = None, *, model_load_dir=None,
-                 variables_load_dir=None, vgg16_dir=None, width_mult: float = 1.0,
-                 fc_channels: int | None = None, variant: str = "fcn8s", compute_dtype=None,
-                 bilinear_deconv_init: bool = False, seed: int = 0, device="cuda",
-                 remat: bool = False, ignore_label: int | None = None, optimizer="adam",
-                 optimizer_kwargs: dict | None = None, clip_norm: float | None = None):
+    def __init__(self, model_load_dir=None, tags=None, vgg16_dir=None, num_classes=None,
+                 variables_load_dir=None, *, mesh=None, tensor_parallel: bool = False,
+                 compute_dtype=None, width_mult: float = 1.0, fc_channels: int | None = None,
+                 bilinear_deconv_init: bool = False, seed: int = 0, remat: bool = False,
+                 variant: str = "fcn8s", ignore_label: int | None = None, optimizer="adam",
+                 optimizer_kwargs: dict | None = None, clip_norm: float | None = None,
+                 device="cuda"):
+        del tags
         if model_load_dir is None and num_classes is None:
             raise ValueError(
                 "You must provide either `model_load_dir` or `num_classes` "
@@ -167,15 +222,18 @@ class FCN8s:
         self._setup(params, width_mult=width_mult, fc_channels=fc_channels,
                     compute_dtype=torch.bfloat16 if compute_dtype is None else compute_dtype,
                     device=device, seed=seed, remat=remat, ignore_label=ignore_label,
-                    optimizer=optimizer, optimizer_kwargs=optimizer_kwargs, clip_norm=clip_norm)
+                    optimizer=optimizer, optimizer_kwargs=optimizer_kwargs, clip_norm=clip_norm,
+                    mesh=mesh, tensor_parallel=tensor_parallel)
         if restored is not None:
             self.state.step = self.g_step = restored["step"] or 0
-            # staged on the host: a model loaded to serve never puts the
-            # optimizer's moments on the card; the first train() moves them
+            # staged on the host, whole: a model loaded to serve never puts
+            # the optimizer's moments on the card; the first train() shards
+            # and moves them
             self._staged_opt_state = restored["opt_state"]
-            # a live device tree, so that train(ema_decay=...) continues it
+            # a live device tree (this rank's shards), so that
+            # train(ema_decay=...) continues it
             if restored["ema"] is not None:
-                self._ema = _map_tree(lambda t: t.to(self.device), restored["ema"])
+                self._ema = _map_tree(lambda t: t.to(self.device), self._shard(restored["ema"]))
             # the interrupted run's observer counters: carried through saves,
             # and continued by the next train() call only
             observer = restored["metadata"].get("train_observer") or {}
@@ -192,19 +250,21 @@ class FCN8s:
     def from_params(cls, tree: dict, *, width_mult: float = 1.0, fc_channels: int | None = None,
                     compute_dtype=torch.bfloat16, device="cuda", seed: int = 0,
                     remat: bool = False, ignore_label: int | None = None, optimizer="adam",
-                    optimizer_kwargs: dict | None = None,
-                    clip_norm: float | None = None) -> "FCN8s":
+                    optimizer_kwargs: dict | None = None, clip_norm: float | None = None,
+                    mesh=None, tensor_parallel: bool = False) -> "FCN8s":
         """A model on the weights of a JAX-layout param tree (numpy arrays,
-        e.g. ``init_fcn8s`` of the JAX package through ``np.asarray``).
-        ``width_mult``/``fc_channels`` only describe the tree in
-        ``model_config``; the shapes come from the tree. The other arguments
-        are the constructor's."""
+        e.g. ``init_fcn8s`` of the JAX package through ``np.asarray``):
+        ``bridge.to_port``, then on a mesh this rank's shards
+        (``parallel.mesh.shard_params``). ``width_mult``/``fc_channels``
+        only describe the tree in ``model_config``; the shapes come from the
+        tree. The other arguments are the constructor's."""
         device = resolve_device(device)
         model = cls.__new__(cls)
         model._setup(bridge.to_port(tree), width_mult=width_mult, fc_channels=fc_channels,
                      compute_dtype=compute_dtype, device=device, seed=seed, remat=remat,
                      ignore_label=ignore_label, optimizer=optimizer,
-                     optimizer_kwargs=optimizer_kwargs, clip_norm=clip_norm)
+                     optimizer_kwargs=optimizer_kwargs, clip_norm=clip_norm, mesh=mesh,
+                     tensor_parallel=tensor_parallel)
         return model
 
     @classmethod
@@ -219,11 +279,20 @@ class FCN8s:
         return cls(model_load_dir=path, **kwargs)
 
     def _setup(self, params, *, width_mult, fc_channels, compute_dtype, device, seed, remat,
-               ignore_label, optimizer, optimizer_kwargs, clip_norm):
-        """``params``: the port's fp32 tree on the CPU."""
-        self.device = torch.device(device)
+               ignore_label, optimizer, optimizer_kwargs, clip_norm, mesh=None,
+               tensor_parallel=False):
+        """``params``: the port's whole fp32 tree on the CPU."""
+        if mesh is None:
+            mesh = _default_mesh(device)
+        elif mesh.device.type != torch.device(device).type:
+            raise ValueError(f"device={str(device)!r} differs from the mesh's {mesh.device}")
+        self.mesh = mesh
+        self.tensor_parallel = tensor_parallel
+        self._tp = mesh.tensor_parallel(tensor_parallel)
+        self._writer = mesh.is_writer
+        self.device = mesh.device
         self.compute_dtype = compute_dtype
-        self.params = _map_tree(lambda t: t.to(self.device), params)
+        self.params = _map_tree(lambda t: t.to(self.device), self._shard(params))
         self.num_classes = int(self.params["decoder"]["fc7_1x1"]["bias"].shape[0])
         self.variant = decoder_variant(self.params["decoder"])
         self.remat = remat
@@ -261,6 +330,7 @@ class FCN8s:
         self._qparams = None  # the int8 tree, built lazily by _quantized_params
         self._augment_fn = self._device_augment_cfg = None
         self._save_thread = None
+        self._save_pending = False  # an async save not yet joined (every rank)
         self.predict_and_save_timings = None  # the last predict_and_save's time split
         for t in bridge.param_leaves(self.params):
             t.requires_grad_(True)
@@ -287,14 +357,61 @@ class FCN8s:
             self._run_params = bridge.cast_params(self.params, self.compute_dtype)
         self._invalidate_quantized()
 
+    # ------------------------------------------------------------------
+    # the mesh: this rank's shards and rows
+    # ------------------------------------------------------------------
+    def _shard(self, tree: dict) -> dict:
+        """This rank's blocks of a whole tree of the params' structure."""
+        return shard_params(tree, self.mesh, True) if self._tp else tree
+
+    def _gather(self, tree: dict) -> dict:
+        """The whole tree from this rank's blocks (a collective under
+        tensor parallelism: every rank calls it)."""
+        return gather_params(tree, self.mesh, True) if self._tp else tree
+
+    def _leaves_as_tree(self, leaves: list) -> dict:
+        """A list aligned with ``bridge.param_leaves(self.params)`` (an
+        optimizer's moments) as a tree of the params' structure."""
+        it = iter(leaves)
+        return {part: {name: {k: next(it) for k in layer} for name, layer in layers.items()}
+                for part, layers in self.params.items()}
+
+    def _shard_opt(self, opt_state):
+        return _map_opt_leaves(opt_state, lambda ts: bridge.param_leaves(
+            self._shard(self._leaves_as_tree(ts))))
+
+    def _gather_opt(self, opt_state):
+        return _map_opt_leaves(opt_state, lambda ts: bridge.param_leaves(
+            self._gather(self._leaves_as_tree(ts))))
+
+    def _full_shape_params(self) -> dict:
+        """The whole tree's shapes as meta tensors (no collective)."""
+        shardings = param_sharding_tree(self.mesh, self.params, tensor_parallel=self._tp)
+        return {part: {name: {k: torch.empty(shardings[part][name][k].full_shape(t.shape),
+                                             device="meta") for k, t in layer.items()}
+                       for name, layer in layers.items()}
+                for part, layers in self.params.items()}
+
+    def _put_batch(self, *arrays):
+        """This rank's rows (``parallel.mesh.batch_rows``) of a padded host
+        batch, on its device (``_to_device``); the whole batch off a mesh."""
+        rows = batch_rows(arrays[0].shape[0], self.mesh)
+        out = tuple(self._to_device(a if rows is None else a[rows]) for a in arrays)
+        return out[0] if len(out) == 1 else out
+
+    @property
+    def _mesh_kwargs(self) -> dict:
+        """The steps' ``mesh``/``tensor_parallel`` arguments."""
+        return {"mesh": self.mesh, "tensor_parallel": self.tensor_parallel}
+
     def summary(self, input_hw=(1024, 512), batch: int = 1) -> str:
         """Per-layer report: kernel (HWIO, as the JAX package gives them) and
         output shapes, params, forward MACs, activation bytes, with model
-        totals (``utils/summary.py``): analytic, from the param tree's
-        shapes, no device work. ``input_hw`` must be multiples of 32."""
+        totals (``utils/summary.py``): analytic, from the whole param
+        tree's shapes, no device work. ``input_hw`` must be multiples of 32."""
         from ..utils.summary import model_summary
 
-        return model_summary(self.params, input_hw, batch)
+        return model_summary(self._full_shape_params(), input_hw, batch)
 
     # ------------------------------------------------------------------
     def _quantized_params(self) -> dict:
@@ -303,7 +420,8 @@ class FCN8s:
         (``_invalidate_quantized``), with the calibrated static activation
         scales once ``calibrate_quantization`` has run."""
         if self._qparams is None:
-            self._qparams = quantize_fcn8s_params(self.params, self._act_absmax,
+            # replicated on a mesh, as JAX keeps it: quantized from the whole tree
+            self._qparams = quantize_fcn8s_params(self._gather(self.params), self._act_absmax,
                                                   compute_dtype=self.compute_dtype)
         return self._qparams
 
@@ -315,15 +433,21 @@ class FCN8s:
         seen over the chunks / 127, replacing the dynamic per-tensor scales.
         The scales persist across training (recalibrate after a large
         distribution shift). Returns the layer -> absmax dict (0-d fp32
-        tensors on the model's device), also kept on the model."""
+        tensors on the model's device), also kept on the model. On a mesh
+        each rank runs its rows of each chunk through the whole encoder and
+        the maxima are taken over 'data'."""
         images = np.asarray(images)
         if images.ndim == 3:
             images = images[None]
         absmax = None
+        run = self._run_params if not self._tp else bridge.cast_params(
+            self._gather(self.params), self.compute_dtype)
         for start in range(0, images.shape[0], batch_size):
             chunk, _ = self._prepare_images(images[start:start + batch_size])
-            batch_max = collect_activation_absmax(self._run_params, self._to_device(chunk),
+            batch_max = collect_activation_absmax(run, self._put_batch(chunk),
                                                   compute_dtype=self.compute_dtype)
+            batch_max = {k: collectives.all_reduce(v, self.mesh, op=dist.ReduceOp.MAX)
+                         for k, v in batch_max.items()}
             absmax = batch_max if absmax is None else {
                 k: torch.maximum(absmax[k], batch_max[k]) for k in absmax}
         self._act_absmax = absmax
@@ -408,14 +532,13 @@ class FCN8s:
             return np.argmax(labels, axis=-1).astype(np.uint8)
         return labels.astype(np.uint8)
 
-    @staticmethod
-    def _pad_batch_dim(*arrays, multiple: int):
-        """Pad the batch dim up to a multiple of ``multiple`` by repeating the
-        last sample; returns (padded_arrays..., sample_mask), the mask 0 on
-        the padding, which keeps loss and gradient exactly the short
-        batch's."""
+    def _pad_batch_dim(self, *arrays, multiple: int | None = None):
+        """Pad the batch dim up to a multiple of ``multiple`` (default: the
+        mesh's 'data' axis) by repeating the last sample; returns
+        (padded_arrays..., sample_mask), the mask 0 on the padding, which
+        keeps loss, gradient and metrics exactly the short batch's."""
         n = arrays[0].shape[0]
-        pad = (-n) % multiple
+        pad = (-n) % (self.mesh.shape[DATA_AXIS] if multiple is None else multiple)
         mask = np.ones((n + pad,), np.float32)
         if pad:
             mask[n:] = 0.0
@@ -423,10 +546,9 @@ class FCN8s:
                            for a in arrays)
         return (*arrays, mask)
 
-    @staticmethod
-    def _prepare_images(images):
-        """Pad H and W to multiples of 32 with zeros. Returns (padded,
-        (n, h, w)). One card needs no batch padding."""
+    def _prepare_images(self, images):
+        """Pad H and W to multiples of 32 with zeros, and the batch to the
+        mesh's 'data' axis. Returns (padded, (n, h, w))."""
         images = np.asarray(images)
         if images.ndim == 3:
             images = images[None]
@@ -434,6 +556,7 @@ class FCN8s:
         ph, pw = (-h) % 32, (-w) % 32
         if ph or pw:
             images = np.pad(images, ((0, 0), (0, ph), (0, pw), (0, 0)), mode="constant")
+        images, _ = self._pad_batch_dim(images)
         return images, (n, h, w)
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
@@ -448,15 +571,17 @@ class FCN8s:
     # ------------------------------------------------------------------
     def _dispatch_predict(self, padded: np.ndarray, argmax=True, overlay_lut=None,
                           quantized=False, params=None) -> torch.Tensor:
-        """H2D and the predict step on a padded batch; returns the device
-        output without waiting for it, so callers can overlap the next
-        dispatch with this one's D2H. ``params`` overrides the live
-        compute-dtype params (the EMA's)."""
+        """H2D and the predict step on an H/W-padded batch (its batch padded
+        here to the 'data' axis, the extra rows left in the output); returns
+        the device output without waiting for it, so callers can overlap the
+        next dispatch with this one's D2H (off a mesh). ``params`` overrides
+        the live compute-dtype params (the EMA's)."""
         compact = argmax and overlay_lut is None and self.num_classes <= 255
-        return predict_step(self._inference_params(params, quantized), self._to_device(padded),
+        padded, _ = self._pad_batch_dim(padded)
+        return predict_step(self._inference_params(params, quantized), self._put_batch(padded),
                             argmax=argmax, compute_dtype=self.compute_dtype,
                             id_dtype=torch.uint8 if compact else torch.int32,
-                            overlay_lut=overlay_lut, quantized=quantized)
+                            overlay_lut=overlay_lut, quantized=quantized, **self._mesh_kwargs)
 
     def _inference_params(self, ema, quantized: bool) -> dict:
         """The tree a predict runs: the EMA's (``_resolve_ema``) when given,
@@ -534,14 +659,15 @@ class FCN8s:
             raise ValueError("predict_tta: scales must be non-empty")
         padded, (n, h, w) = self._prepare_images(images)
         call_params = self._inference_params(self._resolve_ema(use_ema, quantized), quantized)
-        im_d = self._to_device(padded)
+        im_d = self._put_batch(padded)
         ph, pw = padded.shape[1:3]
         acc = None
         for s in scales:
             sh = max(32, int(round(ph * float(s) / 32)) * 32)
             sw = max(32, int(round(pw * float(s) / 32)) * 32)
             p = tta_step(call_params, im_d, scale_hw=None if (sh, sw) == (ph, pw) else (sh, sw),
-                         flip=bool(flip), compute_dtype=self.compute_dtype, quantized=quantized)
+                         flip=bool(flip), compute_dtype=self.compute_dtype, quantized=quantized,
+                         **self._mesh_kwargs)
             acc = p if acc is None else acc.add_(p)
             del p
         probs = acc if len(scales) == 1 else acc.div_(float(len(scales)))
@@ -581,12 +707,12 @@ class FCN8s:
 
     def _predict_tiled(self, images, argmax, lut, quantized, tile, overlap, params=None,
                        blend=False):
-        """``predict(tile=...)``: see ``predict``. Tiles go in chunks of 8,
-        the JAX facade's on one device; dynamic int8 scales are per
+        """``predict(tile=...)``: see ``predict``. Tiles go in chunks of 8 per
+        'data' position, the JAX facade's; dynamic int8 scales are per
         dispatch, so the chunk is part of the result. Unlike the JAX facade,
-        the last chunk is not padded to 8 tiles with copies of its last:
-        eager PyTorch compiles nothing per batch size, and the results do
-        not change."""
+        the last chunk is padded only to the 'data' axis, not to the whole
+        chunk with copies of its last: eager PyTorch compiles nothing per
+        batch size, and the results do not change."""
         th, tw = tile
         if th % 32 or tw % 32:
             raise ValueError(f"tile dims must be multiples of 32, got {tile}")
@@ -624,6 +750,7 @@ class FCN8s:
 
         def consume(dev, start):
             part = self._host_output(dev, argmax and not blend, lut)  # D2H sync point
+            part = part[:min(chunk, batch.shape[0] - start)]  # drop the 'data' padding
             if not blend:
                 outs.append(part)
                 return
@@ -634,10 +761,11 @@ class FCN8s:
                 if j == 0:  # once per tile (identical for every image)
                     wsum[ys:ys + th, xs:xs + tw] += wtile
 
+        chunk = _TILE_CHUNK * self.mesh.shape[DATA_AXIS]
         pending = deque()
-        for start in range(0, batch.shape[0], _TILE_CHUNK):
+        for start in range(0, batch.shape[0], chunk):
             pending.append((self._dispatch_predict(
-                batch[start:start + _TILE_CHUNK], argmax and not blend, lut, quantized,
+                batch[start:start + chunk], argmax and not blend, lut, quantized,
                 params=params), start))
             if len(pending) >= 2:
                 consume(*pending.popleft())
@@ -686,6 +814,9 @@ class FCN8s:
         id exceeds 255. ``tile``/``tile_overlap``/``tile_blend``,
         ``use_ema`` and ``quantized`` are ``predict``'s.
 
+        On a mesh every rank decodes and predicts, rank 0 alone writes and
+        prints, and the others wait for it at a barrier before returning.
+
         ``verbose`` prints the banner and a progress line. The time split of
         the last call is kept in ``predict_and_save_timings`` (seconds:
         ``decode`` and ``encode`` summed over their pools' threads,
@@ -700,9 +831,11 @@ class FCN8s:
         ema = self._resolve_ema(use_ema, False)
         if quantized and use_ema:
             raise ValueError("quantized and use_ema are mutually exclusive")
-        if overwrite_existing and os.path.exists(results_dir):
-            shutil.rmtree(results_dir)
-        os.makedirs(results_dir, exist_ok=True)
+        verbose = verbose and self._writer
+        if self._writer:
+            if overwrite_existing and os.path.exists(results_dir):
+                shutil.rmtree(results_dir)
+            os.makedirs(results_dir, exist_ok=True)
 
         image_paths = sorted(glob(os.path.join(images_dir, "*." + image_file_extension)))
         if verbose:
@@ -790,7 +923,7 @@ class FCN8s:
                 h, w = images_host.shape[1:3]
                 out = out.cpu().numpy()[:, :h, :w]  # D2H: waits for the card
             timings["d2h"] += time.perf_counter() - t0
-            for j, path in enumerate(chunk_paths):
+            for j, path in enumerate(chunk_paths if self._writer else ()):
                 write_futures.append(writer.submit(timed, "encode", write_png, path, out[j],
                                                    images_host[j]))
             done += len(chunk_paths)
@@ -834,6 +967,7 @@ class FCN8s:
         finally:
             reader.shutdown(wait=True)
             writer.shutdown(wait=True)
+        collectives.barrier(self.mesh)
         if verbose:
             print()
         self.predict_and_save_timings = {"images": len(image_paths),
@@ -859,7 +993,9 @@ class FCN8s:
         are built here, so a stale ``CITYSCAPES_EXPORT_DIR`` is ignored;
         ``quiet`` (default) keeps stdout silent. The prediction arguments
         pass through. Returns the scorer's result dict, also written as JSON
-        to ``export_file`` (default: inside ``results_dir``)."""
+        to ``export_file`` (default: inside ``results_dir``). On a mesh every
+        rank predicts, rank 0 writes and scores, and every rank returns its
+        result."""
         from ..evaluation import pixel_eval
 
         img_root = os.path.join(dataset_dir, "leftImg8bit", split)
@@ -890,7 +1026,8 @@ class FCN8s:
         if not ground_truths:
             raise ValueError(f"no ground truth found under {args.ground_truth_search}")
 
-        os.makedirs(results_dir, exist_ok=True)
+        if self._writer:
+            os.makedirs(results_dir, exist_ok=True)
         for city in sorted(os.listdir(img_root)):
             city_dir = os.path.join(img_root, city)
             if not os.path.isdir(city_dir):
@@ -901,8 +1038,11 @@ class FCN8s:
                 quantized=quantized, tile=tile, tile_overlap=tile_overlap,
                 tile_blend=tile_blend, verbose=not quiet)
 
-        predictions = [pixel_eval.get_prediction(args, gt) for gt in ground_truths]
-        return pixel_eval.evaluate_img_lists(predictions, ground_truths, args)
+        result = None
+        if self._writer:
+            predictions = [pixel_eval.get_prediction(args, gt) for gt in ground_truths]
+            result = pixel_eval.evaluate_img_lists(predictions, ground_truths, args)
+        return collectives.broadcast_object(result, self.mesh)
 
     # ------------------------------------------------------------------
     def train(self, train_generator, epochs, steps_per_epoch, learning_rate_schedule,
@@ -971,6 +1111,12 @@ class FCN8s:
         are written into checkpoints, and the first ``train`` on a model
         restored by ``resume``/``model_load_dir`` continues them; later
         calls start fresh.
+
+        On a mesh every rank trains on its rows of each batch (padded to
+        ``lcm(data, gradient_accumulation)``), the loss and the metrics the
+        observers read are the whole batch's (summed over 'data'), so every
+        rank takes the same branch; rank 0 alone prints and writes the
+        summaries, the train log and the checkpoints.
 
         Not ported yet (``NotImplementedError``): ``spatial_partition``."""
         metrics = set(metrics)  # the reference's default `{}` is a dict literal
@@ -1059,11 +1205,13 @@ class FCN8s:
                 raise ValueError("record_summaries requires summaries_dir")
             if self._summary_logger is not None:
                 self._summary_logger.close()
-            logger = self._summary_logger = SummaryLogger(summaries_dir, summaries_name)
+                self._summary_logger = None
+            if self._writer:
+                logger = self._summary_logger = SummaryLogger(summaries_dir, summaries_name)
 
         if self.state.opt_state is None:
             if self._staged_opt_state is not None:  # restored from a checkpoint
-                self.state.opt_state = self._staged_opt_state.to(self.device)
+                self.state.opt_state = self._shard_opt(self._staged_opt_state).to(self.device)
                 self._staged_opt_state = None
             else:
                 self.state = create_train_state(self.params, self.optimizer)
@@ -1086,7 +1234,7 @@ class FCN8s:
                         num_classes=self.num_classes, compute_dtype=self.compute_dtype,
                         remat=self.remat, grad_accum=self._grad_accum,
                         ignore_label=self.ignore_label, class_weights=self._class_weights,
-                        augment_fn=self._augment_fn)
+                        augment_fn=self._augment_fn, **self._mesh_kwargs)
                     g_step += 1
                     self.variables_updated = True
                     if ema_decay is not None:
@@ -1102,10 +1250,14 @@ class FCN8s:
                             logger.log_training_step(g_step, float(vals[-1]), learning_rate)
                     learning_rate = _lr(g_step)
                 self.g_step = g_step
-                print(f"Epoch {epoch}/{epochs}: training loss {self.training_loss}, "
-                      f"learning rate {learning_rate:.3g}")
-                if logger is not None:
-                    logger.log_weight_summaries(g_step, self.params)
+                if self._writer:
+                    print(f"Epoch {epoch}/{epochs}: training loss {self.training_loss}, "
+                          f"learning rate {learning_rate:.3g}")
+                if record_summaries:
+                    full = self._gather(self.params)  # every rank: a collective under TP
+                    if logger is not None:
+                        logger.log_weight_summaries(g_step, full)
+                    del full
 
                 eval_epoch = bool(metrics and eval_frequency and epoch % eval_frequency == 0)
                 if eval_epoch:
@@ -1145,16 +1297,19 @@ class FCN8s:
                                 lr_scale = new_scale
                                 rp_stale = 0
                                 learning_rate = _lr(g_step)
-                                print(f"Plateau: '{monitor}' stalled {rp_patience} observations "
-                                      f"— learning rate scaled to {learning_rate:.3e}.")
+                                if self._writer:
+                                    print(f"Plateau: '{monitor}' stalled {rp_patience} "
+                                          f"observations — learning rate scaled to "
+                                          f"{learning_rate:.3e}.")
                     if obs is not None and early_stopping is not None:
                         if _improved(obs, es_best, es_min_delta):
                             es_best, es_stale = obs, 0
                         else:
                             es_stale += 1
                             if es_stale >= es_patience:
-                                print(f"Early stopping: '{monitor}' has not improved in "
-                                      f"{es_stale} observations (best {es_best:.6f}).")
+                                if self._writer:
+                                    print(f"Early stopping: '{monitor}' has not improved in "
+                                          f"{es_stale} observations (best {es_best:.6f}).")
                                 stop_early = True
                     observer_state = {}
                     if reduce_lr_on_plateau is not None:
@@ -1181,7 +1336,7 @@ class FCN8s:
                         if better:
                             self.best_metric_values[i] = self.metric_values[i]
 
-                if train_log:
+                if train_log and self._writer:
                     record = {"epoch": epoch, "global_step": g_step,
                               "training_loss": self.training_loss, "learning_rate": epoch_lr,
                               "time": time.time()}
@@ -1235,7 +1390,7 @@ class FCN8s:
             saved_params = [t.detach().clone() for t in leaves]
         transient = state.opt_state is None
         if transient:
-            state.opt_state = (self._staged_opt_state.to(self.device, copy=True)
+            state.opt_state = (self._shard_opt(self._staged_opt_state).to(self.device, copy=True)
                                if self._staged_opt_state is not None
                                else self.optimizer.init(self.params))
             saved_opt = None
@@ -1254,7 +1409,8 @@ class FCN8s:
                     keep_prob, optimizer=self.optimizer, num_classes=self.num_classes,
                     compute_dtype=self.compute_dtype, remat=self.remat,
                     grad_accum=self._grad_accum, ignore_label=self.ignore_label,
-                    class_weights=self._class_weights, augment_fn=self._augment_fn)
+                    class_weights=self._class_weights, augment_fn=self._augment_fn,
+                    **self._mesh_kwargs)
                 loss = float(loss)
                 lrs.append(lr)
                 losses.append(loss)
@@ -1301,18 +1457,23 @@ class FCN8s:
 
     def _make_train_stream(self, train_generator, prefetch: int):
         """Iterator of device (images, label_ids, mask) triples. The host
-        part converts labels to uint8 ids and pads the batch to a multiple
-        of the gradient accumulation (masked samples). With ``prefetch > 0``
-        a background thread runs it ``prefetch`` batches ahead, in pinned
-        memory; with 0 it runs in the caller, synchronously."""
+        part converts labels to uint8 ids, pads the batch to a multiple of
+        ``lcm(data axis, gradient accumulation)`` (masked samples) and takes
+        this rank's rows in the microbatch layout of ``batch_rows``. With
+        ``prefetch > 0`` a background thread runs it ``prefetch`` batches
+        ahead, in pinned memory; with 0 it runs in the caller,
+        synchronously."""
         self._close_train_stream()
         accum = self._grad_accum
+        multiple = math.lcm(self.mesh.shape[DATA_AXIS], accum)
 
         def host_pipeline():
             while True:
                 images, labels = next(train_generator)
                 label_ids = self._labels_to_ids(np.asarray(labels))
-                yield self._pad_batch_dim(np.asarray(images), label_ids, multiple=accum)
+                batch = self._pad_batch_dim(np.asarray(images), label_ids, multiple=multiple)
+                rows = batch_rows(batch[0].shape[0], self.mesh, accum)
+                yield batch if rows is None else tuple(a[rows] for a in batch)
 
         if prefetch and prefetch > 0:
             self._train_stream = DevicePrefetcher(host_pipeline(), self.device, depth=prefetch)
@@ -1346,17 +1507,19 @@ class FCN8s:
             else:
                 images, labels = next(data_generator)
                 label_ids = self._labels_to_ids(np.asarray(labels))
-                # one card runs a short batch as it is, so every sample counts
-                mask = np.ones(len(label_ids), np.float32)
-                im_d, lb_d, mask_d = (self._to_device(np.asarray(images)),
-                                      self._to_device(label_ids), self._to_device(mask))
+                # padded to the 'data' axis with masked samples (none off a mesh)
+                im_d, lb_d, mask_d = self._put_batch(
+                    *self._pad_batch_dim(np.asarray(images), label_ids))
             state = eval_step(run, state, im_d, lb_d, mask_d,
                               num_classes=self.num_classes, compute_dtype=self.compute_dtype,
-                              ignore_label=self.ignore_label, class_weights=self._class_weights)
+                              ignore_label=self.ignore_label, class_weights=self._class_weights,
+                              **self._mesh_kwargs)
         self.metrics_state = state
         values = {k: float(v) for k, v in finalize_metrics(state).items()}
         self.metric_values = [values[name] for name in self.metric_names]
-        print("  ".join(f"{n}: {v:.4f}" for n, v in zip(self.metric_names, self.metric_values)))
+        if self._writer:
+            print("  ".join(f"{n}: {v:.4f}" for n, v in zip(self.metric_names,
+                                                             self.metric_values)))
         return values
 
     def evaluate(self, data_generator, num_batches, metrics={"loss", "mean_iou", "accuracy"},
@@ -1425,7 +1588,13 @@ class FCN8s:
         on a thread
         (``checkpoint.save_checkpoint_async``); the previous writer is joined
         first, so one save is in flight at a time, and a failed write raises
-        at the next join (the next save, ``train``'s end or ``close``)."""
+        at the next join (the next save, ``train``'s end or ``close``).
+
+        On a mesh every rank calls it: the whole tree is gathered (params,
+        optimizer moments and EMA; an all-gather over 'model' under tensor
+        parallelism), rank 0 writes exactly the file a mesh-less save of
+        the same params writes, and the others wait for it at a barrier
+        (with ``block=False``, at the join)."""
         if not self.variables_updated and not force_save:
             print("Abort: Nothing to save, no training has been performed since the model "
                   "was last saved.")
@@ -1452,27 +1621,42 @@ class FCN8s:
         if self._observer_state:
             # the observers' counters, so a resumed run continues them
             metadata["train_observer"] = dict(self._observer_state)
-        opt_state = (self.state.opt_state or self._staged_opt_state
-                     or self.optimizer.init(self.params, device="cpu"))
-        state = TrainState(step=step, params=self.params, opt_state=opt_state)
+        params = self._gather(self.params)
+        if self.state.opt_state is not None:
+            opt_state = self._gather_opt(self.state.opt_state)
+        else:  # the staged state is whole already
+            opt_state = (self._staged_opt_state
+                         or self.optimizer.init(self._full_shape_params(), device="cpu"))
+        ema = None if self._ema is None else self._gather(self._ema)
+        state = TrainState(step=step, params=params, opt_state=opt_state)
         self._join_pending_save()
-        if block:
-            ckpt.save_checkpoint(directory, state, metadata, max_to_keep=5, ema=self._ema)
-        else:
+        if self._writer and block:
+            ckpt.save_checkpoint(directory, state, metadata, max_to_keep=5, ema_params=ema)
+        elif self._writer:
             self._save_thread = ckpt.save_checkpoint_async(directory, state, metadata,
-                                                           max_to_keep=5, ema=self._ema)
+                                                           max_to_keep=5, ema_params=ema)
+        if block:
+            collectives.barrier(self.mesh)
+        else:
+            self._save_pending = True
         self.variables_updated = False
         return directory
 
     def _join_pending_save(self) -> None:
+        """Wait for the in-flight async save: rank 0 joins its writer, and
+        every rank then meets at a barrier, so none reads a checkpoint that
+        is still being written."""
         thread = self._save_thread
         if thread is not None:
             thread.join()
             self._save_thread = None
-            if thread.exc is not None:
-                # the dirty flag was cleared at the save: re-arm it and surface
-                self.variables_updated = True
-                raise RuntimeError("async checkpoint write failed") from thread.exc
+        if self._save_pending:
+            self._save_pending = False
+            collectives.barrier(self.mesh)
+        if thread is not None and thread.exc is not None:
+            # the dirty flag was cleared at the save: re-arm it and surface
+            self.variables_updated = True
+            raise RuntimeError("async checkpoint write failed") from thread.exc
 
     def load_variables(self, path):
         """Restore the params only, from the checkpoint directory ``path``
@@ -1482,22 +1666,26 @@ class FCN8s:
     def _restore_params(self, path, parts) -> None:
         """Copy the checkpoint's params of the tree parts ``parts`` (e.g.
         ``('encoder',)``, ``vgg16_dir``'s restore) into the masters, matched
-        by path."""
+        by path (on a mesh, this rank's blocks of them)."""
+        full = self._full_shape_params()
         example = {}  # JAX-layout shapes, as meta tensors
         for part in parts:
-            for name, layer in self.params[part].items():
+            for name, layer in full[part].items():
                 for key, t in layer.items():
                     jkey = "bias" if key == "bias" else "kernel"
                     example.setdefault(part, {}).setdefault(name, {})[jkey] = bridge.leaf_to_jax(
                         torch.empty_like(t, device="meta"), f"{part}/{name}/{jkey}")
         restored = ckpt.load_params_only(path, example)
+        values = {part: {name: {key: bridge.leaf_from_jax(
+            torch.from_numpy(restored[part][name]["bias" if key == "bias" else "kernel"]),
+            f"{part}/{name}/{'bias' if key == 'bias' else 'kernel'}") for key in layer}
+            for name, layer in self.params[part].items()} for part in parts}
+        shardings = param_sharding_tree(self.mesh, self.params, tensor_parallel=self._tp)
         with torch.no_grad():
             for part in parts:
                 for name, layer in self.params[part].items():
                     for key, t in layer.items():
-                        jkey = "bias" if key == "bias" else "kernel"
-                        value = torch.from_numpy(restored[part][name][jkey])
-                        t.copy_(bridge.leaf_from_jax(value, f"{part}/{name}/{jkey}"))
+                        t.copy_(shardings[part][name][key].shard(values[part][name][key]))
         self._refresh_run_params()
 
     def close(self):

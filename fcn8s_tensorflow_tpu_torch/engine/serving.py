@@ -141,11 +141,23 @@ class _MicroBatcher:
 
 class InferenceService:
     """Wraps an ``FCN8s`` model with the request-level logic (decode,
-    predict, encode, stats) — separable from the HTTP layer for tests."""
+    predict, encode, stats) — separable from the HTTP layer for tests.
+
+    It needs one controller: a request reaches one process, while a mesh
+    of the port runs one process per position that must all make each
+    call. So a model on a mesh of more than one position raises; serve a
+    single-rank model (the (1, 1) mesh, ``FCN8s(model_load_dir=ckpt)`` in
+    one process)."""
 
     def __init__(self, model, color_map=None, *, quantized: bool = False,
                  tile=None, tile_overlap: int = 128,
                  batch_window_ms: float = 0.0, max_batch: int = 8):
+        mesh = getattr(model, "mesh", None)
+        if mesh is not None and mesh.size > 1:
+            raise ValueError(
+                f"InferenceService needs one controller, and this model runs on a "
+                f"{mesh.shape['data']}x{mesh.shape['model']} mesh of processes: serve a "
+                "single-rank model (FCN8s(model_load_dir=...) in one process)")
         self.model = model
         self.color_map = color_map
         self.quantized = quantized

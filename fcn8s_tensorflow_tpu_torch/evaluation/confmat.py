@@ -93,6 +93,17 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def native_available() -> bool:
+    """Whether the native library builds and loads here (the JAX binding's
+    name). It reports a failed build as False instead of raising; every
+    other entry point raises it."""
+    try:
+        library()
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        return False
+    return True
+
+
 def _checked_pair(prediction, ground_truth, conf_matrix):
     """Flat uint8 views and the matrix's dim, with the JAX binding's checks
     and the index bound the C++ kernel relies on."""

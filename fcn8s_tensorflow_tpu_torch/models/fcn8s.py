@@ -15,8 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.nn import conv2d, nhwc
-from ..ops.subpixel import conv2d_transpose_subpixel
+from ..ops.nn import conv2d, conv2d_transpose, nhwc
+from ..ops.subpixel import conv2d_transpose_subpixel, subpixel_weight
 from .initializers import bilinear_upsampling_kernel, truncated_normal
 from .vgg16 import apply_vgg16, init_vgg16
 
@@ -96,13 +96,20 @@ def decoder_variant(decoder_params: dict) -> str:
 
 
 def apply_fcn8s_decoder(params: dict, pool3, pool4, fc7_out, *, compute_dtype=torch.bfloat16,
-                        logits_dtype=torch.float32, packed_final: bool = False) -> torch.Tensor:
+                        logits_dtype=torch.float32, subpixel: bool = True,
+                        packed_final: bool = False, variant: str | None = None) -> torch.Tensor:
     """Decode NCHW channels_last taps to NHWC logits ``(N, H, W, C)`` in
     ``logits_dtype``, or with ``packed_final`` the final deconv's packed
-    subpixel layout ``(N, H/s, W/s, s, s, C)``. The variant is the one the
-    decoder tree holds."""
+    subpixel layout ``(N, H/s, W/s, s, s, C)``. ``variant`` 'fcn8s',
+    'fcn16s' or 'fcn32s' (None: the one the decoder tree holds).
+
+    ``params`` is the decoder of ``bridge.cast_params`` (deconvs in their
+    subpixel form) or of the master tree (deconvs as ``kernel``/``bias``,
+    the subpixel form derived here). ``subpixel=False`` runs each deconv
+    that is not packed as JAX's input-dilated convolution
+    (``ops.nn.conv2d_transpose``), which needs the master ``kernel``."""
     p = params
-    variant = decoder_variant(params)
+    variant = decoder_variant(params) if variant is None else variant
 
     def score(name, x, scale=None):
         x = x.to(compute_dtype)
@@ -111,8 +118,17 @@ def apply_fcn8s_decoder(params: dict, pool3, pool4, fc7_out, *, compute_dtype=to
         return conv2d(x, p[name]["weight"], p[name]["bias"])
 
     def deconv(x, name, stride, packed=False):
-        return conv2d_transpose_subpixel(x, p[name]["subpixel_weight"], p[name]["subpixel_bias"],
-                                         stride=stride, packed=packed)
+        layer = p[name]
+        if not (subpixel or packed):
+            if "kernel" not in layer:
+                raise ValueError("subpixel=False needs the deconv kernels of the master "
+                                 "params, not the subpixel form of bridge.cast_params")
+            return conv2d_transpose(x, layer["kernel"], layer["bias"], strides=(stride, stride))
+        if "subpixel_weight" in layer:
+            w, b = layer["subpixel_weight"], layer["subpixel_bias"]
+        else:
+            w, b = subpixel_weight(layer["kernel"], layer["bias"], stride)
+        return conv2d_transpose_subpixel(x, w, b, stride=stride, packed=packed)
 
     def finish(x, name, stride):
         out = deconv(x, name, stride, packed=packed_final)
@@ -130,19 +146,24 @@ def apply_fcn8s_decoder(params: dict, pool3, pool4, fc7_out, *, compute_dtype=to
 
 def apply_fcn8s(params: dict, images: torch.Tensor, *, keep_prob: float = 1.0,
                 generator: torch.Generator | None = None, deterministic: bool = True,
-                compute_dtype=torch.bfloat16, logits_dtype=torch.float32, remat: bool = False,
-                packed_final: bool = False) -> torch.Tensor:
+                compute_dtype=torch.bfloat16, normalize: bool = True,
+                logits_dtype=torch.float32, remat: bool = False, packed_final: bool = False,
+                variant: str | None = None, mesh=None,
+                tensor_parallel: bool = False) -> torch.Tensor:
     """End-to-end forward: NHWC images (H, W divisible by 32) -> NHWC
     logits, as ``apply_fcn8s`` of the JAX package. ``params`` are what
     ``bridge.cast_params`` gives. ``keep_prob``/``generator``/
-    ``deterministic``/``remat`` are the encoder's (``apply_vgg16``);
-    ``packed_final`` is the decoder's (``apply_fcn8s_decoder``)."""
+    ``deterministic``/``normalize``/``remat`` and ``mesh``/
+    ``tensor_parallel`` are the encoder's (``apply_vgg16``);
+    ``packed_final`` and ``variant`` the decoder's
+    (``apply_fcn8s_decoder``). The decoder is replicated on a mesh."""
     pool3, pool4, fc7_out = apply_vgg16(params["encoder"], images, keep_prob=keep_prob,
                                         generator=generator, deterministic=deterministic,
-                                        compute_dtype=compute_dtype, remat=remat)
+                                        compute_dtype=compute_dtype, normalize=normalize,
+                                        remat=remat, mesh=mesh, tensor_parallel=tensor_parallel)
     return apply_fcn8s_decoder(params["decoder"], pool3, pool4, fc7_out,
                                compute_dtype=compute_dtype, logits_dtype=logits_dtype,
-                               packed_final=packed_final)
+                               packed_final=packed_final, variant=variant)
 
 
 def decoder_l2_loss(decoder_params: dict) -> torch.Tensor:

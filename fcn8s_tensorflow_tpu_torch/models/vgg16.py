@@ -5,6 +5,12 @@
 7x7 SAME conv and fc7 as a 1x1 conv, each with ReLU and dropout. Exposes
 (pool3, pool4, fc7) at strides 8/16/32. ``remat`` wraps each conv block and
 the head in ``torch.utils.checkpoint``, as ``jax.checkpoint`` does.
+
+On a mesh (``parallel/mesh.py``) with tensor parallelism, fc6 and fc7 run
+on this rank's shards in the Megatron pairing: fc6 column-parallel behind
+``copy_to_model``, fc7 row-parallel, its partial sums reduced over 'model'
+in fp32 (``reduce_from_model``) before its bias and the cast, so fc7 keeps
+the fp32 accumulation of the whole layer.
 """
 
 from __future__ import annotations
@@ -14,8 +20,10 @@ from functools import partial
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.nn import conv2d, dropout, dropout_mask, nchw
+from ..ops.nn import conv2d, dropout, dropout_mask, nchw, nhwc
 from ..ops.pool import maxpool2x2
+from ..parallel.collectives import copy_to_model, reduce_from_model
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
 from .initializers import he_normal
 
 # (name, in_ch, out_ch) per conv layer; a pool follows each block's last conv
@@ -77,22 +85,66 @@ def _run_head(masks, keep_prob, x, w6, b6, w7, b7):
     return dropout(torch.relu_(conv2d(x, w7, b7)), keep_prob, masks[1])
 
 
+def _run_head_tp(mesh, masks, keep_prob, x, w6, b6, w7, b7):
+    """The head on this rank's shards: fc6's output-channel block, then
+    fc7's partial product over that block (a 1x1 conv is a matmul over
+    channels), summed over 'model' in fp32, plus the bias, cast once."""
+    x = dropout(torch.relu_(conv2d(copy_to_model(x, mesh), w6, b6)), keep_prob, masks[0])
+    n, c, h, w = x.shape
+    part = nhwc(x).reshape(-1, c).float() @ w7.reshape(w7.shape[0], c).float().t()
+    y = (reduce_from_model(part, mesh) + b7.float()).to(x.dtype)
+    y = nchw(y.reshape(n, h, w, w7.shape[0]))
+    return dropout(torch.relu_(y), keep_prob, masks[1])
+
+
+def _head_masks(x, c6: int, c7: int, keep_prob: float, generator, mesh, tp: bool):
+    """fc6's and fc7's dropout keep-masks, drawn in that order from
+    ``generator``. On a mesh the draw covers the whole global batch and
+    both whole layers, and the rank keeps its block: its data position's
+    rows, and fc6's channel shard under tensor parallelism (``c6`` is the
+    local channel count). So every mesh shape applies the masks of the
+    single-card step, and the ranks of one 'model' group, which hold the
+    same rows, apply the same replicated fc7 mask."""
+    n, _, h, w = x.shape
+    if mesh is None:
+        return (dropout_mask((n, c6, h, w), keep_prob, generator),
+                dropout_mask((n, c7, h, w), keep_prob, generator))
+    d, i = mesh.shape[DATA_AXIS], mesh.coords[DATA_AXIS]
+    m6, j = (mesh.shape[MODEL_AXIS], mesh.coords[MODEL_AXIS]) if tp else (1, 0)
+    full6 = dropout_mask((n * d, c6 * m6, h, w), keep_prob, generator)
+    full7 = dropout_mask((n * d, c7, h, w), keep_prob, generator)
+    return (full6[i * n:(i + 1) * n, j * c6:(j + 1) * c6], full7[i * n:(i + 1) * n])
+
+
 def apply_vgg16(params: dict, images: torch.Tensor, *, keep_prob: float = 1.0,
                 generator: torch.Generator | None = None, deterministic: bool = True,
-                compute_dtype=torch.bfloat16, remat: bool = False):
+                compute_dtype=torch.bfloat16, normalize: bool = True, remat: bool = False,
+                mesh=None, tensor_parallel: bool = False):
     """Run the encoder on NHWC ``images`` (float or uint8 in [0, 255], H and
-    W divisible by 32): mean-RGB subtraction in fp32, then the cast to
-    ``compute_dtype``. Returns ``(pool3, pool4, fc7)`` as NCHW-shaped
-    channels_last tensors (NHWC memory) in ``compute_dtype``.
+    W divisible by 32): mean-RGB subtraction in fp32 (skipped with
+    ``normalize=False``), then the cast to ``compute_dtype``. Returns
+    ``(pool3, pool4, fc7)`` as NCHW-shaped channels_last tensors (NHWC
+    memory) in ``compute_dtype``.
 
     ``deterministic=False`` applies dropout at ``keep_prob`` after fc6 and
     fc7 with masks drawn from ``generator`` (required then) before the head
     runs, so a recomputed head (``remat=True``) applies the same masks.
     ``remat`` checkpoints each block and the head: the backward recomputes
-    their activations instead of keeping them."""
+    their activations instead of keeping them.
+
+    ``mesh``: this rank's position when ``images`` are its rows of a batch
+    split over 'data' (``parallel.mesh.batch_rows``), for the dropout draw
+    (``_head_masks``); with ``tensor_parallel`` and a >1 'model' axis,
+    ``params`` hold this rank's fc6/fc7 shards (``parallel.mesh.shard_params``)
+    and the head runs tensor-parallel (``_run_head_tp``). A (1, 1) mesh is
+    no mesh."""
     if not deterministic and generator is None:
         raise ValueError("apply_vgg16: a generator is required when deterministic=False")
-    x = images.float() - torch.tensor(VGG_MEAN_RGB, dtype=torch.float32, device=images.device)
+    if mesh is not None and mesh.size == 1:
+        mesh = None
+    x = images.float()
+    if normalize:
+        x = x - torch.tensor(VGG_MEAN_RGB, dtype=torch.float32, device=images.device)
     x = nchw(x.to(compute_dtype).contiguous())
 
     def run(fn, *args):
@@ -107,11 +159,12 @@ def apply_vgg16(params: dict, images: torch.Tensor, *, keep_prob: float = 1.0,
         elif names[-1] == "conv4_3":
             pool4 = x
     fc6, fc7 = params["fc6"], params["fc7"]
+    tp = mesh is not None and mesh.tensor_parallel(tensor_parallel)
     masks = (None, None)
     if not deterministic and keep_prob < 1.0:
-        n, _, h, w = x.shape
-        masks = (dropout_mask((n, fc6["weight"].shape[0], h, w), keep_prob, generator),
-                 dropout_mask((n, fc7["weight"].shape[0], h, w), keep_prob, generator))
-    x = run(partial(_run_head, masks, keep_prob if not deterministic else 1.0), x,
+        masks = _head_masks(x, fc6["weight"].shape[0], fc7["weight"].shape[0], keep_prob,
+                            generator, mesh, tp)
+    head = partial(_run_head_tp, mesh) if tp else _run_head
+    x = run(partial(head, masks, keep_prob if not deterministic else 1.0), x,
             fc6["weight"], fc6["bias"], fc7["weight"], fc7["bias"])
     return pool3, pool4, x

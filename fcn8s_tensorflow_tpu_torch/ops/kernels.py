@@ -243,7 +243,8 @@ class _CESum(torch.autograd.Function):
 
 
 def softmax_cross_entropy(logits: torch.Tensor, label_ids: torch.Tensor,
-                          pixel_weights: torch.Tensor | None = None) -> torch.Tensor:
+                          pixel_weights: torch.Tensor | None = None, *,
+                          denominator: torch.Tensor | None = None) -> torch.Tensor:
     """Weighted-mean softmax CE over (N, ..., C) logits with (N, ...)
     integer labels, differentiable through the CE-grad kernel; returns an
     fp32 0-d tensor. The port of ``softmax_cross_entropy_pallas``, with its
@@ -253,6 +254,9 @@ def softmax_cross_entropy(logits: torch.Tensor, label_ids: torch.Tensor,
       ``max(sum(mask) * pixels_per_sample, 1)``;
     * any other weight, broadcast to the label shape (per pixel): K3,
       divided by ``max(sum(w), 1)``.
+
+    ``denominator`` replaces the sum under the ``max(., 1)``: on a mesh,
+    the whole batch's, when ``logits`` are one rank's rows of it.
 
     The TPU's chunk-divisibility fallback has no counterpart: the kernels
     take any pixel count. A label outside [0, C) picks nothing and one-hots
@@ -268,12 +272,13 @@ def softmax_cross_entropy(logits: torch.Tensor, label_ids: torch.Tensor,
         mask = (torch.ones(batch, dtype=torch.float32, device=logits.device)
                 if pixel_weights is None else pixel_weights.float())
         total = _CESum.apply(flat, labels, mask, pps)
-        return total / torch.clamp(mask.sum() * pps, min=1.0)
+        return total / torch.clamp(mask.sum() * pps if denominator is None else denominator,
+                                   min=1.0)
     w = pixel_weights.float()
     w = w.reshape(w.shape + (1,) * (label_ids.dim() - w.dim())).expand(label_ids.shape)
     weights = w.reshape(-1).contiguous()
     total = _CESum.apply(flat, labels, weights, None)
-    return total / torch.clamp(weights.sum(), min=1.0)
+    return total / torch.clamp(weights.sum() if denominator is None else denominator, min=1.0)
 
 
 def masked_softmax_cross_entropy(logits: torch.Tensor, label_ids: torch.Tensor,

@@ -8,9 +8,11 @@ package's NHWC byte layout: cuDNN takes it directly, and the pool kernel
 JAX's HWIO). ``nhwc``/``nchw`` switch between the two logical views of the
 same memory without a copy.
 
-The transposed convolution is not ported: every deconv of the model runs
-through ``ops/subpixel.py``, and ``nn.ConvTranspose2d`` would be wrong anyway
-(its kernel is the spatial flip of JAX's lhs-dilated cross-correlation).
+Every deconv of the model runs through ``ops/subpixel.py``.
+``conv2d_transpose`` is JAX's input-dilated form, written out as one: the
+decoder's ``subpixel=False`` path and a reference for the subpixel rewrite.
+``nn.ConvTranspose2d`` would be wrong here (its kernel is the spatial flip
+of JAX's lhs-dilated cross-correlation).
 """
 
 from __future__ import annotations
@@ -46,6 +48,38 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = No
     return F.conv2d(x, weight.to(x.dtype),
                     None if bias is None else bias.to(x.dtype),
                     padding=(kh // 2, kw // 2))
+
+
+def _same_transpose_padding(k: int, s: int) -> tuple[int, int]:
+    """(lo, hi) padding of the s-dilated input so that a stride-1 conv with
+    kernel k yields exactly in*s outputs, as TF's SAME deconv crops."""
+    pad_total = s + k - 2
+    if k - s >= 0:
+        pad_lo = k - 1 - (k - s + 1) // 2
+    else:
+        pad_lo = (pad_total + 1) // 2
+    return pad_lo, pad_total - pad_lo
+
+
+def conv2d_transpose(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None = None, *,
+                     strides=(2, 2)) -> torch.Tensor:
+    """Fractionally strided convolution with TF-SAME semantics (JAX's
+    ``conv2d_transpose``): NCHW ``x`` -> NCHW ``(n, O, h*sh, w*sw)``, for an
+    HWIO ``kernel`` (I = ``x``'s channels) as the port's deconv layers keep
+    it. The input is dilated by the strides with zeros, padded by
+    ``_same_transpose_padding`` and cross-correlated with the kernel, in
+    ``x``'s dtype; the bias is added after."""
+    n, c, h, w = x.shape
+    kh, kw = kernel.shape[0], kernel.shape[1]
+    sh, sw = strides
+    dilated = x.new_zeros((n, c, (h - 1) * sh + 1, (w - 1) * sw + 1))
+    dilated[:, :, ::sh, ::sw] = x
+    (ph_lo, ph_hi), (pw_lo, pw_hi) = _same_transpose_padding(kh, sh), _same_transpose_padding(kw, sw)
+    dilated = F.pad(dilated, (pw_lo, pw_hi, ph_lo, ph_hi))
+    out = F.conv2d(dilated, kernel.permute(3, 2, 0, 1).to(x.dtype))
+    if bias is not None:
+        out = out + bias.to(out.dtype)[None, :, None, None]
+    return out.contiguous(memory_format=torch.channels_last)
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:

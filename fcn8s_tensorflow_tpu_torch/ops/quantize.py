@@ -50,11 +50,13 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from .. import bridge
 from ..models.fcn8s import apply_fcn8s_decoder
 from ..models.vgg16 import _BLOCK_ENDS, VGG16_CONV_LAYERS, VGG_MEAN_RGB
+from ..parallel.collectives import all_reduce
 from .nn import conv2d, nchw, nhwc
 from .pool import maxpool2x2
 
@@ -113,14 +115,17 @@ def quantize_vgg16_params(encoder_params: dict, act_absmax: dict | None = None) 
     return out
 
 
-def quantize_activation(x: torch.Tensor, static_scale: torch.Tensor | None = None):
+def quantize_activation(x: torch.Tensor, static_scale: torch.Tensor | None = None, mesh=None):
     """Per-tensor symmetric int8 of ``x``: returns ``(x_q int8, scale)``,
     scale a 0-d fp32 tensor on ``x``'s device. Dynamic mode
-    (``static_scale=None``): ``max(max|x|, 1e-12) / 127``; static mode: the
-    given scale. ``x_q = clip(round(x / scale), -127, 127)`` in fp32."""
+    (``static_scale=None``): ``max(max|x|, 1e-12) / 127``, the max taken
+    over the whole batch when ``x`` is this rank's rows of a batch split
+    over ``mesh``'s 'data' axis; static mode: the given scale.
+    ``x_q = clip(round(x / scale), -127, 127)`` in fp32."""
     xf = x.float()
     if static_scale is None:
-        scale = torch.clamp(xf.abs().amax(), min=1e-12) * _INV_INT8_MAX
+        absmax = all_reduce(xf.abs().amax(), mesh, op=dist.ReduceOp.MAX)
+        scale = torch.clamp(absmax, min=1e-12) * _INV_INT8_MAX
     else:
         scale = static_scale.to(device=x.device, dtype=torch.float32)
     xq = torch.clamp(torch.round(xf / scale), -INT8_MAX, INT8_MAX).to(torch.int8)
@@ -197,13 +202,14 @@ def int8_conv_acc(xq: torch.Tensor, qlayer: dict) -> torch.Tensor:
     return conv2d_int8_im2col(xq, qlayer["kernel_q"], qlayer["kernel_mat"])
 
 
-def conv2d_int8(x: torch.Tensor, qlayer: dict, *, compute_dtype=torch.bfloat16) -> torch.Tensor:
+def conv2d_int8(x: torch.Tensor, qlayer: dict, *, compute_dtype=torch.bfloat16,
+                mesh=None) -> torch.Tensor:
     """Quantized stride-1 SAME conv of an NCHW (channels_last) activation:
     int8 activations (dynamic, or static with the layer's ``act_scale``)
     times the per-channel int8 kernel, int32 accumulation, fp32 dequant
     ``acc * (x_scale * w_scale) + bias``, cast to ``compute_dtype``. The
     result is NCHW-shaped channels_last, as ``ops.nn.conv2d``'s."""
-    xq, x_scale = quantize_activation(x, qlayer.get("act_scale"))
+    xq, x_scale = quantize_activation(x, qlayer.get("act_scale"), mesh)
     acc = int8_conv_acc(nhwc(xq), qlayer)
     del xq
     accf = acc.float()
@@ -213,35 +219,46 @@ def conv2d_int8(x: torch.Tensor, qlayer: dict, *, compute_dtype=torch.bfloat16) 
     return nchw(out.to(compute_dtype))
 
 
-def apply_vgg16_int8(qparams: dict, images: torch.Tensor, *, compute_dtype=torch.bfloat16):
+def _normalized(images: torch.Tensor, normalize: bool, compute_dtype) -> torch.Tensor:
+    """The encoder's input: the mean-RGB subtraction in fp32 (unless not
+    ``normalize``), the cast, NCHW channels_last."""
+    x = images.float()
+    if normalize:
+        x = x - torch.tensor(VGG_MEAN_RGB, dtype=torch.float32, device=images.device)
+    return nchw(x.to(compute_dtype).contiguous())
+
+
+def apply_vgg16_int8(qparams: dict, images: torch.Tensor, *, compute_dtype=torch.bfloat16,
+                     normalize: bool = True, mesh=None):
     """The quantized encoder (keep_prob 1, a serving path) on NHWC images:
-    mean-RGB subtraction in fp32, the cast to ``compute_dtype``, then
-    ``conv2d_int8`` + ReLU per layer and the pools. Returns ``(pool3,
-    pool4, fc7)`` as ``models.vgg16.apply_vgg16`` does."""
-    x = images.float() - torch.tensor(VGG_MEAN_RGB, dtype=torch.float32, device=images.device)
-    x = nchw(x.to(compute_dtype).contiguous())
+    mean-RGB subtraction in fp32 (unless not ``normalize``), the cast to
+    ``compute_dtype``, then ``conv2d_int8`` + ReLU per layer and the pools.
+    Returns ``(pool3, pool4, fc7)`` as ``models.vgg16.apply_vgg16`` does.
+    ``mesh``: ``images`` are this rank's rows of a batch split over 'data',
+    and the dynamic scales are the whole batch's (the int8 tree itself is
+    replicated, never tensor-parallel)."""
+    x = _normalized(images, normalize, compute_dtype)
     pool3 = pool4 = None
     for name, _, _ in VGG16_CONV_LAYERS:
-        x = torch.relu_(conv2d_int8(x, qparams[name], compute_dtype=compute_dtype))
+        x = torch.relu_(conv2d_int8(x, qparams[name], compute_dtype=compute_dtype, mesh=mesh))
         if name in _BLOCK_ENDS:
             x = maxpool2x2(x)
             if name == "conv3_3":
                 pool3 = x
             elif name == "conv4_3":
                 pool4 = x
-    x = torch.relu_(conv2d_int8(x, qparams["fc6"], compute_dtype=compute_dtype))
-    x = torch.relu_(conv2d_int8(x, qparams["fc7"], compute_dtype=compute_dtype))
+    x = torch.relu_(conv2d_int8(x, qparams["fc6"], compute_dtype=compute_dtype, mesh=mesh))
+    x = torch.relu_(conv2d_int8(x, qparams["fc7"], compute_dtype=compute_dtype, mesh=mesh))
     return pool3, pool4, x
 
 
 def collect_activation_absmax(params: dict, images: torch.Tensor, *,
-                              compute_dtype=torch.bfloat16) -> dict:
+                              compute_dtype=torch.bfloat16, normalize: bool = True) -> dict:
     """Calibration pass: the float encoder (``params['encoder']``, master or
-    ``bridge.cast_params`` weights) on NHWC ``images``; returns each
-    quantized conv's INPUT ``max|x|`` (layer name -> 0-d fp32 tensor on the
-    device). Over several batches, take the elementwise max."""
-    x = images.float() - torch.tensor(VGG_MEAN_RGB, dtype=torch.float32, device=images.device)
-    x = nchw(x.to(compute_dtype).contiguous())
+    ``bridge.cast_params`` weights, whole fc6/fc7) on NHWC ``images``;
+    returns each quantized conv's INPUT ``max|x|`` (layer name -> 0-d fp32
+    tensor on the device). Over several batches, take the elementwise max."""
+    x = _normalized(images, normalize, compute_dtype)
     enc = params["encoder"]
     absmax = {}
     for name, _, _ in VGG16_CONV_LAYERS:
@@ -268,12 +285,15 @@ def quantize_fcn8s_params(params: dict, act_absmax: dict | None = None, *,
 
 
 def apply_fcn8s_int8(qparams: dict, images: torch.Tensor, *, compute_dtype=torch.bfloat16,
-                     logits_dtype=torch.float32, packed_final: bool = False) -> torch.Tensor:
+                     normalize: bool = True, logits_dtype=torch.float32,
+                     packed_final: bool = False, mesh=None) -> torch.Tensor:
     """Quantized end-to-end forward: the int8 encoder, then the decoder in
     ``compute_dtype``. The logits contract of ``models.fcn8s.apply_fcn8s``
-    (NHWC, or the packed subpixel layout with ``packed_final``)."""
+    (NHWC, or the packed subpixel layout with ``packed_final``);
+    ``normalize`` and ``mesh`` as in ``apply_vgg16_int8``."""
     pool3, pool4, fc7_out = apply_vgg16_int8(qparams["encoder_q"], images,
-                                             compute_dtype=compute_dtype)
+                                             compute_dtype=compute_dtype, normalize=normalize,
+                                             mesh=mesh)
     return apply_fcn8s_decoder(qparams["decoder"], pool3, pool4, fc7_out,
                                compute_dtype=compute_dtype, logits_dtype=logits_dtype,
                                packed_final=packed_final)

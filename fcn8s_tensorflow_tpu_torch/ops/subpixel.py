@@ -82,3 +82,12 @@ def conv2d_transpose_subpixel(x: torch.Tensor, weight: torch.Tensor, bias: torch
         return out
     full = out.permute(0, 1, 3, 2, 4, 5).reshape(n, h * s, w * s, out_ch)
     return nchw(full)
+
+
+def space_to_depth_labels(labels: torch.Tensor, s: int) -> torch.Tensor:
+    """(N, H, W) targets in the packed layout of
+    ``conv2d_transpose_subpixel(packed=True)``: (N, H/s, W/s, s, s) with
+    ``out[n, y, x, py, px] == labels[n, s*y+py, s*x+px]`` (a view)."""
+    n, h_full, w_full = labels.shape
+    h, w = h_full // s, w_full // s
+    return labels.reshape(n, h, s, w, s).permute(0, 1, 3, 2, 4)

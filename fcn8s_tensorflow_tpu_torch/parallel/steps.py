@@ -1,9 +1,18 @@
 """The train, eval and predict steps and the optimizers. Port of
 ``fcn8s_tensorflow_tpu/parallel/steps.py``.
 
-One card needs no mesh or sharding, and eager PyTorch needs no compiled
-executable per shape, so each step is a plain function of (params, device
-tensors). ``eval_step``/``predict_step`` take the compute-dtype params of
+Eager PyTorch needs no compiled executable per shape, so each step is a
+plain function of (params, device tensors). On a mesh (``parallel/mesh.py``:
+one process per position, ``mesh=`` and ``tensor_parallel=`` on every step)
+each rank passes its rows of the batch (``mesh.batch_rows``) and, under
+tensor parallelism, its fc6/fc7 shards (``mesh.shard_params``), and the
+step returns what the single-card step returns for the whole batch: the
+loss is the masked mean over the global batch (its normalisers summed over
+'data'), gradients are summed over 'data', metrics too, and predictions are
+gathered over 'data' (``parallel/collectives.py``). On the (1, 1) mesh, or
+with no mesh, every step runs the single-card code.
+
+``eval_step``/``predict_step`` take the compute-dtype params of
 ``bridge.cast_params``; ``train_step`` takes a ``TrainState`` over the fp32
 masters and derives that cast inside autograd on every step.
 ``predict_step(quantized=True)`` and ``tta_step(quantized=True)`` take the
@@ -30,6 +39,8 @@ from ..ops.losses import class_pixel_weights, valid_pixel_weights
 from ..ops.metrics import update_metrics_state
 from ..ops.nn import resize_bilinear
 from ..ops.quantize import apply_fcn8s_int8
+from .collectives import all_gather_cat, all_reduce, all_reduce_flat
+from .mesh import DATA_AXIS, MODEL_AXIS, sharded_leaves
 
 OPTIMIZERS = ("adam", "adamw", "momentum", "sgd")
 INITIAL_LEARNING_RATE = 1e-4  # make_optimizer's injected default in the JAX package
@@ -107,15 +118,24 @@ class Optimizer:
 
     @torch.no_grad()
     def apply(self, params: dict, grads: list, opt_state: OptimizerState,
-              learning_rate: float) -> None:
+              learning_rate: float, *, mesh=None, tensor_parallel: bool = False) -> None:
         """One update of ``params`` and ``opt_state`` in place from ``grads``
-        (aligned with ``bridge.param_leaves(params)``)."""
+        (aligned with ``bridge.param_leaves(params)``). Every rule is
+        elementwise, so on a mesh it runs on this rank's shards; only the
+        clip's global norm needs the mesh: the squares of the replicated
+        leaves once, plus those of the fc6/fc7 shards summed over 'model'."""
         opt_state.count += 1
         opt_state.learning_rate = learning_rate
         state = opt_state.inner
         leaves = bridge.param_leaves(params)
         if self.clip_norm is not None:  # optax.clip_by_global_norm
-            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            if mesh is not None and mesh.tensor_parallel(tensor_parallel):
+                sharded = sharded_leaves(params, mesh, tensor_parallel=True)
+                local = sum(torch.sum(g * g) for g, s in zip(grads, sharded) if s)
+                rest = sum(torch.sum(g * g) for g, s in zip(grads, sharded) if not s)
+                g_norm = torch.sqrt(rest + all_reduce(local, mesh, MODEL_AXIS))
+            else:
+                g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
             keep = g_norm < self.clip_norm
             grads = [torch.where(keep, g, (g / g_norm) * self.clip_norm) for g in grads]
         if self.name in ("adam", "adamw"):
@@ -215,31 +235,63 @@ def augment_key(seed: int, step: int) -> np.random.SeedSequence:
 def loss_and_grads(params: dict, images: torch.Tensor, label_ids: torch.Tensor,
                    sample_mask: torch.Tensor, *, seed: int, step: int, l2_rate: float,
                    keep_prob: float, compute_dtype=torch.bfloat16, remat: bool = False,
-                   grad_accum: int = 1, ignore_label: int | None = None, class_weights=None):
+                   grad_accum: int = 1, ignore_label: int | None = None, class_weights=None,
+                   mesh=None, tensor_parallel: bool = False):
     """The loss and the gradient of every leaf of ``params`` (in
     ``bridge.param_leaves`` order): the value-and-grad half of
-    ``train_step``. See ``train_step`` for the arguments."""
+    ``train_step``. See ``train_step`` for the arguments.
+
+    Over a >1 'data' axis each rank holds its rows (with ``grad_accum``, in
+    ``batch_rows``' microbatch layout) and computes ``sum(w * ce)`` over
+    them divided by the whole batch's ``sum(w)``, summed over 'data' before
+    the loss, plus the L2 term on data position 0 only; the loss and the
+    gradients are then summed over 'data', so every rank holds the global
+    batch's."""
     weighted = ignore_label is not None or class_weights is not None
     leaves = bridge.param_leaves(params)
+    dp = mesh is not None and mesh.shape[DATA_AXIS] > 1
+    fwd_mesh = mesh if dp or (mesh is not None and mesh.tensor_parallel(tensor_parallel)) else None
+    with_l2 = not dp or mesh.coords[DATA_AXIS] == 0
 
     def pixel_weights(lb, mk):
         if class_weights is not None:
             return class_pixel_weights(lb, mk, class_weights, ignore_label)
         return valid_pixel_weights(lb, mk, ignore_label)
 
-    def loss_for(im, lb, mk, generator):
+    def loss_for(im, lb, mk, generator, denominator):
         run = bridge.cast_params(params, compute_dtype)  # inside autograd, every call
         logits = apply_fcn8s(run, im, keep_prob=keep_prob, generator=generator,
                              deterministic=False, compute_dtype=compute_dtype,
-                             logits_dtype=compute_dtype, remat=remat)
-        ce = softmax_cross_entropy(logits, lb, pixel_weights(lb, mk) if weighted else mk)
+                             logits_dtype=compute_dtype, remat=remat, mesh=fwd_mesh,
+                             tensor_parallel=tensor_parallel)
+        ce = softmax_cross_entropy(logits, lb, pixel_weights(lb, mk) if weighted else mk,
+                                   denominator=denominator)
+        if not with_l2:
+            return ce
         reg = torch.tensor(l2_rate, dtype=torch.float32) * decoder_l2_loss(params["decoder"])
         return ce + reg
 
+    def global_counts(lb, mk):
+        """The (grad_accum,) real-sample counts (pixel-weight sums when
+        weighted) of the global microbatches, and the loss denominators
+        (summed over 'data'; off a mesh the all-reduce is a no-op)."""
+        with torch.no_grad():
+            if weighted:
+                counts = pixel_weights(lb, mk).reshape(grad_accum, -1).sum(dim=1)
+            else:
+                counts = mk.float().reshape(grad_accum, -1).sum(dim=1)
+            counts = all_reduce(counts, mesh)
+        pps = lb[0].numel()
+        return counts, (counts if weighted else counts * pps)
+
     if grad_accum <= 1:
+        denominator = global_counts(label_ids, sample_mask)[1][0] if dp else None
         loss = loss_for(images, label_ids, sample_mask,
-                        dropout_generator(images.device, seed, step))
-        return loss.detach(), list(torch.autograd.grad(loss, leaves))
+                        dropout_generator(images.device, seed, step), denominator)
+        grads = list(torch.autograd.grad(loss, leaves))
+        if dp:
+            loss, grads = all_reduce(loss.detach(), mesh), all_reduce_flat(grads, mesh)
+        return loss.detach(), grads
 
     n = images.shape[0]
     if n % grad_accum:
@@ -249,23 +301,23 @@ def loss_and_grads(params: dict, images: torch.Tensor, label_ids: torch.Tensor,
     # class_weights, its pixel-weight share): the weighted sum of the
     # microbatch means is the full-batch mean, and the L2 term rides along
     # exactly since the weights sum to 1
-    with torch.no_grad():
-        if weighted:
-            counts = pixel_weights(label_ids, sample_mask).reshape(grad_accum, -1).sum(dim=1)
-        else:
-            counts = sample_mask.float().reshape(grad_accum, b).sum(dim=1)
-        shares = counts / torch.clamp(counts.sum(), min=1.0)
+    counts, denominators = global_counts(label_ids, sample_mask)
+    if not dp:  # each microbatch divides by its own sum, as on one card
+        denominators = [None] * grad_accum
+    shares = counts / torch.clamp(counts.sum(), min=1.0)
     grads = [torch.zeros_like(t) for t in leaves]
     total = torch.zeros((), dtype=torch.float32, device=images.device)
     for i in range(grad_accum):
         part = slice(i * b, (i + 1) * b)
         loss_i = loss_for(images[part], label_ids[part], sample_mask[part],
-                          dropout_generator(images.device, seed, step, i))
+                          dropout_generator(images.device, seed, step, i), denominators[i])
         g_i = torch.autograd.grad(loss_i, leaves)
         with torch.no_grad():
             for acc, g in zip(grads, g_i):
                 acc.add_(g.mul_(shares[i]))
             total = total + shares[i] * loss_i.detach()
+    if dp:
+        total, grads = all_reduce(total, mesh), all_reduce_flat(grads, mesh)
     return total, grads
 
 
@@ -273,7 +325,8 @@ def train_step(state: TrainState, images: torch.Tensor, label_ids: torch.Tensor,
                sample_mask: torch.Tensor, seed: int, learning_rate: float, l2_rate: float,
                keep_prob: float, *, optimizer: Optimizer, num_classes: int,
                compute_dtype=torch.bfloat16, remat: bool = False, grad_accum: int = 1,
-               ignore_label: int | None = None, class_weights=None, augment_fn=None):
+               ignore_label: int | None = None, class_weights=None, augment_fn=None,
+               mesh=None, tensor_parallel: bool = False):
     """One optimization step; returns ``(state, loss)`` with ``state``
     advanced in place and ``loss`` a 0-d fp32 device tensor (no sync).
 
@@ -282,61 +335,101 @@ def train_step(state: TrainState, images: torch.Tensor, label_ids: torch.Tensor,
     the gradient exactly the short-batch gradient. ``augment_fn`` (from
     ``ops.augment_device.make_augment_fn``) first augments the whole padded
     batch on its device, outside autograd, with the key
-    ``augment_key(seed, state.step)``. Loss = mean softmax CE +
-    ``l2_rate * decoder_l2_loss``. The CE runs through the kernels (K1 with
-    the sample mask; K3 with per-pixel weights when ``ignore_label`` or
-    ``class_weights``, an (num_classes,) vector, is set), each with the
-    CE-grad kernel as its backward. Dropout draws come from (``seed``,
-    ``state.step``). ``grad_accum=A`` splits the batch into A microbatches
-    weighted by their real-sample (or pixel-weight) share. ``num_classes``
-    is kept for the JAX signature; the logits carry it."""
+    ``augment_key(seed, state.step)`` (over a >1 'data' axis, that key with
+    the data position appended: ranks that hold the same rows draw the
+    same). Loss = mean softmax CE + ``l2_rate * decoder_l2_loss``. The CE
+    runs through the kernels (K1 with the sample mask; K3 with per-pixel
+    weights when ``ignore_label`` or ``class_weights``, an (num_classes,)
+    vector, is set), each with the CE-grad kernel as its backward. Dropout
+    draws come from (``seed``, ``state.step``). ``grad_accum=A`` splits the
+    batch into A microbatches weighted by their real-sample (or
+    pixel-weight) share. ``num_classes`` is kept for the JAX signature; the
+    logits carry it.
+
+    ``mesh``/``tensor_parallel``: the step of JAX's ``compile_train_step``
+    on that mesh; ``images``, ``label_ids`` and ``sample_mask`` are this
+    rank's rows (``mesh.batch_rows(n, mesh, grad_accum)``) and ``state``
+    holds its shards (``loss_and_grads``; the optimizer runs on the
+    shards)."""
     del num_classes
     if augment_fn is not None:
+        key = augment_key(seed, state.step)
+        if mesh is not None and mesh.shape[DATA_AXIS] > 1:
+            key = np.random.SeedSequence(key.entropy,
+                                         spawn_key=key.spawn_key + (mesh.coords[DATA_AXIS],))
         with torch.no_grad():
-            images, label_ids = augment_fn(augment_key(seed, state.step), images, label_ids)
+            images, label_ids = augment_fn(key, images, label_ids)
     loss, grads = loss_and_grads(
         state.params, images, label_ids, sample_mask, seed=seed, step=state.step,
         l2_rate=l2_rate, keep_prob=keep_prob, compute_dtype=compute_dtype, remat=remat,
-        grad_accum=grad_accum, ignore_label=ignore_label, class_weights=class_weights)
-    optimizer.apply(state.params, grads, state.opt_state, learning_rate)
+        grad_accum=grad_accum, ignore_label=ignore_label, class_weights=class_weights,
+        mesh=mesh, tensor_parallel=tensor_parallel)
+    optimizer.apply(state.params, grads, state.opt_state, learning_rate, mesh=mesh,
+                    tensor_parallel=tensor_parallel)
     state.step += 1
     return state, loss
 
 
 def eval_step(params: dict, metrics_state: dict, images: torch.Tensor, label_ids: torch.Tensor,
               sample_mask: torch.Tensor, *, num_classes: int, compute_dtype=torch.bfloat16,
-              ignore_label: int | None = None, class_weights=None) -> dict:
+              ignore_label: int | None = None, class_weights=None, mesh=None,
+              tensor_parallel: bool = False) -> dict:
     """Forward-only metric accumulation at keep_prob=1: the forward in
     ``compute_dtype`` with logits kept in it, the CE through K1 with
     ``sample_mask`` (through K3 with the pixel weights of ``ignore_label`` /
     ``class_weights``, as the train step), the argmax, and the confusion
     matrix through K5, where an ignored id drops out (it matches no class).
-    Updates ``metrics_state`` in place and returns it."""
+    Updates ``metrics_state`` in place and returns it.
+
+    ``mesh``/``tensor_parallel``: JAX's ``compile_eval_step`` on that mesh,
+    ``images``, ``label_ids`` and ``sample_mask`` being this rank's rows;
+    the batch's loss (over the whole batch's normaliser) and its K5 counts
+    are summed over 'data' before they join the state, which is then the
+    same on every rank."""
+    dp = mesh is not None and mesh.shape[DATA_AXIS] > 1
     logits = apply_fcn8s(params, images, compute_dtype=compute_dtype,
-                         logits_dtype=compute_dtype)
+                         logits_dtype=compute_dtype, mesh=mesh, tensor_parallel=tensor_parallel)
     if class_weights is not None:
         weights = class_pixel_weights(label_ids, sample_mask, class_weights, ignore_label)
     elif ignore_label is not None:
         weights = valid_pixel_weights(label_ids, sample_mask, ignore_label)
     else:
         weights = sample_mask
-    loss = softmax_cross_entropy(logits, label_ids, weights)
+    denominator = None
+    if dp:
+        denominator = all_reduce(weights.float().sum(), mesh)
+        if weights is sample_mask:
+            denominator = denominator * label_ids[0].numel()
+    loss = softmax_cross_entropy(logits, label_ids, weights, denominator=denominator)
     pred = torch.argmax(logits, dim=-1).to(torch.int32)
-    return update_metrics_state(metrics_state, loss=loss, pred_ids=pred, gt_ids=label_ids,
-                                num_classes=num_classes, sample_mask=sample_mask)
+    if not dp:
+        return update_metrics_state(metrics_state, loss=loss, pred_ids=pred, gt_ids=label_ids,
+                                    num_classes=num_classes, sample_mask=sample_mask)
+    batch = update_metrics_state(
+        {"loss_sum": torch.zeros_like(metrics_state["loss_sum"]),
+         "loss_count": torch.zeros_like(metrics_state["loss_count"]),
+         "conf_matrix": torch.zeros_like(metrics_state["conf_matrix"])},
+        loss=loss, pred_ids=pred, gt_ids=label_ids, num_classes=num_classes,
+        sample_mask=sample_mask)
+    metrics_state["loss_sum"] += all_reduce(batch["loss_sum"], mesh)
+    metrics_state["loss_count"] += 1.0
+    metrics_state["conf_matrix"] += all_reduce(batch["conf_matrix"], mesh)
+    return metrics_state
 
 
-def _forward(params: dict, images: torch.Tensor, quantized: bool, **kwargs) -> torch.Tensor:
-    """The inference forward: int8 encoder for a quantized tree, else the
-    compute-dtype model."""
+def _forward(params: dict, images: torch.Tensor, quantized: bool, mesh, tensor_parallel,
+             **kwargs) -> torch.Tensor:
+    """The inference forward: int8 encoder for a quantized tree (replicated
+    on a mesh, as JAX keeps it), else the compute-dtype model."""
     if quantized:
-        return apply_fcn8s_int8(params, images, **kwargs)
-    return apply_fcn8s(params, images, **kwargs)
+        return apply_fcn8s_int8(params, images, mesh=mesh, **kwargs)
+    return apply_fcn8s(params, images, mesh=mesh, tensor_parallel=tensor_parallel, **kwargs)
 
 
 def predict_step(params: dict, images: torch.Tensor, *, argmax: bool = True,
                  compute_dtype=torch.bfloat16, id_dtype=torch.int32, overlay_lut=None,
-                 quantized: bool = False) -> torch.Tensor:
+                 quantized: bool = False, mesh=None,
+                 tensor_parallel: bool = False) -> torch.Tensor:
     """Inference head on NHWC ``images``: argmax ids ``(N, H, W)`` in
     ``id_dtype``, the fp32 softmax ``(N, H, W, C)`` (``argmax=False``), or
     with ``overlay_lut`` ((C, 4) RGBA rows) the alpha-composited uint8 RGB
@@ -346,10 +439,23 @@ def predict_step(params: dict, images: torch.Tensor, *, argmax: bool = True,
     logits never go through a depth-to-space; only the id map does. The
     overlay is the JAX package's per-class compare/select chain in fp32,
     in the same order, with the final ``floor``. ``quantized``: ``params``
-    is a ``quantize_fcn8s_params`` tree and the encoder runs in int8."""
+    is a ``quantize_fcn8s_params`` tree and the encoder runs in int8.
+
+    ``mesh``/``tensor_parallel``: JAX's ``compile_predict_step`` on that
+    mesh; ``images`` are this rank's rows, and the output of the whole
+    batch is gathered over 'data' (``tensor_parallel`` does not apply to
+    the int8 tree)."""
+    return all_gather_cat(_predict_rows(params, images, argmax, compute_dtype, id_dtype,
+                                        overlay_lut, quantized, mesh, tensor_parallel), mesh)
+
+
+def _predict_rows(params, images, argmax, compute_dtype, id_dtype, overlay_lut, quantized, mesh,
+                  tensor_parallel):
+    """``predict_step`` on this rank's rows."""
     want_ids = argmax or overlay_lut is not None
-    logits = _forward(params, images, quantized, compute_dtype=compute_dtype,
-                      logits_dtype=compute_dtype, packed_final=want_ids)
+    logits = _forward(params, images, quantized, mesh, tensor_parallel,
+                      compute_dtype=compute_dtype, logits_dtype=compute_dtype,
+                      packed_final=want_ids)
     if not want_ids:
         return torch.softmax(logits.float(), dim=-1)
     pred = torch.argmax(logits, dim=-1)  # (n, H/s, W/s, s, s)
@@ -371,7 +477,8 @@ def predict_step(params: dict, images: torch.Tensor, *, argmax: bool = True,
 
 
 def tta_step(params: dict, images: torch.Tensor, *, scale_hw=None, flip: bool = True,
-             compute_dtype=torch.bfloat16, quantized: bool = False) -> torch.Tensor:
+             compute_dtype=torch.bfloat16, quantized: bool = False, mesh=None,
+             tensor_parallel: bool = False) -> torch.Tensor:
     """Test-time-augmentation probability head for ONE scale: NHWC uint8
     ``images`` -> ``(N, H, W, C)`` fp32 mean probabilities at the input
     resolution. The view is resized to ``scale_hw`` (``ops.nn.resize_bilinear``,
@@ -380,15 +487,17 @@ def tta_step(params: dict, images: torch.Tensor, *, scale_hw=None, flip: bool = 
     fp32), and the mirrored half is flipped back and averaged with the
     other, ``(fwd + mir) * 0.5``; the probabilities are resized back to
     (H, W). Bilinear weights are convex, so the result stays a
-    distribution. ``quantized`` as in ``predict_step``."""
+    distribution. ``quantized``, ``mesh`` and ``tensor_parallel`` as in
+    ``predict_step``: ``images`` are this rank's rows, and the whole
+    batch's probabilities are gathered over 'data'."""
     n, h, w = images.shape[:3]
     x = images.float()
     if scale_hw is not None and tuple(scale_hw) != (h, w):
         x = resize_bilinear(x, scale_hw)
     if flip:
         x = torch.cat([x, x.flip(2)], dim=0)
-    logits = _forward(params, x, quantized, compute_dtype=compute_dtype,
-                      logits_dtype=compute_dtype)
+    logits = _forward(params, x, quantized, mesh, tensor_parallel,
+                      compute_dtype=compute_dtype, logits_dtype=compute_dtype)
     del x
     probs = torch.softmax(logits.float(), dim=-1)
     del logits
@@ -397,4 +506,4 @@ def tta_step(params: dict, images: torch.Tensor, *, scale_hw=None, flip: bool = 
         probs = (fwd + mir.flip(2)) * 0.5
     if probs.shape[1:3] != (h, w):
         probs = resize_bilinear(probs, (h, w))
-    return probs
+    return all_gather_cat(probs, mesh)

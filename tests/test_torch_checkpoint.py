@@ -567,9 +567,9 @@ def test_async_snapshot_holds_the_state_at_the_call(tmp_path):
 def test_persistence_imports_no_jax_flax_optax_or_msgpack(tmp_path):
     """In a fresh interpreter where ``jax``, ``flax``, ``optax`` and
     ``msgpack`` cannot be imported: the checkpoint and codec modules, KB's
-    module and the serving CLI import; a model trains, saves, reloads, is
-    described by the checkpoint CLI and served by the serving CLI on the
-    CPU."""
+    module, the mesh, the collectives, the VGG-16 import and the serving CLI
+    import; a model trains, saves, reloads, is described by the checkpoint
+    CLI and served by the serving CLI on the CPU."""
     code = textwrap.dedent(f"""
         import runpy, sys, json, urllib.request, threading
         for name in ("jax", "flax", "optax", "msgpack"):
@@ -580,6 +580,8 @@ def test_persistence_imports_no_jax_flax_optax_or_msgpack(tmp_path):
         from fcn8s_tensorflow_tpu_torch.engine import checkpoint, msgpack, serving
         from fcn8s_tensorflow_tpu_torch.engine.model import FCN8s
         from fcn8s_tensorflow_tpu_torch.ops import conv1_core
+        from fcn8s_tensorflow_tpu_torch.models import import_vgg16
+        from fcn8s_tensorflow_tpu_torch.parallel import collectives, mesh
         model = FCN8s(num_classes=3, width_mult=1 / 32, fc_channels=32,
                       compute_dtype=torch.float32, device="cpu")
         rng = np.random.default_rng(0)

@@ -509,16 +509,20 @@ def test_generator_feeds_train_like_jax_generator(tree):
 
 
 def test_data_export_and_pool_import_no_jax_or_cv2():
-    """In a fresh interpreter, the port's data pipeline, export and pool op
-    leave ``jax``, ``cv2`` and the JAX package out of ``sys.modules``.
-    (``import torch`` itself may load tqdm, through ``torch.hub``.)"""
+    """In a fresh interpreter, the port's data pipeline, export, pool op,
+    mesh, collectives and VGG-16 import leave ``jax``, ``cv2`` and the JAX
+    package out of ``sys.modules``. (``import torch`` itself may load tqdm,
+    through ``torch.hub``.)"""
     code = textwrap.dedent("""
         import sys
         import fcn8s_tensorflow_tpu_torch.data
         import fcn8s_tensorflow_tpu_torch.data.augment
         import fcn8s_tensorflow_tpu_torch.data.kitti
         import fcn8s_tensorflow_tpu_torch.engine.export
+        import fcn8s_tensorflow_tpu_torch.models.import_vgg16
         import fcn8s_tensorflow_tpu_torch.ops.pool
+        import fcn8s_tensorflow_tpu_torch.parallel.collectives
+        import fcn8s_tensorflow_tpu_torch.parallel.mesh
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "cv2", "fcn8s_tensorflow_tpu"))
         assert not bad, bad
