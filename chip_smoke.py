@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, eval, training, KB calibration,
 checkpoint, training-feature, int8/TTA/tiled predict, offline-benchmark,
-host data pipeline, serving-artifact, video, viewer, annotation and mesh
-paths once on one CUDA card.
+host data pipeline, serving-artifact, video, viewer, annotation, mesh and
+spatial-partition paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -130,7 +130,10 @@ Phases, in order; any failure raises and the script exits non-zero:
     on the rasterised trainIds at 512x1024 with a val batch, and the
     data-fed step time; label tool latencies per route;
 21. ``parallel/mesh.py``: a group of one rank, then two ranks on the one
-    card (described after the kernel line's keys below).
+    card (described after the kernel line's keys below);
+22. spatial partitioning (the width over the mesh's 'model' axis, the hand
+    halo exchange): a group of one rank, then two ranks on the one card
+    (described after phase 21).
 
 Kernel launch counts are zeroed just before each path is driven and read
 just after it: serving + evaluation (phases 5-6), training (phase 10), the
@@ -153,8 +156,9 @@ TFLOP/s bf16 (``bound_by`` says which; ``bytes`` and ``flops`` are the
 counts; ``launches_train_features`` is the kernel's count in phase 16,
 ``launches_predict_rest`` in phase 17, ``launches_facade_rest`` in phase 18,
 ``launches_data_export`` in phase 19 (d) and (e), ``launches_viz_prep`` in
-phase 20, ``launches_mesh`` in phase 21: ``world1`` its (a), ``world2``
-each rank's (b)). A ``{"viz_prep": {...}}`` line gives phase 20's numbers.
+phase 20, ``launches_mesh`` in phase 21 and ``launches_spatial`` in phase
+22: ``world1`` its (a), ``world2`` each rank's (b)). A ``{"viz_prep":
+{...}}`` line gives phase 20's numbers.
 The last line is ``{"ok": true, "device": {...}}``.
 
 Phase 21 (``parallel/mesh.py``) at full width, bench.py's batch 8 x
@@ -172,6 +176,20 @@ single-process ones (ids equal where the top-2 logit margin exceeds 1e-4 of
 the largest logit, the matrix up to two counts per pixel below it), the
 bf16 ids' agreement printed, and one bf16 Adam step at keep_prob 0.5 after
 which the leaves replicated over 'model' are equal across its ranks.
+
+Phase 22 (``spatial_partition``) at full width on Cityscapes' full frame,
+batch 2 x 1024x2048: (a) an NCCL group of one rank and
+``FCN8s(mesh=create_mesh())`` with ``spatial_partition=True``: a train step
+at keep_prob 1, evaluate and predict, each bit for bit the mesh-less
+facade's; (b) two ranks on the one card over gloo on the (1, 2) mesh, the
+width split 1024 + 1024 (``chip_smoke.py --spatial-rank R 2 STORE WORK``),
+the hand kernels in each rank: one fp32 SGD step against the
+single-process step (rtol 2e-4, atol 1e-6), the fp32 confusion matrix, ids
+and overlay against the single process's (the margin rule of phase 21),
+bf16 and int8 ids on at least 0.995 of pixels, then three bf16 Adam steps
+at keep_prob 0.5 with their times, each rank's peak memory against the
+single process's and the halo bytes a rank receives per step. Two ranks
+share one card over gloo: no scaling figure.
 """
 
 from __future__ import annotations
@@ -1514,7 +1532,8 @@ def phase_int8_route(model: FCN8s, images: np.ndarray, dev) -> list[dict]:
 def _twin_route(fn):
     """``fn()`` with every int8 conv on the fp64 twin (on the card)."""
     route = Q.int8_conv_acc
-    Q.int8_conv_acc = lambda xq, qlayer: Q.conv2d_int8_reference(xq, qlayer["kernel_q"])
+    Q.int8_conv_acc = lambda xq, qlayer, halo=False: Q.conv2d_int8_reference(
+        xq, qlayer["kernel_q"], halo)
     try:
         return fn()
     finally:
@@ -2816,6 +2835,20 @@ MESH_TIMEOUT_S = 600  # phase 21 (b): the two ranks, launch to join
 MESH_SHAPES = ((2, 1), (1, 2))  # phase 21 (b): the meshes of the two ranks
 
 
+def _save_tree(path: str, tree: dict) -> None:
+    np.savez(path, **{f"{p}/{n}/{k}": v for p, layers in tree.items()
+                      for n, layer in layers.items() for k, v in layer.items()})
+
+
+def _load_tree(path: str) -> dict:
+    tree = {}
+    with np.load(path) as z:
+        for key in z.files:
+            part, name, leaf = key.split("/")
+            tree.setdefault(part, {}).setdefault(name, {})[leaf] = z[key]
+    return tree
+
+
 def _mesh_tree(dev) -> dict:
     """Phase 21's weights: a seeded full-width model with the decoder
     redrawn (``_redraw_decoder``), as a JAX-layout numpy tree."""
@@ -2924,9 +2957,7 @@ def _mesh_refs(dev, tree: dict, work: str) -> None:
     np.savez(os.path.join(work, "batch.npz"), images=images, labels=labels)
     with open(os.path.join(work, "config.json"), "w") as f:
         json.dump({"device": str(dev), "classes": C, "batch": BATCH}, f)
-    np.savez(os.path.join(work, "tree.npz"),
-             **{f"{p}/{n}/{k}": v for p, layers in tree.items() for n, layer in layers.items()
-                for k, v in layer.items()})
+    _save_tree(os.path.join(work, "tree.npz"), tree)
     # fp32 references with TF32 off, as the ranks run (cuDNN defaults it on)
     tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
@@ -3036,11 +3067,7 @@ def mesh_rank_main(rank: int, world: int, store: str, work: str) -> None:
         if dev.type == "cuda":
             build.library()
         report["gloo_cuda"] = _gloo_cuda_check(dev)
-        with np.load(os.path.join(work, "tree.npz")) as z:
-            tree = {}
-            for key in z.files:
-                part, name, leaf = key.split("/")
-                tree.setdefault(part, {}).setdefault(name, {})[leaf] = z[key]
+        tree = _load_tree(os.path.join(work, "tree.npz"))
         whole = bridge.to_port(tree, device=dev)  # once; each use takes fresh shards of it
         del tree
 
@@ -3211,6 +3238,370 @@ def phase_mesh(dev, smi: str) -> dict:
             "world2": [r["launches"] for r in world2["reports"]]}
 
 
+SPATIAL_SEED = 22
+SPATIAL_BATCH = 2  # phase 22: Cityscapes' full frame (FRAME), the option's regime
+SPATIAL_STEPS = 3  # phase 22 (b): bf16 Adam steps of each rank and of the single process
+SPATIAL_TIMEOUT_S = 600  # phase 22 (b): the two ranks, launch to join
+SPATIAL_SHAPE = (1, 2)  # phase 22 (b): the width split over two 'model' positions
+SPATIAL_LUT = np.array([TRAINIDS_TO_RGBA_DICT.get(i, (0, 0, 0, 0)) for i in range(C)],
+                       np.float32)
+
+
+def _frames(seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """Phase 22's batch: SPATIAL_BATCH random full frames and id maps."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 256, (SPATIAL_BATCH, *FRAME, 3), dtype=np.uint8),
+            rng.integers(0, C, (SPATIAL_BATCH, *FRAME), dtype=np.uint8))
+
+
+
+def phase_spatial_world1(dev, tree: dict, root: str, smi: str) -> dict:
+    """Phase 22 (a): a process group of one rank on the card (NCCL) and the
+    facade on ``create_mesh()`` with ``spatial_partition=True`` (a one
+    position 'model' axis: the plain layout) against the mesh-less facade
+    on the same weights and a batch of full frames: a train step at
+    keep_prob 1 (cuDNN deterministic), evaluate and predict, bit for bit.
+    Returns the launch counts of the spatial model's run."""
+    import torch.distributed as dist
+
+    from fcn8s_tensorflow_tpu_torch.parallel.mesh import create_mesh
+
+    images, labels = _frames(SPATIAL_SEED + 1)
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(root, 'store1')}",
+                            rank=0, world_size=1)
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    t0 = time.perf_counter()
+    try:
+        mesh = create_mesh(devices=[dev])
+        results, counts = [], None
+        for spatial, kw in ((False, {}), (True, dict(mesh=mesh))):
+            model = FCN8s.from_params(tree, device=dev, seed=SPATIAL_SEED, **kw)
+            if spatial:
+                zero_counts()
+            model.train(iter([(images, labels)]), epochs=1, steps_per_epoch=1,
+                        learning_rate_schedule=lambda s: 1e-4, keep_prob=1.0, metrics=set(),
+                        record_summaries=False, spatial_partition=spatial)
+            out = {"loss": model.training_loss,
+                   "evaluate": model.evaluate(iter([(images, labels)]), 1,
+                                              spatial_partition=spatial),
+                   "conf": model.metrics_state["conf_matrix"].cpu(),
+                   "predict": model.predict(images, spatial_partition=spatial),
+                   "params": model.params}
+            if spatial:
+                counts = read_counts()
+            results.append(out)
+            model.close()
+            del model
+        plain, spatial = results
+        for key in ("loss", "evaluate"):
+            check(plain[key] == spatial[key], f"phase 22 (a): {key} differs from the mesh-less run")
+        check(torch.equal(plain["conf"], spatial["conf"]), "phase 22 (a): conf differs")
+        check(np.array_equal(plain["predict"], spatial["predict"]), "phase 22 (a): predict differs")
+        check(_same_params(plain["params"], spatial["params"]),
+              "phase 22 (a): the trained params differ from the mesh-less run")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+        dist.destroy_process_group()
+    for kernel in DATA_KERNELS:
+        check(counts[kernel] > 0, f"{kernel} was never launched in phase 22 (a)")
+    print(f"phase 22 (a) an nccl group of one rank, FCN8s(mesh=create_mesh()) with "
+          f"spatial_partition=True vs the mesh-less facade at full width on {smi}: a train "
+          f"step of ({SPATIAL_BATCH}, {FRAME[0]}, {FRAME[1]}, 3) at keep_prob 1, evaluate and "
+          f"predict bit for bit equal ({time.perf_counter() - t0:.1f} s); launches {counts}")
+    return counts
+
+
+def _step_memory(step) -> tuple[float, int, int]:
+    """(ms, peak bytes, peak bytes above the resident ones) of one call of
+    ``step`` on the card, host clock around a synchronised call."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    return ms, peak, peak - base
+
+
+def _bf16_steps(dev, tree: dict, images, labels, **kw) -> dict:
+    """SPATIAL_STEPS bf16 Adam steps at keep_prob 0.5 from ``tree``: the last
+    ones' mean time, the largest peak memory, and (with ``kw``'s mesh) the
+    halo bytes of one step."""
+    from fcn8s_tensorflow_tpu_torch.parallel.collectives import halo_exchange
+
+    params = bridge.to_port(tree, device=dev)
+    opt = S.make_optimizer("adam")
+    state = S.create_train_state(params, opt)
+    im, lb = torch.from_numpy(images).to(dev), torch.from_numpy(labels).to(dev)
+    mask = torch.ones(im.shape[0], device=dev)
+    times, peaks, own = [], [], []
+    for _ in range(SPATIAL_STEPS):
+        halo_exchange.bytes = 0
+        ms, peak, above = _step_memory(lambda: S.train_step(
+            state, im, lb, mask, SPATIAL_SEED, 1e-4, 0.0, 0.5, optimizer=opt, num_classes=C,
+            compute_dtype=torch.bfloat16, **kw))
+        times.append(ms)
+        peaks.append(peak)
+        own.append(above)
+    halo = halo_exchange.bytes
+    del state, params, opt
+    torch.cuda.empty_cache()
+    return {"step_ms": statistics.mean(times[1:]), "step_ms_each": times,
+            "peak_bytes": max(peaks), "peak_above_resident_bytes": max(own),
+            "halo_bytes_per_step": halo}
+
+
+def _spatial_refs(dev, tree: dict, work: str) -> dict:
+    """Phase 22 (b)'s single-process references, written into ``work`` for
+    the ranks: one fp32 SGD step's masters, the fp32 eval confusion matrix,
+    the fp32 ids, overlay and top-2 logit margins, the bf16 and int8 ids;
+    then the bf16 Adam step's time and peak memory, returned."""
+    images, labels = _frames(SPATIAL_SEED + 2)
+    np.savez(os.path.join(work, "batch.npz"), images=images, labels=labels)
+    with open(os.path.join(work, "config.json"), "w") as f:
+        json.dump({"device": str(dev)}, f)
+    _save_tree(os.path.join(work, "tree.npz"), tree)
+    f32, bf16 = torch.float32, torch.bfloat16
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        im, lb = torch.from_numpy(images).to(dev), torch.from_numpy(labels).to(dev)
+        mask = torch.ones(SPATIAL_BATCH, device=dev)
+        params = bridge.to_port(tree, device=dev)
+        opt = S.make_optimizer("sgd")
+        state = S.create_train_state(params, opt)
+        state, loss = S.train_step(state, im, lb, mask, SPATIAL_SEED, 1e-3, 0.0, 1.0,
+                                   optimizer=opt, num_classes=C, compute_dtype=f32)
+        torch.save({"loss": float(loss), "params": [t.detach().cpu() for t in
+                                                    bridge.param_leaves(state.params)]},
+                   os.path.join(work, "step_ref.pt"))
+        del state, params
+        refs = {}
+        with torch.inference_mode():
+            run = bridge.cast_params(bridge.to_port(tree, device=dev), f32)
+            metrics = S.eval_step(run, empty_metrics_state(C, device=dev), im, lb, mask,
+                                  num_classes=C, compute_dtype=f32)
+            refs["conf_fp32"] = metrics["conf_matrix"].cpu().numpy()
+            refs["ids_fp32"] = S.predict_step(run, im, compute_dtype=f32).cpu().numpy()
+            refs["overlay_fp32"] = S.predict_step(run, im, compute_dtype=f32,
+                                                  overlay_lut=SPATIAL_LUT).cpu().numpy()
+            logits = apply_fcn8s(run, im, compute_dtype=f32).float()
+            top2 = torch.topk(logits, 2, dim=-1).values
+            refs["margin"] = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+            refs["scale"] = float(logits.abs().max())
+            del run, logits, top2
+            run = bridge.cast_params(bridge.to_port(tree, device=dev), bf16)
+            refs["ids_bf16"] = S.predict_step(run, im, compute_dtype=bf16).cpu().numpy()
+            del run
+            qrun = Q.quantize_fcn8s_params(bridge.to_port(tree, device=dev), compute_dtype=bf16)
+            refs["ids_int8"] = S.predict_step(qrun, im, quantized=True,
+                                              compute_dtype=bf16).cpu().numpy()
+            del qrun
+        np.savez(os.path.join(work, "refs.npz"), **refs)
+        del im, lb, mask
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    return _bf16_steps(dev, tree, images, labels)
+
+
+def spatial_rank_main(rank: int, world: int, store: str, work: str) -> None:
+    """One rank of phase 22 (b) (``chip_smoke.py --spatial-rank R W STORE
+    WORK``): a gloo group on the one card and the (1, 2) mesh, the width of
+    full frames split over 'model', the hand kernels in the rank: one fp32
+    SGD step against the single-process step, the fp32 eval confusion
+    matrix, ids and overlay, the bf16 and int8 ids against the single
+    process, then bf16 Adam steps timed, with the peak memory and the halo
+    bytes. Writes ``rank<R>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from fcn8s_tensorflow_tpu_torch.parallel import collectives as CL
+    from fcn8s_tensorflow_tpu_torch.parallel.mesh import create_mesh
+
+    with open(os.path.join(work, "config.json")) as f:
+        dev = torch.device(json.load(f)["device"])
+    check(dev.type != "cuda" or torch.cuda.is_available(),
+          "no CUDA device: this script runs only on the card")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=SPATIAL_TIMEOUT_S))
+    report = {"rank": rank}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    try:
+        if dev.type == "cuda":
+            build.library()
+        mesh = create_mesh(*SPATIAL_SHAPE, devices=[dev] * world)
+        # the halo's all-gather moves bytes: bf16 and int8 as uint8, on CUDA tensors
+        for dtype in (torch.bfloat16, torch.int8):
+            mine = torch.full((3, 2), rank + 1, dtype=dtype, device=dev)
+            parts = CL._all_gather_raw(mine, mesh, "model")
+            check(all(torch.equal(p, torch.full_like(mine, r + 1)) for r, p in enumerate(parts)),
+                  f"gloo all_gather of {dtype} as bytes")
+        tree = _load_tree(os.path.join(work, "tree.npz"))
+        with np.load(os.path.join(work, "batch.npz")) as z:
+            images, labels = z["images"], z["labels"]
+        refs = dict(np.load(os.path.join(work, "refs.npz")))
+        clear = refs["margin"] > 1e-4 * refs["scale"]
+        f32, bf16 = torch.float32, torch.bfloat16
+        im, lb = torch.from_numpy(images).to(dev), torch.from_numpy(labels).to(dev)
+        mask = torch.ones(im.shape[0], device=dev)
+        layout = dict(mesh=mesh, spatial_partition=True)
+        zero_counts()
+        t_path = time.perf_counter()
+        # (1) one fp32 SGD step against the single-process step
+        params = bridge.to_port(tree, device=dev)
+        opt = S.make_optimizer("sgd")
+        state = S.create_train_state(params, opt)
+        sync()
+        t0 = time.perf_counter()
+        state, loss = S.train_step(state, im, lb, mask, SPATIAL_SEED, 1e-3, 0.0, 1.0,
+                                   optimizer=opt, num_classes=C, compute_dtype=f32, **layout)
+        sync()
+        report["fp32_step_ms"] = (time.perf_counter() - t0) * 1e3
+        if rank == 0:
+            step_ref = torch.load(os.path.join(work, "step_ref.pt"))
+            worst, where = 0.0, None
+            for got, want, path in zip(bridge.param_leaves(state.params), step_ref["params"],
+                                       bridge.jax_leaf_paths(state.params)):
+                want = want.to(dev)
+                err = float(((got.detach() - want).abs() / (1e-6 + 2e-4 * want.abs())).max())
+                if err > worst:
+                    worst, where = err, path
+            check(worst <= 1.0, f"fp32 masters after the spatial step exceed rtol 2e-4, atol "
+                                f"1e-6 (worst {worst:.3f} of the bound, {where})")
+            check(abs(float(loss) - step_ref["loss"]) <= 1e-5 * abs(step_ref["loss"]),
+                  f"spatial fp32 loss {float(loss)} vs {step_ref['loss']}")
+            report["step_worst_of_bound"], report["step_worst_leaf"] = worst, where
+            report["loss"], report["loss_ref"] = float(loss), step_ref["loss"]
+            del step_ref
+        del state, params
+        # (2) eval, predict and overlay in fp32; bf16 and int8 ids
+        with torch.inference_mode():
+            run = bridge.cast_params(bridge.to_port(tree, device=dev), f32)
+            metrics = S.eval_step(run, empty_metrics_state(C, device=dev), im, lb, mask,
+                                  num_classes=C, compute_dtype=f32, **layout)
+            ids = S.predict_step(run, im, compute_dtype=f32, **layout).cpu().numpy()
+            overlay = S.predict_step(run, im, compute_dtype=f32, overlay_lut=SPATIAL_LUT,
+                                     **layout).cpu().numpy()
+            del run
+            run = bridge.cast_params(bridge.to_port(tree, device=dev), bf16)
+            ids_bf16 = S.predict_step(run, im, compute_dtype=bf16, **layout).cpu().numpy()
+            del run
+            qrun = Q.quantize_fcn8s_params(bridge.to_port(tree, device=dev), compute_dtype=bf16)
+            ids_int8 = S.predict_step(qrun, im, quantized=True, compute_dtype=bf16,
+                                      **layout).cpu().numpy()
+            del qrun
+        conf = metrics["conf_matrix"].cpu().numpy()
+        check(np.array_equal(ids[clear], refs["ids_fp32"][clear]),
+              "fp32 spatial ids differ where the top-2 margin is clear")
+        check(np.array_equal(overlay[clear], refs["overlay_fp32"][clear]),
+              "fp32 spatial overlay differs where the top-2 margin is clear")
+        unclear = int((~clear).sum())
+        check(int(np.abs(conf.astype(np.int64) - refs["conf_fp32"]).sum()) <= 2 * unclear,
+              f"fp32 spatial confusion matrix beyond its {unclear} near-tie pixels")
+        report["near_tie_pixels"] = unclear
+        report["conf_exact"] = bool(np.array_equal(conf, refs["conf_fp32"]))
+        for tag, got in (("bf16", ids_bf16), ("int8", ids_int8)):
+            agree = float((got == refs[f"ids_{tag}"]).mean())
+            check(agree >= 0.995, f"{tag} spatial ids agree with the single process on "
+                                  f"{agree:.5f} of pixels, under 0.995")
+            report[f"{tag}_ids_agree"] = agree
+        del metrics, im, lb, mask
+        torch.cuda.empty_cache()
+        # (3) bf16 Adam steps at keep_prob 0.5: time, peak memory, halo bytes
+        report.update(_bf16_steps(dev, tree, images, labels, **layout))
+        sync()
+        report["path_s"] = time.perf_counter() - t_path
+        report["launches"] = read_counts()
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+            json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_spatial_world2(dev, tree: dict, root: str, smi: str) -> dict:
+    """Phase 22 (b): two ranks on the one card over gloo, this script run
+    twice with ``--spatial-rank``; returns the single process's bf16 step
+    numbers and each rank's report."""
+    work = os.path.join(root, "world2")
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    single = _spatial_refs(dev, tree, work)
+    refs_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    store = os.path.join(work, "store")
+    env = {k: v for k, v in os.environ.items() if k not in ("LOCAL_RANK", "RANK", "WORLD_SIZE")}
+    env["PYTHONPATH"] = os.pathsep.join([os.path.dirname(os.path.abspath(__file__))] + [
+        p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w+") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--spatial-rank",
+                               str(r), "2", store, work], env=env, stdout=logs[r],
+                              stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, SPATIAL_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks_s = time.perf_counter() - t0
+    for r, log in enumerate(logs):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if procs[r].returncode != 0:
+            print(text[-6000:])
+        check(procs[r].returncode == 0, f"phase 22 (b) rank {r} exited {procs[r].returncode}")
+    reports = []
+    for r in range(2):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    for report in reports:
+        for kernel in DATA_KERNELS:
+            check(report["launches"][kernel] > 0,
+                  f"{kernel} was never launched on spatial rank {report['rank']}")
+    print(f"phase 22 (b) two ranks sharing one card over gloo (not a scaling figure) on {smi}: "
+          f"mesh {SPATIAL_SHAPE}, the width of {SPATIAL_BATCH} full {FRAME[0]}x{FRAME[1]} "
+          f"frames split 1024 + 1024 over 'model', full VGG-16 width; single process bf16 "
+          f"Adam step {json.dumps(single)}; references {refs_s:.1f} s, ranks {ranks_s:.1f} s; "
+          f"rank 0 {json.dumps(reports[0])}; rank 1 {json.dumps(reports[1])}")
+    return {"single": single, "reports": reports}
+
+
+def phase_spatial(dev, smi: str) -> dict:
+    """Phase 22: spatial partitioning on the card, (a) then (b), in a
+    temporary directory removed at the end."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="fcn8s_spatial_")
+    try:
+        model = FCN8s(num_classes=C, device=dev, seed=SPATIAL_SEED)
+        _redraw_decoder(model, np.random.default_rng(SPATIAL_SEED))
+        tree = bridge.to_numpy(model.params)
+        model.close()
+        del model
+        torch.cuda.empty_cache()
+        world1 = phase_spatial_world1(dev, tree, root, smi)
+        torch.cuda.empty_cache()
+        world2 = phase_spatial_world2(dev, tree, root, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 22: {time.perf_counter() - t0:.1f} s")
+    return {"world1": world1, "world2": [r["launches"] for r in world2["reports"]]}
+
+
 def main() -> None:
     smi = phase_card()
     dev = torch.device("cuda", 0)
@@ -3258,6 +3649,8 @@ def main() -> None:
     for name in DATA_KERNELS:
         check(viz_counts[name] > 0, f"{name} was never launched in phase 20 (viz and prep)")
     mesh_counts = phase_mesh(dev, smi)
+    torch.cuda.empty_cache()
+    spatial_counts = phase_spatial(dev, smi)
     paths = {"serve+eval": serve_counts, "train": train_counts, "train weighted": weighted_counts,
              "conv1 calibration": conv1_counts}
     source_path = {"maxpool2x2_nhwc": "serve+eval", "ce_sum_per_sample": "serve+eval",
@@ -3276,6 +3669,8 @@ def main() -> None:
          "launches_viz_prep": viz_counts[name],
          "launches_mesh": {"world1": mesh_counts["world1"][name],
                            "world2": [c[name] for c in mesh_counts["world2"]]},
+         "launches_spatial": {"world1": spatial_counts["world1"][name],
+                              "world2": [c[name] for c in spatial_counts["world2"]]},
          **measured[name]}
         for name in WRAPPERS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -3286,5 +3681,7 @@ def main() -> None:
 if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "--mesh-rank":
         mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+    elif len(sys.argv) > 1 and sys.argv[1] == "--spatial-rank":
+        spatial_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
     else:
         main()

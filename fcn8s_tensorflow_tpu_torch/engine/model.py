@@ -28,13 +28,19 @@ position, each making the same calls on the same global batch. Batches pad
 to the 'data' axis and each rank puts its rows on its card; params (and the
 EMA and the optimizer moments) live as this rank's shards; every call
 returns on every rank what the JAX facade returns, and files are written by
-rank 0, the others waiting at a barrier. Spatial partitioning (its argument
-raises ``NotImplementedError`` when set) needs a hand halo exchange that
-the port does not have yet.
+rank 0, the others waiting at a barrier. ``spatial_partition=True`` on
+``train``, ``evaluate`` and ``predict`` splits the width over the mesh's
+'model' axis (``parallel/mesh.py``, ``width_split``: units of 32 columns)
+with a hand halo exchange at every conv and deconv; the params are then
+replicated, so a tensor-parallel model runs such a call on its gathered
+params (and, for ``train``, moments and EMA, laid back into shards when
+the call ends). On a mesh whose 'model' axis has one position it is the
+plain layout, as JAX's spatial spec is there.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -85,12 +91,6 @@ from .summaries import SummaryLogger
 _ALLOWED_METRICS = {"loss", "mean_iou", "accuracy"}
 _TILE_CHUNK = 8  # tiles per dispatch of a tiled predict, per 'data' position
 _DECODE_AHEAD = 3  # predict_and_save: chunks decoded ahead of the dispatch
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet: it needs a hand-written halo "
-        "exchange for every conv, pool and deconv, the next slice of the port")
 
 
 def _default_mesh(device) -> "Mesh":
@@ -328,6 +328,7 @@ class FCN8s:
         self._summary_logger = None
         self._act_absmax = None  # calibrate_quantization's layer -> max|x|
         self._qparams = None  # the int8 tree, built lazily by _quantized_params
+        self._train_spatial = False  # the last train()'s spatial_partition
         self._augment_fn = self._device_augment_cfg = None
         self._save_thread = None
         self._save_pending = False  # an async save not yet joined (every rank)
@@ -369,6 +370,40 @@ class FCN8s:
         tensor parallelism: every rank calls it)."""
         return gather_params(tree, self.mesh, True) if self._tp else tree
 
+    def _relayout(self, move, fresh) -> None:
+        """``move`` (``_gather`` or ``_shard``) over the masters, the
+        optimizer's moments and the EMA; ``fresh`` makes each moved leaf a
+        tensor of its own (a shard is a view of the whole)."""
+        self.params = _map_tree(fresh, move(self.params))
+        for t in bridge.param_leaves(self.params):
+            t.requires_grad_(True)
+        self.state.params = self.params
+        if self.state.opt_state is not None:
+            self.state.opt_state = _map_opt_leaves(self.state.opt_state, lambda ts: [
+                fresh(t) for t in bridge.param_leaves(move(self._leaves_as_tree(ts)))])
+        if self._ema is not None:
+            self._ema = _map_tree(fresh, move(self._ema))
+        self._ema_run = None
+
+    @contextlib.contextmanager
+    def _replicas(self, spatial: bool):
+        """For a spatial training call on a tensor-parallel model: the whole
+        masters, moments and EMA on every rank inside (JAX's jit lays them
+        out again when spatial partitioning drops TP), this rank's shards
+        again after. A collective at both ends; nothing off TP."""
+        if not (spatial and self._tp):
+            yield
+            return
+        self._relayout(self._gather, lambda t: t.detach())
+        self._tp = False
+        self._refresh_run_params()
+        try:
+            yield
+        finally:
+            self._tp = True
+            self._relayout(self._shard, lambda t: t.detach().clone())
+            self._refresh_run_params()
+
     def _leaves_as_tree(self, leaves: list) -> dict:
         """A list aligned with ``bridge.param_leaves(self.params)`` (an
         optimizer's moments) as a tree of the params' structure."""
@@ -403,6 +438,14 @@ class FCN8s:
     def _mesh_kwargs(self) -> dict:
         """The steps' ``mesh``/``tensor_parallel`` arguments."""
         return {"mesh": self.mesh, "tensor_parallel": self.tensor_parallel}
+
+    def _step_layout(self, spatial_partition: bool) -> dict:
+        """The steps' layout arguments: ``_mesh_kwargs``, or with
+        ``spatial_partition`` the width split and no tensor parallelism (the
+        JAX facade drops TP there)."""
+        if not spatial_partition:
+            return self._mesh_kwargs
+        return {"mesh": self.mesh, "tensor_parallel": False, "spatial_partition": True}
 
     def summary(self, input_hw=(1024, 512), batch: int = 1) -> str:
         """Per-layer report: kernel (HWIO, as the JAX package gives them) and
@@ -570,18 +613,23 @@ class FCN8s:
 
     # ------------------------------------------------------------------
     def _dispatch_predict(self, padded: np.ndarray, argmax=True, overlay_lut=None,
-                          quantized=False, params=None) -> torch.Tensor:
+                          quantized=False, params=None, spatial_partition=False) -> torch.Tensor:
         """H2D and the predict step on an H/W-padded batch (its batch padded
         here to the 'data' axis, the extra rows left in the output); returns
         the device output without waiting for it, so callers can overlap the
         next dispatch with this one's D2H (off a mesh). ``params`` overrides
-        the live compute-dtype params (the EMA's)."""
+        the live compute-dtype params (the EMA's). ``spatial_partition``:
+        the width split over 'model', on replicated params."""
         compact = argmax and overlay_lut is None and self.num_classes <= 255
         padded, _ = self._pad_batch_dim(padded)
-        return predict_step(self._inference_params(params, quantized), self._put_batch(padded),
-                            argmax=argmax, compute_dtype=self.compute_dtype,
+        run = self._inference_params(params, quantized)
+        if spatial_partition and not quantized:  # replicated (the int8 tree already is)
+            run = self._gather(run)
+        return predict_step(run, self._put_batch(padded), argmax=argmax,
+                            compute_dtype=self.compute_dtype,
                             id_dtype=torch.uint8 if compact else torch.int32,
-                            overlay_lut=overlay_lut, quantized=quantized, **self._mesh_kwargs)
+                            overlay_lut=overlay_lut, quantized=quantized,
+                            **self._step_layout(spatial_partition))
 
     def _inference_params(self, ema, quantized: bool) -> dict:
         """The tree a predict runs: the EMA's (``_resolve_ema``) when given,
@@ -627,7 +675,12 @@ class FCN8s:
         exact where one tile covers a pixel; incompatible with ``overlay``.
 
         ``use_ema=True`` runs the EMA average (``train(ema_decay=...)``)
-        instead of the live params; it excludes ``quantized``."""
+        instead of the live params; it excludes ``quantized``.
+
+        ``spatial_partition=True`` splits the (padded) width over the mesh's
+        'model' axis in units of 32 columns, at least one per position
+        (``ValueError`` otherwise), with the halo exchanged at every conv
+        and deconv; it excludes ``tile``."""
         lut = self._overlay_lut(overlay) if overlay is not None else None
         ema = self._resolve_ema(use_ema, quantized)
         if tile is not None:
@@ -637,10 +690,9 @@ class FCN8s:
                                        params=ema, blend=tile_blend)
         if tile_blend:
             raise ValueError("tile_blend requires tile=(th, tw)")
-        if spatial_partition:
-            _not_ported("predict(spatial_partition=True)")
         padded, (n, h, w) = self._prepare_images(images)
-        out = self._dispatch_predict(padded, argmax, lut, quantized, params=ema)
+        out = self._dispatch_predict(padded, argmax, lut, quantized, params=ema,
+                                     spatial_partition=spatial_partition)
         return self._host_output(out, argmax, lut)[:n, :h, :w]
 
     @torch.inference_mode()
@@ -1118,7 +1170,14 @@ class FCN8s:
         rank takes the same branch; rank 0 alone prints and writes the
         summaries, the train log and the checkpoints.
 
-        Not ported yet (``NotImplementedError``): ``spatial_partition``."""
+        ``spatial_partition=True``: each rank also keeps its columns of the
+        rows (the width split over 'model' in units of 32 columns, after
+        the device augmentation of the whole rows), with the halo exchanged
+        at every conv and deconv in the forward and the backward; the
+        periodic evaluation runs the same way, and so does a later
+        ``find_learning_rate``. A tensor-parallel model trains on its whole
+        params, moments and EMA (gathered at the start of the call, laid
+        back into shards at its end)."""
         metrics = set(metrics)  # the reference's default `{}` is a dict literal
         if not metrics <= _ALLOWED_METRICS:
             raise ValueError(f"metrics must be a subset of {_ALLOWED_METRICS}, got {metrics}")
@@ -1189,8 +1248,7 @@ class FCN8s:
         if gradient_accumulation < 1:
             raise ValueError(f"gradient_accumulation must be >= 1, got {gradient_accumulation}")
         self._grad_accum = gradient_accumulation
-        if spatial_partition:
-            _not_ported("train(spatial_partition=True)")
+        self._train_spatial = bool(spatial_partition)
         if device_augment is not None:
             if self._device_augment_cfg != device_augment:  # built once per distinct config
                 self._augment_fn = make_augment_fn(**device_augment)
@@ -1209,149 +1267,153 @@ class FCN8s:
             if self._writer:
                 logger = self._summary_logger = SummaryLogger(summaries_dir, summaries_name)
 
-        if self.state.opt_state is None:
-            if self._staged_opt_state is not None:  # restored from a checkpoint
-                self.state.opt_state = self._shard_opt(self._staged_opt_state).to(self.device)
-                self._staged_opt_state = None
-            else:
-                self.state = create_train_state(self.params, self.optimizer)
-                self.state.step = self.g_step
-        g_step = self.state.step
+        with self._replicas(spatial_partition):
+            if self.state.opt_state is None:
+                if self._staged_opt_state is not None:  # restored from a checkpoint
+                    self.state.opt_state = self._shard_opt(self._staged_opt_state).to(self.device)
+                    self._staged_opt_state = None
+                else:
+                    self.state = create_train_state(self.params, self.optimizer)
+                    self.state.step = self.g_step
+            g_step = self.state.step
 
-        def _lr(step):
-            return float(learning_rate_schedule(step)) * lr_scale
+            def _lr(step):
+                return float(learning_rate_schedule(step)) * lr_scale
 
-        learning_rate = _lr(g_step)
-        loss_history = deque(maxlen=training_loss_display_averaging)
-        train_stream = self._make_train_stream(train_generator, prefetch)
-        try:
-            for epoch in range(1, epochs + 1):
-                for step_i in range(steps_per_epoch):
-                    im_d, lb_d, mask_d = next(train_stream)
-                    self.state, loss = train_step(
-                        self.state, im_d, lb_d, mask_d, self._train_seed, learning_rate,
-                        l2_regularization, keep_prob, optimizer=self.optimizer,
-                        num_classes=self.num_classes, compute_dtype=self.compute_dtype,
-                        remat=self.remat, grad_accum=self._grad_accum,
-                        ignore_label=self.ignore_label, class_weights=self._class_weights,
-                        augment_fn=self._augment_fn, **self._mesh_kwargs)
-                    g_step += 1
-                    self.variables_updated = True
-                    if ema_decay is not None:
-                        self._update_ema(ema_decay)
-                    loss_history.append(loss)  # a device scalar: no sync
-                    # read the losses back (one copy) only on the summaries
-                    # cadence and at the epoch's end, so the host runs ahead
-                    # of the card between
-                    if g_step % summaries_frequency == 0 or step_i == steps_per_epoch - 1:
-                        vals = torch.stack(list(loss_history)).cpu().numpy()
-                        self.training_loss = float(vals.mean())
-                        if logger is not None and g_step % summaries_frequency == 0:
-                            logger.log_training_step(g_step, float(vals[-1]), learning_rate)
-                    learning_rate = _lr(g_step)
-                self.g_step = g_step
-                if self._writer:
-                    print(f"Epoch {epoch}/{epochs}: training loss {self.training_loss}, "
-                          f"learning rate {learning_rate:.3g}")
-                if record_summaries:
-                    full = self._gather(self.params)  # every rank: a collective under TP
-                    if logger is not None:
-                        logger.log_weight_summaries(g_step, full)
-                    del full
+            learning_rate = _lr(g_step)
+            loss_history = deque(maxlen=training_loss_display_averaging)
+            train_stream = self._make_train_stream(train_generator, prefetch)
+            try:
+                for epoch in range(1, epochs + 1):
+                    for step_i in range(steps_per_epoch):
+                        im_d, lb_d, mask_d = next(train_stream)
+                        self.state, loss = train_step(
+                            self.state, im_d, lb_d, mask_d, self._train_seed, learning_rate,
+                            l2_regularization, keep_prob, optimizer=self.optimizer,
+                            num_classes=self.num_classes, compute_dtype=self.compute_dtype,
+                            remat=self.remat, grad_accum=self._grad_accum,
+                            ignore_label=self.ignore_label, class_weights=self._class_weights,
+                            augment_fn=self._augment_fn, **self._step_layout(spatial_partition))
+                        g_step += 1
+                        self.variables_updated = True
+                        if ema_decay is not None:
+                            self._update_ema(ema_decay)
+                        loss_history.append(loss)  # a device scalar: no sync
+                        # read the losses back (one copy) only on the summaries
+                        # cadence and at the epoch's end, so the host runs ahead
+                        # of the card between
+                        if g_step % summaries_frequency == 0 or step_i == steps_per_epoch - 1:
+                            vals = torch.stack(list(loss_history)).cpu().numpy()
+                            self.training_loss = float(vals.mean())
+                            if logger is not None and g_step % summaries_frequency == 0:
+                                logger.log_training_step(g_step, float(vals[-1]), learning_rate)
+                        learning_rate = _lr(g_step)
+                    self.g_step = g_step
+                    if self._writer:
+                        print(f"Epoch {epoch}/{epochs}: training loss {self.training_loss}, "
+                              f"learning rate {learning_rate:.3g}")
+                    if record_summaries:
+                        full = self._gather(self.params)  # every rank: a collective under TP
+                        if logger is not None:
+                            logger.log_weight_summaries(g_step, full)
+                        del full
 
-                eval_epoch = bool(metrics and eval_frequency and epoch % eval_frequency == 0)
-                if eval_epoch:
-                    self._refresh_run_params()
-                    if eval_dataset == "train":
-                        self._evaluate(train_stream, steps_per_epoch, device_stream=True)
-                    else:
-                        self._evaluate(val_generator, val_steps)
-                    if logger is not None:
-                        logger.log_evaluation(g_step, dict(zip(self.metric_names,
-                                                               self.metric_values)))
-                evaluated = eval_epoch and bool(self.metric_values)
-                epoch_lr = learning_rate  # the LR the train log records for this epoch
-
-                # the observers, updated before the save so that a checkpoint
-                # carries this epoch's counters
-                stop_early = False
-                if early_stopping is not None or reduce_lr_on_plateau is not None:
-                    if monitor == "loss" and "loss" not in self.metric_names:
-                        obs = self.training_loss
-                    elif evaluated:
-                        obs = float(self.metric_values[self.metric_names.index(monitor)])
-                    else:
-                        obs = None  # the monitor was not measured this epoch
-                    if obs is not None and reduce_lr_on_plateau is not None:
-                        if _improved(obs, rp_best, rp_min_delta):
-                            rp_best, rp_stale = obs, 0
+                    eval_epoch = bool(metrics and eval_frequency and epoch % eval_frequency == 0)
+                    if eval_epoch:
+                        self._refresh_run_params()
+                        if eval_dataset == "train":
+                            self._evaluate(train_stream, steps_per_epoch, device_stream=True,
+                                           spatial_partition=spatial_partition)
                         else:
-                            rp_stale += 1
-                            if rp_stale >= rp_patience:
-                                new_scale = lr_scale * rp_factor
-                                base = float(learning_rate_schedule(g_step))
-                                # min_lr bounds the reduced value only, and a
-                                # reduction never raises the scale
-                                if base > 0.0 and base * new_scale < rp_min_lr:
-                                    new_scale = min(rp_min_lr / base, lr_scale)
-                                lr_scale = new_scale
-                                rp_stale = 0
-                                learning_rate = _lr(g_step)
-                                if self._writer:
-                                    print(f"Plateau: '{monitor}' stalled {rp_patience} "
-                                          f"observations — learning rate scaled to "
-                                          f"{learning_rate:.3e}.")
-                    if obs is not None and early_stopping is not None:
-                        if _improved(obs, es_best, es_min_delta):
-                            es_best, es_stale = obs, 0
+                            self._evaluate(val_generator, val_steps,
+                                           spatial_partition=spatial_partition)
+                        if logger is not None:
+                            logger.log_evaluation(g_step, dict(zip(self.metric_names,
+                                                                   self.metric_values)))
+                    evaluated = eval_epoch and bool(self.metric_values)
+                    epoch_lr = learning_rate  # the LR the train log records for this epoch
+
+                    # the observers, updated before the save so that a checkpoint
+                    # carries this epoch's counters
+                    stop_early = False
+                    if early_stopping is not None or reduce_lr_on_plateau is not None:
+                        if monitor == "loss" and "loss" not in self.metric_names:
+                            obs = self.training_loss
+                        elif evaluated:
+                            obs = float(self.metric_values[self.metric_names.index(monitor)])
                         else:
-                            es_stale += 1
-                            if es_stale >= es_patience:
-                                if self._writer:
-                                    print(f"Early stopping: '{monitor}' has not improved in "
-                                          f"{es_stale} observations (best {es_best:.6f}).")
-                                stop_early = True
-                    observer_state = {}
-                    if reduce_lr_on_plateau is not None:
-                        observer_state.update(lr_scale=lr_scale, rp_best=rp_best,
-                                              rp_stale=rp_stale)
-                    if early_stopping is not None:
-                        observer_state.update(es_best=es_best, es_stale=es_stale)
-                    self._observer_state = observer_state
+                            obs = None  # the monitor was not measured this epoch
+                        if obs is not None and reduce_lr_on_plateau is not None:
+                            if _improved(obs, rp_best, rp_min_delta):
+                                rp_best, rp_stale = obs, 0
+                            else:
+                                rp_stale += 1
+                                if rp_stale >= rp_patience:
+                                    new_scale = lr_scale * rp_factor
+                                    base = float(learning_rate_schedule(g_step))
+                                    # min_lr bounds the reduced value only, and a
+                                    # reduction never raises the scale
+                                    if base > 0.0 and base * new_scale < rp_min_lr:
+                                        new_scale = min(rp_min_lr / base, lr_scale)
+                                    lr_scale = new_scale
+                                    rp_stale = 0
+                                    learning_rate = _lr(g_step)
+                                    if self._writer:
+                                        print(f"Plateau: '{monitor}' stalled {rp_patience} "
+                                              f"observations — learning rate scaled to "
+                                              f"{learning_rate:.3e}.")
+                        if obs is not None and early_stopping is not None:
+                            if _improved(obs, es_best, es_min_delta):
+                                es_best, es_stale = obs, 0
+                            else:
+                                es_stale += 1
+                                if es_stale >= es_patience:
+                                    if self._writer:
+                                        print(f"Early stopping: '{monitor}' has not improved in "
+                                              f"{es_stale} observations (best {es_best:.6f}).")
+                                    stop_early = True
+                        observer_state = {}
+                        if reduce_lr_on_plateau is not None:
+                            observer_state.update(lr_scale=lr_scale, rp_best=rp_best,
+                                                  rp_stale=rp_stale)
+                        if early_stopping is not None:
+                            observer_state.update(es_best=es_best, es_stale=es_stale)
+                        self._observer_state = observer_state
 
-                if save_during_training and epoch % save_frequency == 0:
-                    if not save_best_only or self._monitor_improved(monitor):
-                        # the masters are consistent here: save() snapshots
-                        # them on the device and writes on a thread
-                        self.save(model_save_dir=save_dir, saver=saver, tags=save_tags,
-                                  name=save_name or None, block=False)
+                    if save_during_training and epoch % save_frequency == 0:
+                        if not save_best_only or self._monitor_improved(monitor):
+                            # the masters are consistent here: save() snapshots
+                            # them on the device and writes on a thread
+                            self.save(model_save_dir=save_dir, saver=saver, tags=save_tags,
+                                      name=save_name or None, block=False)
 
-                if self.training_loss is not None and self.training_loss < self.best_training_loss:
-                    self.best_training_loss = self.training_loss
-                for i, name in enumerate(self.metric_names):
-                    if i < len(self.metric_values):
-                        better = (self.metric_values[i] < self.best_metric_values[i]
-                                  if name == "loss"
-                                  else self.metric_values[i] > self.best_metric_values[i])
-                        if better:
-                            self.best_metric_values[i] = self.metric_values[i]
+                    if (self.training_loss is not None
+                            and self.training_loss < self.best_training_loss):
+                        self.best_training_loss = self.training_loss
+                    for i, name in enumerate(self.metric_names):
+                        if i < len(self.metric_values):
+                            better = (self.metric_values[i] < self.best_metric_values[i]
+                                      if name == "loss"
+                                      else self.metric_values[i] > self.best_metric_values[i])
+                            if better:
+                                self.best_metric_values[i] = self.metric_values[i]
 
-                if train_log and self._writer:
-                    record = {"epoch": epoch, "global_step": g_step,
-                              "training_loss": self.training_loss, "learning_rate": epoch_lr,
-                              "time": time.time()}
-                    if evaluated:
-                        record.update({f"eval_{n}": float(v) for n, v in
-                                       zip(self.metric_names, self.metric_values)})
-                    with open(train_log, "a") as log_f:
-                        log_f.write(json.dumps(record) + "\n")
-                if stop_early:
-                    break
-            if logger is not None:
-                logger.flush()
-        finally:
-            self._close_train_stream()
-            self._refresh_run_params()
+                    if train_log and self._writer:
+                        record = {"epoch": epoch, "global_step": g_step,
+                                  "training_loss": self.training_loss, "learning_rate": epoch_lr,
+                                  "time": time.time()}
+                        if evaluated:
+                            record.update({f"eval_{n}": float(v) for n, v in
+                                           zip(self.metric_names, self.metric_values)})
+                        with open(train_log, "a") as log_f:
+                            log_f.write(json.dumps(record) + "\n")
+                    if stop_early:
+                        break
+                if logger is not None:
+                    logger.flush()
+            finally:
+                self._close_train_stream()
+                self._refresh_run_params()
         self._join_pending_save()  # don't return with a checkpoint mid-write
 
     def find_learning_rate(self, train_generator, *, min_lr=1e-7, max_lr=1.0, steps=50,
@@ -1382,64 +1444,65 @@ class FCN8s:
             raise ValueError(f"need 0 < min_lr < max_lr, got {min_lr}, {max_lr}")
         if steps < 2:
             raise ValueError(f"steps must be >= 2, got {steps}")
-        was_dirty = self.variables_updated
-        state = self.state
-        leaves = bridge.param_leaves(self.params)
-        saved_step = state.step
-        with torch.no_grad():
-            saved_params = [t.detach().clone() for t in leaves]
-        transient = state.opt_state is None
-        if transient:
-            state.opt_state = (self._shard_opt(self._staged_opt_state).to(self.device, copy=True)
-                               if self._staged_opt_state is not None
-                               else self.optimizer.init(self.params))
-            saved_opt = None
-        else:
-            saved_opt = (_opt_scalars(state.opt_state),
-                         [t.clone() for t in _opt_tensors(state.opt_state)])
-        stream = self._make_train_stream(train_generator, prefetch=0)
-        lrs, losses, smoothed = [], [], []
-        avg, best = 0.0, math.inf
-        try:
-            for i in range(steps):
-                lr = min_lr * (max_lr / min_lr) ** (i / (steps - 1))
-                im_d, lb_d, mask_d = next(stream)
-                _, loss = train_step(
-                    state, im_d, lb_d, mask_d, self._train_seed, lr, l2_regularization,
-                    keep_prob, optimizer=self.optimizer, num_classes=self.num_classes,
-                    compute_dtype=self.compute_dtype, remat=self.remat,
-                    grad_accum=self._grad_accum, ignore_label=self.ignore_label,
-                    class_weights=self._class_weights, augment_fn=self._augment_fn,
-                    **self._mesh_kwargs)
-                loss = float(loss)
-                lrs.append(lr)
-                losses.append(loss)
-                avg = smoothing * avg + (1.0 - smoothing) * loss
-                debiased = avg / (1.0 - smoothing ** (i + 1))
-                smoothed.append(debiased)
-                if math.isfinite(debiased):
-                    best = min(best, debiased)
-                if not math.isfinite(loss) or (i >= 10 and debiased > divergence_factor * best):
-                    break
-        finally:
-            self._close_train_stream()
+        with self._replicas(self._train_spatial):
+            was_dirty = self.variables_updated
+            state = self.state
+            leaves = bridge.param_leaves(self.params)
+            saved_step = state.step
             with torch.no_grad():
-                torch._foreach_copy_(leaves, saved_params)
-            del saved_params
-            state.step = saved_step
+                saved_params = [t.detach().clone() for t in leaves]
+            transient = state.opt_state is None
             if transient:
-                state.opt_state = None
+                staged = self._staged_opt_state
+                state.opt_state = (self._shard_opt(staged).to(self.device, copy=True)
+                                   if staged is not None else self.optimizer.init(self.params))
+                saved_opt = None
             else:
-                (count, lr_last, inner_count), tensors = saved_opt
-                state.opt_state.count, state.opt_state.learning_rate = count, lr_last
-                if inner_count is not None:
-                    state.opt_state.inner.count = inner_count
-                if tensors:  # sgd keeps none
-                    with torch.no_grad():
-                        torch._foreach_copy_(_opt_tensors(state.opt_state), tensors)
-            del saved_opt
-            self.variables_updated = was_dirty
-            self._refresh_run_params()
+                saved_opt = (_opt_scalars(state.opt_state),
+                             [t.clone() for t in _opt_tensors(state.opt_state)])
+            stream = self._make_train_stream(train_generator, prefetch=0)
+            lrs, losses, smoothed = [], [], []
+            avg, best = 0.0, math.inf
+            try:
+                for i in range(steps):
+                    lr = min_lr * (max_lr / min_lr) ** (i / (steps - 1))
+                    im_d, lb_d, mask_d = next(stream)
+                    _, loss = train_step(
+                        state, im_d, lb_d, mask_d, self._train_seed, lr, l2_regularization,
+                        keep_prob, optimizer=self.optimizer, num_classes=self.num_classes,
+                        compute_dtype=self.compute_dtype, remat=self.remat,
+                        grad_accum=self._grad_accum, ignore_label=self.ignore_label,
+                        class_weights=self._class_weights, augment_fn=self._augment_fn,
+                        **self._step_layout(self._train_spatial))
+                    loss = float(loss)
+                    lrs.append(lr)
+                    losses.append(loss)
+                    avg = smoothing * avg + (1.0 - smoothing) * loss
+                    debiased = avg / (1.0 - smoothing ** (i + 1))
+                    smoothed.append(debiased)
+                    if math.isfinite(debiased):
+                        best = min(best, debiased)
+                    if not math.isfinite(loss) or (i >= 10 and debiased > divergence_factor * best):
+                        break
+            finally:
+                self._close_train_stream()
+                with torch.no_grad():
+                    torch._foreach_copy_(leaves, saved_params)
+                del saved_params
+                state.step = saved_step
+                if transient:
+                    state.opt_state = None
+                else:
+                    (count, lr_last, inner_count), tensors = saved_opt
+                    state.opt_state.count, state.opt_state.learning_rate = count, lr_last
+                    if inner_count is not None:
+                        state.opt_state.inner.count = inner_count
+                    if tensors:  # sgd keeps none
+                        with torch.no_grad():
+                            torch._foreach_copy_(_opt_tensors(state.opt_state), tensors)
+                del saved_opt
+                self.variables_updated = was_dirty
+                self._refresh_run_params()
         # steepest descent of the smoothed curve over log-spaced LRs (equal
         # log spacing: the index of the most negative finite difference)
         diffs = [b - a for a, b in zip(smoothed, smoothed[1:])
@@ -1493,13 +1556,17 @@ class FCN8s:
         self.best_metric_values = [99999999.9 if n == "loss" else -1.0 for n in self.metric_names]
 
     @torch.inference_mode()
-    def _evaluate(self, data_generator, num_batches, device_stream=False, params=None):
+    def _evaluate(self, data_generator, num_batches, device_stream=False, params=None,
+                  spatial_partition=False):
         """Reset the accumulators, run ``eval_step`` on ``num_batches``
         batches, finalize, print. ``data_generator`` yields host (images,
         labels) pairs, or with ``device_stream`` the training stream's device
         (images, label_ids, mask) triples. ``params``: compute-dtype params
-        to run instead of the live ones (the EMA's)."""
+        to run instead of the live ones (the EMA's). ``spatial_partition``:
+        the width split over 'model', on replicated params."""
         run = self._run_params if params is None else params
+        if spatial_partition:  # replicated
+            run = self._gather(run)
         state = empty_metrics_state(self.num_classes, device=self.device)
         for _ in range(num_batches):
             if device_stream:
@@ -1513,7 +1580,7 @@ class FCN8s:
             state = eval_step(run, state, im_d, lb_d, mask_d,
                               num_classes=self.num_classes, compute_dtype=self.compute_dtype,
                               ignore_label=self.ignore_label, class_weights=self._class_weights,
-                              **self._mesh_kwargs)
+                              **self._step_layout(spatial_partition))
         self.metrics_state = state
         values = {k: float(v) for k, v in finalize_metrics(state).items()}
         self.metric_values = [values[name] for name in self.metric_names]
@@ -1531,18 +1598,19 @@ class FCN8s:
         ``ignore_label`` and the class weights of the last ``train``.
         ``l2_regularization`` is accepted for parity and, as in the JAX
         facade, does not change the reported loss. ``use_ema=True``
-        evaluates the EMA average (``train(ema_decay=...)``)."""
+        evaluates the EMA average (``train(ema_decay=...)``).
+        ``spatial_partition=True`` splits the width over the mesh's 'model'
+        axis, as ``predict``'s does."""
         metrics = set(metrics)
         if not metrics <= _ALLOWED_METRICS:
             raise ValueError(f"metrics must be a subset of {_ALLOWED_METRICS}")
         if dataset not in {"train", "val"}:
             raise ValueError("dataset must be 'train' or 'val'")
-        if spatial_partition:
-            _not_ported("evaluate(spatial_partition=True)")
         self.eval_dataset = dataset
         self._initialize_metrics(metrics)
         return self._evaluate(data_generator, num_batches,
-                              params=self._resolve_ema(use_ema, False))
+                              params=self._resolve_ema(use_ema, False),
+                              spatial_partition=spatial_partition)
 
     def _monitor_improved(self, monitor) -> bool:
         """Save-best-only, as in the JAX facade: save iff the monitored value

@@ -17,6 +17,7 @@ import torch
 
 from ..ops.nn import conv2d, conv2d_transpose, nhwc
 from ..ops.subpixel import conv2d_transpose_subpixel, subpixel_weight
+from ..parallel.collectives import halo_exchange
 from .initializers import bilinear_upsampling_kernel, truncated_normal
 from .vgg16 import apply_vgg16, init_vgg16
 
@@ -97,7 +98,8 @@ def decoder_variant(decoder_params: dict) -> str:
 
 def apply_fcn8s_decoder(params: dict, pool3, pool4, fc7_out, *, compute_dtype=torch.bfloat16,
                         logits_dtype=torch.float32, subpixel: bool = True,
-                        packed_final: bool = False, variant: str | None = None) -> torch.Tensor:
+                        packed_final: bool = False, variant: str | None = None,
+                        split=None) -> torch.Tensor:
     """Decode NCHW channels_last taps to NHWC logits ``(N, H, W, C)`` in
     ``logits_dtype``, or with ``packed_final`` the final deconv's packed
     subpixel layout ``(N, H/s, W/s, s, s, C)``. ``variant`` 'fcn8s',
@@ -107,7 +109,17 @@ def apply_fcn8s_decoder(params: dict, pool3, pool4, fc7_out, *, compute_dtype=to
     subpixel form) or of the master tree (deconvs as ``kernel``/``bias``,
     the subpixel form derived here). ``subpixel=False`` runs each deconv
     that is not packed as JAX's input-dilated convolution
-    (``ops.nn.conv2d_transpose``), which needs the master ``kernel``."""
+    (``ops.nn.conv2d_transpose``), which needs the master ``kernel``.
+
+    ``split`` (a ``parallel.mesh.WidthSplit``): the taps are this rank's
+    columns of a width split over 'model', and so are the logits. The 1x1
+    score convs and the skip adds are local; each subpixel deconv is a 3x3
+    conv at the low resolution, run on its input extended by a one-column
+    halo. The input-dilated form (``subpixel=False``) does not take a
+    split."""
+    if split is not None and not subpixel:
+        raise ValueError("a width split runs the deconvs in their subpixel form "
+                         "(subpixel=True): their halo is one low-resolution column")
     p = params
     variant = decoder_variant(params) if variant is None else variant
 
@@ -128,7 +140,10 @@ def apply_fcn8s_decoder(params: dict, pool3, pool4, fc7_out, *, compute_dtype=to
             w, b = layer["subpixel_weight"], layer["subpixel_bias"]
         else:
             w, b = subpixel_weight(layer["kernel"], layer["bias"], stride)
-        return conv2d_transpose_subpixel(x, w, b, stride=stride, packed=packed)
+        if split is not None:
+            x = halo_exchange(x, 1, split)
+        return conv2d_transpose_subpixel(x, w, b, stride=stride, packed=packed,
+                                         halo=split is not None)
 
     def finish(x, name, stride):
         out = deconv(x, name, stride, packed=packed_final)
@@ -148,22 +163,25 @@ def apply_fcn8s(params: dict, images: torch.Tensor, *, keep_prob: float = 1.0,
                 generator: torch.Generator | None = None, deterministic: bool = True,
                 compute_dtype=torch.bfloat16, normalize: bool = True,
                 logits_dtype=torch.float32, remat: bool = False, packed_final: bool = False,
-                variant: str | None = None, mesh=None,
-                tensor_parallel: bool = False) -> torch.Tensor:
+                variant: str | None = None, mesh=None, tensor_parallel: bool = False,
+                split=None) -> torch.Tensor:
     """End-to-end forward: NHWC images (H, W divisible by 32) -> NHWC
     logits, as ``apply_fcn8s`` of the JAX package. ``params`` are what
     ``bridge.cast_params`` gives. ``keep_prob``/``generator``/
     ``deterministic``/``normalize``/``remat`` and ``mesh``/
     ``tensor_parallel`` are the encoder's (``apply_vgg16``);
     ``packed_final`` and ``variant`` the decoder's
-    (``apply_fcn8s_decoder``). The decoder is replicated on a mesh."""
+    (``apply_fcn8s_decoder``). The decoder is replicated on a mesh.
+    ``split``: ``images`` and the logits are this rank's columns of a width
+    split over 'model' (both halves of the model take it)."""
     pool3, pool4, fc7_out = apply_vgg16(params["encoder"], images, keep_prob=keep_prob,
                                         generator=generator, deterministic=deterministic,
                                         compute_dtype=compute_dtype, normalize=normalize,
-                                        remat=remat, mesh=mesh, tensor_parallel=tensor_parallel)
+                                        remat=remat, mesh=mesh, tensor_parallel=tensor_parallel,
+                                        split=split)
     return apply_fcn8s_decoder(params["decoder"], pool3, pool4, fc7_out,
                                compute_dtype=compute_dtype, logits_dtype=logits_dtype,
-                               packed_final=packed_final, variant=variant)
+                               packed_final=packed_final, variant=variant, split=split)
 
 
 def decoder_l2_loss(decoder_params: dict) -> torch.Tensor:

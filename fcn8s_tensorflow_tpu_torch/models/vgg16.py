@@ -10,7 +10,10 @@ On a mesh (``parallel/mesh.py``) with tensor parallelism, fc6 and fc7 run
 on this rank's shards in the Megatron pairing: fc6 column-parallel behind
 ``copy_to_model``, fc7 row-parallel, its partial sums reduced over 'model'
 in fp32 (``reduce_from_model``) before its bias and the cast, so fc7 keeps
-the fp32 accumulation of the whole layer.
+the fp32 accumulation of the whole layer. With a width split instead
+(``split``, spatial partitioning over 'model'), every 3x3 conv and fc6's
+7x7 run on this rank's columns extended by their halo
+(``parallel.collectives.halo_exchange``); the pools and fc7 are local.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.nn import conv2d, dropout, dropout_mask, nchw, nhwc
 from ..ops.pool import maxpool2x2
-from ..parallel.collectives import copy_to_model, reduce_from_model
+from ..parallel.collectives import copy_to_model, halo_exchange, reduce_from_model
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
 from .initializers import he_normal
 
@@ -74,14 +77,22 @@ def _blocks() -> list[list[str]]:
     return blocks[:-1]
 
 
-def _run_block(names, x, *weights):
+def _split_conv2d(x, weight, bias, split=None):
+    """``ops.nn.conv2d``, on this rank's columns extended by their halo when
+    the width is split (``split``; a 1x1 kernel needs none)."""
+    if split is None or weight.shape[3] == 1:
+        return conv2d(x, weight, bias)
+    return conv2d(halo_exchange(x, weight.shape[3] // 2, split), weight, bias, halo=True)
+
+
+def _run_block(names, split, x, *weights):
     for i in range(len(names)):
-        x = torch.relu_(conv2d(x, weights[2 * i], weights[2 * i + 1]))
+        x = torch.relu_(_split_conv2d(x, weights[2 * i], weights[2 * i + 1], split))
     return maxpool2x2(x)
 
 
-def _run_head(masks, keep_prob, x, w6, b6, w7, b7):
-    x = dropout(torch.relu_(conv2d(x, w6, b6)), keep_prob, masks[0])
+def _run_head(split, masks, keep_prob, x, w6, b6, w7, b7):
+    x = dropout(torch.relu_(_split_conv2d(x, w6, b6, split)), keep_prob, masks[0])
     return dropout(torch.relu_(conv2d(x, w7, b7)), keep_prob, masks[1])
 
 
@@ -97,29 +108,34 @@ def _run_head_tp(mesh, masks, keep_prob, x, w6, b6, w7, b7):
     return dropout(torch.relu_(y), keep_prob, masks[1])
 
 
-def _head_masks(x, c6: int, c7: int, keep_prob: float, generator, mesh, tp: bool):
+def _head_masks(x, c6: int, c7: int, keep_prob: float, generator, mesh, tp: bool, split=None):
     """fc6's and fc7's dropout keep-masks, drawn in that order from
-    ``generator``. On a mesh the draw covers the whole global batch and
-    both whole layers, and the rank keeps its block: its data position's
-    rows, and fc6's channel shard under tensor parallelism (``c6`` is the
-    local channel count). So every mesh shape applies the masks of the
-    single-card step, and the ranks of one 'model' group, which hold the
-    same rows, apply the same replicated fc7 mask."""
+    ``generator``. On a mesh the draw covers the whole global batch, both
+    whole layers and the whole width, and the rank keeps its block: its
+    data position's rows, fc6's channel shard under tensor parallelism
+    (``c6`` is the local channel count), and its columns under a width
+    ``split``. So every mesh shape applies the masks of the single-card
+    step, and the ranks of one 'model' group that hold the same rows and
+    columns apply the same replicated fc7 mask."""
     n, _, h, w = x.shape
     if mesh is None:
         return (dropout_mask((n, c6, h, w), keep_prob, generator),
                 dropout_mask((n, c7, h, w), keep_prob, generator))
     d, i = mesh.shape[DATA_AXIS], mesh.coords[DATA_AXIS]
     m6, j = (mesh.shape[MODEL_AXIS], mesh.coords[MODEL_AXIS]) if tp else (1, 0)
-    full6 = dropout_mask((n * d, c6 * m6, h, w), keep_prob, generator)
-    full7 = dropout_mask((n * d, c7, h, w), keep_prob, generator)
-    return (full6[i * n:(i + 1) * n, j * c6:(j + 1) * c6], full7[i * n:(i + 1) * n])
+    s, lo = (split.stride(w), split.lo) if split is not None else (1, 0)
+    full_w = w if split is None else split.width // s
+    full6 = dropout_mask((n * d, c6 * m6, h, full_w), keep_prob, generator)
+    full7 = dropout_mask((n * d, c7, h, full_w), keep_prob, generator)
+    cols = slice(lo // s, lo // s + w)
+    return (full6[i * n:(i + 1) * n, j * c6:(j + 1) * c6, :, cols],
+            full7[i * n:(i + 1) * n, :, :, cols])
 
 
 def apply_vgg16(params: dict, images: torch.Tensor, *, keep_prob: float = 1.0,
                 generator: torch.Generator | None = None, deterministic: bool = True,
                 compute_dtype=torch.bfloat16, normalize: bool = True, remat: bool = False,
-                mesh=None, tensor_parallel: bool = False):
+                mesh=None, tensor_parallel: bool = False, split=None):
     """Run the encoder on NHWC ``images`` (float or uint8 in [0, 255], H and
     W divisible by 32): mean-RGB subtraction in fp32 (skipped with
     ``normalize=False``), then the cast to ``compute_dtype``. Returns
@@ -137,7 +153,11 @@ def apply_vgg16(params: dict, images: torch.Tensor, *, keep_prob: float = 1.0,
     (``_head_masks``); with ``tensor_parallel`` and a >1 'model' axis,
     ``params`` hold this rank's fc6/fc7 shards (``parallel.mesh.shard_params``)
     and the head runs tensor-parallel (``_run_head_tp``). A (1, 1) mesh is
-    no mesh."""
+    no mesh. ``split`` (a ``parallel.mesh.WidthSplit`` over ``mesh``, not
+    with tensor parallelism): ``images`` are this rank's columns, every
+    conv but fc7 exchanges its halo, and the taps are this rank's columns
+    at each stride; a recomputed block (``remat``) exchanges its halos
+    again, on every rank in the same order."""
     if not deterministic and generator is None:
         raise ValueError("apply_vgg16: a generator is required when deterministic=False")
     if mesh is not None and mesh.size == 1:
@@ -153,7 +173,7 @@ def apply_vgg16(params: dict, images: torch.Tensor, *, keep_prob: float = 1.0,
     pool3 = pool4 = None
     for names in _blocks():
         weights = [t for name in names for t in (params[name]["weight"], params[name]["bias"])]
-        x = run(partial(_run_block, names), x, *weights)
+        x = run(partial(_run_block, names, split), x, *weights)
         if names[-1] == "conv3_3":
             pool3 = x
         elif names[-1] == "conv4_3":
@@ -163,8 +183,8 @@ def apply_vgg16(params: dict, images: torch.Tensor, *, keep_prob: float = 1.0,
     masks = (None, None)
     if not deterministic and keep_prob < 1.0:
         masks = _head_masks(x, fc6["weight"].shape[0], fc7["weight"].shape[0], keep_prob,
-                            generator, mesh, tp)
-    head = partial(_run_head_tp, mesh) if tp else _run_head
+                            generator, mesh, tp, split)
+    head = partial(_run_head_tp, mesh) if tp else partial(_run_head, split)
     x = run(partial(head, masks, keep_prob if not deterministic else 1.0), x,
             fc6["weight"], fc6["bias"], fc7["weight"], fc7["bias"])
     return pool3, pool4, x

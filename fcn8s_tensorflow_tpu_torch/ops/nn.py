@@ -33,7 +33,8 @@ def nhwc(x_nchw: torch.Tensor) -> torch.Tensor:
     return x_nchw.permute(0, 2, 3, 1)
 
 
-def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
+def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None, *,
+           halo: bool = False) -> torch.Tensor:
     """Stride-1 SAME convolution, NCHW x OIHW -> NCHW, in ``x``'s dtype.
 
     Every kernel of the model is odd (3x3, 7x7) or 1x1, so TF-SAME padding is
@@ -41,13 +42,17 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = No
     ``conv2d`` does; callers that hold weights already in the compute dtype
     (``bridge.cast_params``) make that a no-op. The bias is added inside the
     convolution's fp32 accumulator instead of after the rounding to the
-    compute dtype: exact in fp32, within one bf16 rounding otherwise."""
+    compute dtype: exact in fp32, within one bf16 rounding otherwise.
+
+    ``halo=True``: ``x`` is a width block already extended by ``kw // 2``
+    columns on each side (``parallel.collectives.halo_exchange``), so only
+    the height is padded and the output has the block's width."""
     kh, kw = weight.shape[2], weight.shape[3]
     if kh % 2 == 0 or kw % 2 == 0:
         raise ValueError(f"conv2d: SAME padding here needs odd kernels, got {kh}x{kw}")
     return F.conv2d(x, weight.to(x.dtype),
                     None if bias is None else bias.to(x.dtype),
-                    padding=(kh // 2, kw // 2))
+                    padding=(kh // 2, 0 if halo else kw // 2))
 
 
 def _same_transpose_padding(k: int, s: int) -> tuple[int, int]:

@@ -48,6 +48,8 @@ package's ``quantize_fcn8s_params`` output.
 
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -56,7 +58,8 @@ import torch.nn.functional as F
 from .. import bridge
 from ..models.fcn8s import apply_fcn8s_decoder
 from ..models.vgg16 import _BLOCK_ENDS, VGG16_CONV_LAYERS, VGG_MEAN_RGB
-from ..parallel.collectives import all_reduce
+from ..parallel.collectives import all_reduce, halo_exchange
+from ..parallel.mesh import ALL_AXES, DATA_AXIS
 from .nn import conv2d, nchw, nhwc
 from .pool import maxpool2x2
 
@@ -115,16 +118,18 @@ def quantize_vgg16_params(encoder_params: dict, act_absmax: dict | None = None) 
     return out
 
 
-def quantize_activation(x: torch.Tensor, static_scale: torch.Tensor | None = None, mesh=None):
+def quantize_activation(x: torch.Tensor, static_scale: torch.Tensor | None = None, mesh=None,
+                        axis=DATA_AXIS):
     """Per-tensor symmetric int8 of ``x``: returns ``(x_q int8, scale)``,
     scale a 0-d fp32 tensor on ``x``'s device. Dynamic mode
     (``static_scale=None``): ``max(max|x|, 1e-12) / 127``, the max taken
-    over the whole batch when ``x`` is this rank's rows of a batch split
-    over ``mesh``'s 'data' axis; static mode: the given scale.
+    over the whole batch when ``x`` is this rank's block of a batch split
+    over ``mesh``'s ``axis`` ('data', or ``ALL_AXES`` when its width is
+    split over 'model' too); static mode: the given scale.
     ``x_q = clip(round(x / scale), -127, 127)`` in fp32."""
     xf = x.float()
     if static_scale is None:
-        absmax = all_reduce(xf.abs().amax(), mesh, op=dist.ReduceOp.MAX)
+        absmax = all_reduce(xf.abs().amax(), mesh, axis, op=dist.ReduceOp.MAX)
         scale = torch.clamp(absmax, min=1e-12) * _INV_INT8_MAX
     else:
         scale = static_scale.to(device=x.device, dtype=torch.float32)
@@ -139,17 +144,22 @@ def _kernel_hw(kernel_q: torch.Tensor) -> tuple[int, int]:
     return kh, kw
 
 
-def im2col_nhwc(xq: torch.Tensor, kh: int, kw: int, k_cols: int) -> torch.Tensor:
+def im2col_nhwc(xq: torch.Tensor, kh: int, kw: int, k_cols: int,
+                halo: bool = False) -> torch.Tensor:
     """The (N*H*W, k_cols) im2col of an NHWC tensor for a stride-1 SAME
     kh x kw convolution: the input zero-padded by (kh//2, kw//2), its
     kh*kw shifted views concatenated along channels in (ky, kx, c) order,
     then zero columns up to ``k_cols``. A 1x1 kernel without padding is a
-    view."""
+    view. ``halo=True``: the input is a width block already extended by
+    ``kw // 2`` columns on each side (``ops.nn.conv2d``'s ``halo``), so
+    only the height is padded."""
     n, h, w, c = xq.shape
+    if halo:
+        w -= 2 * (kw // 2)
     k = kh * kw * c
     if (kh, kw) == (1, 1) and k == k_cols:
         return xq.reshape(n * h * w, c)
-    xp = F.pad(xq, (0, 0, kw // 2, kw // 2, kh // 2, kh // 2))
+    xp = F.pad(xq, (0, 0, 0 if halo else kw // 2, 0 if halo else kw // 2, kh // 2, kh // 2))
     views = [xp[:, ky:ky + h, kx:kx + w, :] for ky in range(kh) for kx in range(kw)]
     if k_cols > k:
         views.append(xq.new_zeros((n, h, w, k_cols - k)))
@@ -158,17 +168,19 @@ def im2col_nhwc(xq: torch.Tensor, kh: int, kw: int, k_cols: int) -> torch.Tensor
     return cols.reshape(n * h * w, k_cols)
 
 
-def conv2d_int8_im2col(xq: torch.Tensor, kernel_q: torch.Tensor,
-                       kernel_mat: torch.Tensor) -> torch.Tensor:
+def conv2d_int8_im2col(xq: torch.Tensor, kernel_q: torch.Tensor, kernel_mat: torch.Tensor,
+                       halo: bool = False) -> torch.Tensor:
     """int32 accumulators ``(N, H, W, O)`` of the SAME convolution of NHWC
     int8 ``xq`` with the layer's int8 kernel, as one ``torch._int_mm`` over
-    the explicit im2col (``im2col_nhwc``). Runs on any device; on the card
-    it is the int8 conv's route. Counts its calls in
+    the explicit im2col (``im2col_nhwc``; ``halo`` as there). Runs on any
+    device; on the card it is the int8 conv's route. Counts its calls in
     ``conv2d_int8_im2col.launches``."""
-    n, h, w, _ = xq.shape
     kh, kw = _kernel_hw(kernel_q)
+    n, h, w, _ = xq.shape
+    if halo:
+        w -= 2 * (kw // 2)
     o = kernel_q.shape[0]
-    cols = im2col_nhwc(xq, kh, kw, kernel_mat.shape[1])
+    cols = im2col_nhwc(xq, kh, kw, kernel_mat.shape[1], halo)
     m = cols.shape[0]
     if m < _GEMM_MIN_ROWS:
         cols = F.pad(cols, (0, 0, 0, _GEMM_MIN_ROWS - m))
@@ -183,34 +195,44 @@ def conv2d_int8_im2col(xq: torch.Tensor, kernel_q: torch.Tensor,
 conv2d_int8_im2col.launches = 0
 
 
-def conv2d_int8_reference(xq: torch.Tensor, kernel_q: torch.Tensor) -> torch.Tensor:
+def conv2d_int8_reference(xq: torch.Tensor, kernel_q: torch.Tensor,
+                          halo: bool = False) -> torch.Tensor:
     """The plain twin of ``conv2d_int8_im2col``: the same int8 values
     convolved in fp64 (exact, see the module docstring), cast to int32.
-    NHWC in, ``(N, H, W, O)`` out."""
+    NHWC in, ``(N, H, W, O)`` out; ``halo`` as in ``im2col_nhwc``."""
     kh, kw = _kernel_hw(kernel_q)
     x = nchw(xq).double()
     wt = kernel_q.permute(0, 3, 1, 2).double()
-    out = F.conv2d(x, wt, padding=(kh // 2, kw // 2))
+    out = F.conv2d(x, wt, padding=(kh // 2, 0 if halo else kw // 2))
     return nhwc(out).to(torch.int32).contiguous()
 
 
-def int8_conv_acc(xq: torch.Tensor, qlayer: dict) -> torch.Tensor:
+def int8_conv_acc(xq: torch.Tensor, qlayer: dict, halo: bool = False) -> torch.Tensor:
     """int32 accumulators of a quantized layer on NHWC int8 ``xq``: the
     twin for a CPU tensor, the ``_int_mm`` route otherwise."""
     if xq.device.type == "cpu":
-        return conv2d_int8_reference(xq, qlayer["kernel_q"])
-    return conv2d_int8_im2col(xq, qlayer["kernel_q"], qlayer["kernel_mat"])
+        return conv2d_int8_reference(xq, qlayer["kernel_q"], halo)
+    return conv2d_int8_im2col(xq, qlayer["kernel_q"], qlayer["kernel_mat"], halo)
 
 
 def conv2d_int8(x: torch.Tensor, qlayer: dict, *, compute_dtype=torch.bfloat16,
-                mesh=None) -> torch.Tensor:
+                mesh=None, split=None) -> torch.Tensor:
     """Quantized stride-1 SAME conv of an NCHW (channels_last) activation:
     int8 activations (dynamic, or static with the layer's ``act_scale``)
     times the per-channel int8 kernel, int32 accumulation, fp32 dequant
     ``acc * (x_scale * w_scale) + bias``, cast to ``compute_dtype``. The
-    result is NCHW-shaped channels_last, as ``ops.nn.conv2d``'s."""
-    xq, x_scale = quantize_activation(x, qlayer.get("act_scale"), mesh)
-    acc = int8_conv_acc(nhwc(xq), qlayer)
+    result is NCHW-shaped channels_last, as ``ops.nn.conv2d``'s. ``split``:
+    ``x`` is this rank's columns of a width split over 'model'; the dynamic
+    scale is then the whole tensor's, and the int8 activation is extended
+    by its halo (quantization is elementwise, so that is the halo of the
+    quantized whole)."""
+    xq, x_scale = quantize_activation(x, qlayer.get("act_scale"), mesh,
+                                      DATA_AXIS if split is None else ALL_AXES)
+    kw = qlayer["kernel_q"].shape[2]
+    halo = split is not None and kw > 1
+    if halo:
+        xq = halo_exchange(xq, kw // 2, split)
+    acc = int8_conv_acc(nhwc(xq), qlayer, halo)
     del xq
     accf = acc.float()
     del acc
@@ -229,26 +251,28 @@ def _normalized(images: torch.Tensor, normalize: bool, compute_dtype) -> torch.T
 
 
 def apply_vgg16_int8(qparams: dict, images: torch.Tensor, *, compute_dtype=torch.bfloat16,
-                     normalize: bool = True, mesh=None):
+                     normalize: bool = True, mesh=None, split=None):
     """The quantized encoder (keep_prob 1, a serving path) on NHWC images:
     mean-RGB subtraction in fp32 (unless not ``normalize``), the cast to
     ``compute_dtype``, then ``conv2d_int8`` + ReLU per layer and the pools.
     Returns ``(pool3, pool4, fc7)`` as ``models.vgg16.apply_vgg16`` does.
     ``mesh``: ``images`` are this rank's rows of a batch split over 'data',
     and the dynamic scales are the whole batch's (the int8 tree itself is
-    replicated, never tensor-parallel)."""
+    replicated, never tensor-parallel). ``split``: ``images`` are this
+    rank's columns of a width split over 'model' (``conv2d_int8``)."""
     x = _normalized(images, normalize, compute_dtype)
     pool3 = pool4 = None
+    conv = partial(conv2d_int8, compute_dtype=compute_dtype, mesh=mesh, split=split)
     for name, _, _ in VGG16_CONV_LAYERS:
-        x = torch.relu_(conv2d_int8(x, qparams[name], compute_dtype=compute_dtype, mesh=mesh))
+        x = torch.relu_(conv(x, qparams[name]))
         if name in _BLOCK_ENDS:
             x = maxpool2x2(x)
             if name == "conv3_3":
                 pool3 = x
             elif name == "conv4_3":
                 pool4 = x
-    x = torch.relu_(conv2d_int8(x, qparams["fc6"], compute_dtype=compute_dtype, mesh=mesh))
-    x = torch.relu_(conv2d_int8(x, qparams["fc7"], compute_dtype=compute_dtype, mesh=mesh))
+    x = torch.relu_(conv(x, qparams["fc6"]))
+    x = torch.relu_(conv(x, qparams["fc7"]))
     return pool3, pool4, x
 
 
@@ -286,14 +310,14 @@ def quantize_fcn8s_params(params: dict, act_absmax: dict | None = None, *,
 
 def apply_fcn8s_int8(qparams: dict, images: torch.Tensor, *, compute_dtype=torch.bfloat16,
                      normalize: bool = True, logits_dtype=torch.float32,
-                     packed_final: bool = False, mesh=None) -> torch.Tensor:
+                     packed_final: bool = False, mesh=None, split=None) -> torch.Tensor:
     """Quantized end-to-end forward: the int8 encoder, then the decoder in
     ``compute_dtype``. The logits contract of ``models.fcn8s.apply_fcn8s``
     (NHWC, or the packed subpixel layout with ``packed_final``);
-    ``normalize`` and ``mesh`` as in ``apply_vgg16_int8``."""
+    ``normalize``, ``mesh`` and ``split`` as in ``apply_vgg16_int8``."""
     pool3, pool4, fc7_out = apply_vgg16_int8(qparams["encoder_q"], images,
                                              compute_dtype=compute_dtype, normalize=normalize,
-                                             mesh=mesh)
+                                             mesh=mesh, split=split)
     return apply_fcn8s_decoder(qparams["decoder"], pool3, pool4, fc7_out,
                                compute_dtype=compute_dtype, logits_dtype=logits_dtype,
-                               packed_final=packed_final)
+                               packed_final=packed_final, split=split)

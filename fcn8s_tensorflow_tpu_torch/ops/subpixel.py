@@ -63,7 +63,8 @@ def subpixel_weight(kernel: torch.Tensor, bias: torch.Tensor | None, s: int):
 
 
 def conv2d_transpose_subpixel(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
-                              *, stride: int, packed: bool = False) -> torch.Tensor:
+                              *, stride: int, packed: bool = False,
+                              halo: bool = False) -> torch.Tensor:
     """The stride-``stride`` deconv of NCHW (channels_last) ``x``, given the
     ``subpixel_weight`` form of its kernel and bias.
 
@@ -71,12 +72,19 @@ def conv2d_transpose_subpixel(x: torch.Tensor, weight: torch.Tensor, bias: torch
     the depth-to-space skipped: ``(n, h, w, s, s, O)``, where output pixel
     ``(s*y+py, s*x+px)`` lives at ``[n, y, x, py, px]`` (JAX's packed layout).
     The repeated bias is added in the convolution's accumulator, where JAX
-    adds it after the reshape; the two agree exactly in fp32."""
+    adds it after the reshape; the two agree exactly in fp32.
+
+    ``halo=True``: ``x`` is a width block extended by one column on each
+    side (``parallel.collectives.halo_exchange``): the 3x3 convolution pads
+    only the height, and the output covers the block's columns."""
     s = stride
     n, _, h, w = x.shape
+    if halo:
+        w -= 2
     out_ch = weight.shape[0] // (s * s)
     conv = torch.nn.functional.conv2d(x, weight.to(x.dtype),
-                                      None if bias is None else bias.to(x.dtype), padding=1)
+                                      None if bias is None else bias.to(x.dtype),
+                                      padding=(1, 0) if halo else 1)
     out = nhwc(conv).reshape(n, h, w, s, s, out_ch)  # a view: conv is channels_last
     if packed:
         return out

@@ -5,9 +5,16 @@
   the column-parallel fc6, whose input is replicated) and
   ``reduce_from_model`` (all-reduce forward, identity backward; on fc7's
   partial sums, before its bias).
-* Over 'data': the in-place sums of gradients, loss normalisers and
+* Over 'data' (or ``ALL_AXES``, the whole mesh, under spatial
+  partitioning): the in-place sums of gradients, loss normalisers and
   metrics (``all_reduce``), the concatenation of predict outputs
-  (``all_gather_cat``), and the object broadcast of a rank-0 result.
+  (``all_gather_cat``; along the width over 'model', ``gather_width``), and
+  the object broadcast of a rank-0 result.
+* ``halo_exchange``, over 'model' under spatial partitioning: a
+  width-sharded activation extended by its neighbours' edge columns before
+  a convolution, and the halo's gradient sent back and added where those
+  columns live. It is built on ``all_gather`` of each rank's edges, which
+  gloo takes on CUDA tensors; point-to-point sends would move less.
 
 On an axis of one position every function returns its input and launches
 nothing, so a (1, 1) mesh runs the single-card code exactly. The calls are
@@ -20,7 +27,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from .mesh import DATA_AXIS, MODEL_AXIS, Mesh
+from .mesh import DATA_AXIS, MODEL_AXIS, Mesh, WidthSplit
 
 
 def all_reduce(t: torch.Tensor, mesh: Mesh | None, axis: str = DATA_AXIS,
@@ -54,6 +61,128 @@ def all_gather_cat(t: torch.Tensor, mesh: Mesh | None, axis: str = DATA_AXIS,
     parts = [torch.empty_like(t) for _ in range(mesh.shape[axis])]
     dist.all_gather(parts, t, group=group)
     return torch.cat(parts, dim=dim)
+
+
+def gather_width(t: torch.Tensor, split: WidthSplit | None, dim: int) -> torch.Tensor:
+    """The full-width tensor from every 'model' position's columns of it
+    along ``dim`` (positions may differ in width: each block is padded to
+    the widest for the all-gather and trimmed after). No split: ``t``."""
+    if split is None:
+        return t
+    widths = split.widths(t.shape[dim])
+    top = max(widths)
+    t = t.contiguous()
+    if t.shape[dim] < top:
+        pad = list(t.shape)
+        pad[dim] = top - t.shape[dim]
+        t = torch.cat([t, t.new_zeros(pad)], dim=dim)
+    parts = _all_gather_raw(t, split.mesh, MODEL_AXIS)
+    return torch.cat([p.narrow(dim, 0, w) for p, w in zip(parts, widths)], dim=dim)
+
+
+def _all_gather_raw(t: torch.Tensor, mesh: Mesh, axis: str) -> list:
+    """Every position's contiguous ``t`` along ``axis``, moved as bytes: the
+    gather copies data and computes nothing, so it takes any dtype (bf16
+    and int8 included) whatever the backend's own type list."""
+    raw = t.contiguous().view(torch.uint8)
+    parts = [torch.empty_like(raw) for _ in range(mesh.shape[axis])]
+    dist.all_gather(parts, raw, group=mesh.group(axis))
+    return [p.view(t.dtype) for p in parts]
+
+
+def _halo_forward(x: torch.Tensor, h: int, mesh: Mesh, widths: list) -> torch.Tensor:
+    """``x`` (N, C, H, w) -> (N, C, H, h + w + h), channels_last: the ``h``
+    columns left and right of this rank's block in the whole width, zero
+    beyond its two ends. Each rank contributes its first and last
+    ``min(h, w)`` columns (its whole block where it is narrower than ``h``),
+    so a halo wider than a neighbour's block is filled from further ranks."""
+    n, c, rows, w = x.shape
+    j = mesh.coords[MODEL_AXIS]
+    starts = [sum(widths[:r]) for r in range(len(widths))]
+    lo, hi = starts[j], starts[j] + w
+    e = min(h, w)
+    edges = x.new_zeros((n, c, rows, 2 * h))
+    edges[..., :e] = x[..., :e]
+    edges[..., 2 * h - e:] = x[..., w - e:]
+    parts = _all_gather_raw(edges, mesh, MODEL_AXIS)
+    halo_exchange.bytes += edges.nbytes * (len(parts) - 1)
+    out = torch.empty((n, c, rows, w + 2 * h), dtype=x.dtype, device=x.device,
+                      memory_format=torch.channels_last)
+    out[..., h:h + w] = x
+    out[..., :h] = 0
+    out[..., h + w:] = 0
+    for r, part in enumerate(parts):
+        if r == j:
+            continue
+        er = min(h, widths[r])
+        # rank r's first er columns sit at edges[:er], its last er at edges[2h - er:]
+        for src_lo, at in ((starts[r], 0), (starts[r] + widths[r] - er, 2 * h - er)):
+            for win_lo, out_at in ((lo - h, 0), (hi, h + w)):  # the left and right halo
+                a, b = max(src_lo, win_lo), min(src_lo + er, win_lo + h)
+                if a < b:
+                    out[..., out_at + a - win_lo:out_at + b - win_lo] = (
+                        part[..., at + a - src_lo:at + b - src_lo])
+    return out
+
+
+def _halo_backward(g: torch.Tensor, h: int, mesh: Mesh, widths: list) -> torch.Tensor:
+    """The adjoint of ``_halo_forward``: this rank's block of ``g`` plus
+    the halo gradients of every rank whose halo covers its columns."""
+    n, c, rows, w2 = g.shape
+    w = w2 - 2 * h
+    j = mesh.coords[MODEL_AXIS]
+    starts = [sum(widths[:r]) for r in range(len(widths))]
+    lo, hi = starts[j], starts[j] + w
+    halos = torch.cat([g[..., :h], g[..., h + w:]], dim=3)
+    parts = _all_gather_raw(halos, mesh, MODEL_AXIS)
+    halo_exchange.bytes += halos.nbytes * (len(parts) - 1)
+    gx = torch.empty((n, c, rows, w), dtype=g.dtype, device=g.device,
+                     memory_format=torch.channels_last)
+    gx.copy_(g[..., h:h + w])
+    for r, part in enumerate(parts):
+        if r == j:
+            continue
+        r_lo, r_hi = starts[r], starts[r] + widths[r]
+        for win_lo, at in ((r_lo - h, 0), (r_hi, h)):  # rank r's left and right halo
+            a, b = max(win_lo, lo), min(win_lo + h, hi)
+            if a < b:
+                gx[..., a - lo:b - lo] += part[..., at + a - win_lo:at + b - win_lo]
+    return gx
+
+
+class _HaloExchange(torch.autograd.Function):
+    """``halo_exchange`` under autograd: the forward fills the halo from the
+    neighbours, the backward adds the halo's gradient where it came from."""
+
+    @staticmethod
+    def forward(ctx, x, h, mesh, widths):
+        ctx.h, ctx.mesh, ctx.widths = h, mesh, widths
+        return _halo_forward(x, h, mesh, widths)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _halo_backward(g, ctx.h, ctx.mesh, ctx.widths), None, None, None
+
+
+def halo_exchange(x: torch.Tensor, h: int, split: WidthSplit) -> torch.Tensor:
+    """This rank's width block ``x`` (N, C, H, w) of an activation split over
+    'model' (``split``, at any level of the model), extended by ``h``
+    columns on each side from the blocks around it (zeros beyond the whole
+    width's ends: SAME padding), as a new channels_last tensor
+    (N, C, H, w + 2h). A convolution of kernel width ``2h + 1`` with no
+    width padding (``ops.nn.conv2d(..., halo=True)``) then gives this
+    rank's columns of the unsharded convolution. The halo may reach past a
+    neighbour narrower than ``h`` into the ranks beyond. Backward: the halo
+    columns' gradients go back to the ranks that own them and are added
+    there. A collective over 'model': every rank calls it, in the same
+    order. ``halo_exchange.bytes`` counts the bytes this rank receives,
+    forward and backward."""
+    if h == 0:
+        return x
+    return _HaloExchange.apply(x, h, split.mesh, split.widths(x.shape[3]))
+
+
+halo_exchange.bytes = 0
 
 
 def broadcast_object(obj, mesh: Mesh | None):

@@ -8,7 +8,13 @@ of ``fcn8s_tensorflow_tpu/parallel/mesh.py``.
   params). fc6 is column-parallel (its output channels and bias are
   sharded), fc7 row-parallel (its input channels are sharded); the one
   collective on the activation path is the all-reduce of fc7's partial
-  sums (``parallel/collectives.py``).
+  sums (``parallel/collectives.py``). Or, with ``spatial_partition``,
+  the image WIDTH is split over it (``width_split``): each rank holds a
+  block of columns, every conv and deconv exchanges its halo columns with
+  the neighbours (``collectives.halo_exchange``), and the params are
+  replicated. The split is in units of 32 columns, the model's stride, so
+  every pool level and the stride-8 packed layout of the final deconv stay
+  local to a rank.
 
 JAX runs one program that drives every device and lets GSPMD insert the
 collectives. PyTorch has no single-controller SPMD, so here each mesh
@@ -41,6 +47,7 @@ from ..kernels import resolve_device
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+ALL_AXES = (DATA_AXIS, MODEL_AXIS)  # the whole mesh: a reduction over both axes
 
 
 class PartitionSpec(tuple):
@@ -85,9 +92,12 @@ class Mesh:
         """Whether this rank writes files (rank 0 of the mesh)."""
         return self.rank == 0
 
-    def group(self, axis: str):
-        """The process group along ``axis`` through this rank, or None when
-        the axis has one position (nothing to communicate)."""
+    def group(self, axis):
+        """The process group along ``axis`` through this rank (``ALL_AXES``:
+        the whole mesh), or None when it has one position (nothing to
+        communicate)."""
+        if axis == ALL_AXES:
+            return None if self.size == 1 else dist.group.WORLD
         if self.shape[axis] == 1:
             return None
         return self.device_mesh.get_group(axis)
@@ -144,9 +154,85 @@ def batch_spec() -> PartitionSpec:
 
 def spatial_spec() -> PartitionSpec:
     """Batch over 'data' and the width dim over 'model': JAX's spatial
-    partitioning. The port has no halo exchange yet, so nothing runs with
-    it (``spatial_partition=True`` raises)."""
+    partitioning (the columns of each position: ``width_split``)."""
     return P(DATA_AXIS, None, MODEL_AXIS)
+
+
+STRIDE = 32  # the model's output stride: the unit of the width split
+
+
+def width_bounds(width: int, parts: int) -> list[tuple[int, int]]:
+    """The column range ``[lo, hi)`` of each of ``parts`` 'model' positions
+    in a width of ``width``: whole units of 32 columns, as even as the units
+    allow, the extra units on the lowest positions. A width that is not a
+    multiple of 32, or has fewer units than positions, raises (the JAX
+    package's GSPMD split diverges from the unsharded model there)."""
+    if width % STRIDE or width // STRIDE < parts:
+        raise ValueError(
+            f"spatial_partition splits the width in units of {STRIDE} columns (the model's "
+            f"stride), at least one per 'model' position: width {width} does not split over "
+            f"{parts} positions")
+    base, extra = divmod(width // STRIDE, parts)
+    bounds, lo = [], 0
+    for j in range(parts):
+        hi = lo + STRIDE * (base + (j < extra))
+        bounds.append((lo, hi))
+        lo = hi
+    return bounds
+
+
+def width_range(width: int, mesh: Mesh) -> tuple[int, int]:
+    """This rank's column range ``[lo, hi)`` of a width (``width_bounds``)."""
+    return width_bounds(width, mesh.shape[MODEL_AXIS])[mesh.coords[MODEL_AXIS]]
+
+
+@dataclasses.dataclass(frozen=True)
+class WidthSplit:
+    """A width split over the mesh's 'model' axis (``width_bounds`` at the
+    input's resolution) and this rank's part of it. Every feature map of
+    the model is the input's width divided by its stride, so ``widths``
+    gives every position's width at any level from this rank's width
+    there."""
+
+    mesh: Mesh
+    bounds: tuple
+
+    @property
+    def lo(self) -> int:
+        return self.bounds[self.mesh.coords[MODEL_AXIS]][0]
+
+    @property
+    def hi(self) -> int:
+        return self.bounds[self.mesh.coords[MODEL_AXIS]][1]
+
+    @property
+    def width(self) -> int:
+        """The whole width at the input's resolution."""
+        return self.bounds[-1][1]
+
+    def stride(self, local_width: int) -> int:
+        """The stride of a level at which this rank's width is ``local_width``."""
+        return (self.hi - self.lo) // local_width
+
+    def widths(self, local_width: int) -> list[int]:
+        """Every position's width at the level where this rank's is ``local_width``."""
+        s = self.stride(local_width)
+        return [(hi - lo) // s for lo, hi in self.bounds]
+
+    def columns(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's columns of the full-width ``t`` along ``dim``, as a
+        contiguous copy (a width slice of a row-major or channels_last
+        tensor is a strided view)."""
+        return t.narrow(dim, self.lo, self.hi - self.lo).contiguous()
+
+
+def width_split(width: int, mesh: Mesh | None) -> WidthSplit | None:
+    """The split of ``width`` over ``mesh``'s 'model' axis, or None where
+    that axis has one position (no mesh, (1, 1), (d, 1)): the width is then
+    whole and the single-card code runs."""
+    if mesh is None or mesh.shape[MODEL_AXIS] == 1:
+        return None
+    return WidthSplit(mesh, tuple(width_bounds(width, mesh.shape[MODEL_AXIS])))
 
 
 @dataclasses.dataclass(frozen=True)

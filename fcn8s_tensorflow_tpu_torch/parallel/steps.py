@@ -12,6 +12,17 @@ loss is the masked mean over the global batch (its normalisers summed over
 gathered over 'data' (``parallel/collectives.py``). On the (1, 1) mesh, or
 with no mesh, every step runs the single-card code.
 
+``spatial_partition=True`` (JAX's ``spatial_spec``) splits the width over
+'model' too, with replicated params: each step takes this rank's rows at
+the full width, keeps its columns (``mesh.width_split``; after the device
+augmentation in training), and runs the model on them with a halo exchange
+at every conv and deconv. The per-rank kernels see complete rows: K1/K3
+sum over this rank's pixels, divided by the whole batch's normaliser (its
+global pixel count), and the loss, the gradients, the weight sums and K5's
+counts are then summed over both axes; predictions are gathered over
+'model' along the width, then over 'data'. The L2 term is added on
+position (0, 0) alone.
+
 ``eval_step``/``predict_step`` take the compute-dtype params of
 ``bridge.cast_params``; ``train_step`` takes a ``TrainState`` over the fp32
 masters and derives that cast inside autograd on every step.
@@ -39,8 +50,8 @@ from ..ops.losses import class_pixel_weights, valid_pixel_weights
 from ..ops.metrics import update_metrics_state
 from ..ops.nn import resize_bilinear
 from ..ops.quantize import apply_fcn8s_int8
-from .collectives import all_gather_cat, all_reduce, all_reduce_flat
-from .mesh import DATA_AXIS, MODEL_AXIS, sharded_leaves
+from .collectives import all_gather_cat, all_reduce, all_reduce_flat, gather_width
+from .mesh import ALL_AXES, DATA_AXIS, MODEL_AXIS, sharded_leaves, width_split
 
 OPTIMIZERS = ("adam", "adamw", "momentum", "sgd")
 INITIAL_LEARNING_RATE = 1e-4  # make_optimizer's injected default in the JAX package
@@ -236,7 +247,7 @@ def loss_and_grads(params: dict, images: torch.Tensor, label_ids: torch.Tensor,
                    sample_mask: torch.Tensor, *, seed: int, step: int, l2_rate: float,
                    keep_prob: float, compute_dtype=torch.bfloat16, remat: bool = False,
                    grad_accum: int = 1, ignore_label: int | None = None, class_weights=None,
-                   mesh=None, tensor_parallel: bool = False):
+                   mesh=None, tensor_parallel: bool = False, split=None):
     """The loss and the gradient of every leaf of ``params`` (in
     ``bridge.param_leaves`` order): the value-and-grad half of
     ``train_step``. See ``train_step`` for the arguments.
@@ -246,12 +257,19 @@ def loss_and_grads(params: dict, images: torch.Tensor, label_ids: torch.Tensor,
     them divided by the whole batch's ``sum(w)``, summed over 'data' before
     the loss, plus the L2 term on data position 0 only; the loss and the
     gradients are then summed over 'data', so every rank holds the global
-    batch's."""
+    batch's. ``split`` (a ``parallel.mesh.WidthSplit``): the inputs are
+    this rank's columns of those rows; the normalisers count the whole
+    width, the sums run over both axes, and the L2 term is added on
+    position (0, 0) only."""
     weighted = ignore_label is not None or class_weights is not None
     leaves = bridge.param_leaves(params)
     dp = mesh is not None and mesh.shape[DATA_AXIS] > 1
-    fwd_mesh = mesh if dp or (mesh is not None and mesh.tensor_parallel(tensor_parallel)) else None
-    with_l2 = not dp or mesh.coords[DATA_AXIS] == 0
+    spread = dp or split is not None  # the batch's pixels lie on more than this rank
+    axes = ALL_AXES if split is not None else DATA_AXIS
+    tp = mesh is not None and mesh.tensor_parallel(tensor_parallel)
+    fwd_mesh = mesh if spread or tp else None
+    with_l2 = ((not dp or mesh.coords[DATA_AXIS] == 0)
+               and (split is None or mesh.coords[MODEL_AXIS] == 0))
 
     def pixel_weights(lb, mk):
         if class_weights is not None:
@@ -263,7 +281,7 @@ def loss_and_grads(params: dict, images: torch.Tensor, label_ids: torch.Tensor,
         logits = apply_fcn8s(run, im, keep_prob=keep_prob, generator=generator,
                              deterministic=False, compute_dtype=compute_dtype,
                              logits_dtype=compute_dtype, remat=remat, mesh=fwd_mesh,
-                             tensor_parallel=tensor_parallel)
+                             tensor_parallel=tensor_parallel, split=split)
         ce = softmax_cross_entropy(logits, lb, pixel_weights(lb, mk) if weighted else mk,
                                    denominator=denominator)
         if not with_l2:
@@ -274,23 +292,25 @@ def loss_and_grads(params: dict, images: torch.Tensor, label_ids: torch.Tensor,
     def global_counts(lb, mk):
         """The (grad_accum,) real-sample counts (pixel-weight sums when
         weighted) of the global microbatches, and the loss denominators
-        (summed over 'data'; off a mesh the all-reduce is a no-op)."""
+        (summed over 'data', the weight sums over 'model' too under a
+        split; off a mesh the all-reduce is a no-op). A sample's pixel
+        count is the whole width's."""
         with torch.no_grad():
             if weighted:
                 counts = pixel_weights(lb, mk).reshape(grad_accum, -1).sum(dim=1)
-            else:
-                counts = mk.float().reshape(grad_accum, -1).sum(dim=1)
-            counts = all_reduce(counts, mesh)
-        pps = lb[0].numel()
+                counts = all_reduce(counts, mesh, axes)
+            else:  # the sample mask is replicated over 'model'
+                counts = all_reduce(mk.float().reshape(grad_accum, -1).sum(dim=1), mesh)
+        pps = lb.shape[1] * (lb.shape[2] if split is None else split.width)
         return counts, (counts if weighted else counts * pps)
 
     if grad_accum <= 1:
-        denominator = global_counts(label_ids, sample_mask)[1][0] if dp else None
+        denominator = global_counts(label_ids, sample_mask)[1][0] if spread else None
         loss = loss_for(images, label_ids, sample_mask,
                         dropout_generator(images.device, seed, step), denominator)
         grads = list(torch.autograd.grad(loss, leaves))
-        if dp:
-            loss, grads = all_reduce(loss.detach(), mesh), all_reduce_flat(grads, mesh)
+        if spread:
+            loss, grads = all_reduce(loss.detach(), mesh, axes), all_reduce_flat(grads, mesh, axes)
         return loss.detach(), grads
 
     n = images.shape[0]
@@ -302,7 +322,7 @@ def loss_and_grads(params: dict, images: torch.Tensor, label_ids: torch.Tensor,
     # microbatch means is the full-batch mean, and the L2 term rides along
     # exactly since the weights sum to 1
     counts, denominators = global_counts(label_ids, sample_mask)
-    if not dp:  # each microbatch divides by its own sum, as on one card
+    if not spread:  # each microbatch divides by its own sum, as on one card
         denominators = [None] * grad_accum
     shares = counts / torch.clamp(counts.sum(), min=1.0)
     grads = [torch.zeros_like(t) for t in leaves]
@@ -316,8 +336,8 @@ def loss_and_grads(params: dict, images: torch.Tensor, label_ids: torch.Tensor,
             for acc, g in zip(grads, g_i):
                 acc.add_(g.mul_(shares[i]))
             total = total + shares[i] * loss_i.detach()
-    if dp:
-        total, grads = all_reduce(total, mesh), all_reduce_flat(grads, mesh)
+    if spread:
+        total, grads = all_reduce(total, mesh, axes), all_reduce_flat(grads, mesh, axes)
     return total, grads
 
 
@@ -326,7 +346,7 @@ def train_step(state: TrainState, images: torch.Tensor, label_ids: torch.Tensor,
                keep_prob: float, *, optimizer: Optimizer, num_classes: int,
                compute_dtype=torch.bfloat16, remat: bool = False, grad_accum: int = 1,
                ignore_label: int | None = None, class_weights=None, augment_fn=None,
-               mesh=None, tensor_parallel: bool = False):
+               mesh=None, tensor_parallel: bool = False, spatial_partition: bool = False):
     """One optimization step; returns ``(state, loss)`` with ``state``
     advanced in place and ``loss`` a 0-d fp32 device tensor (no sync).
 
@@ -350,8 +370,11 @@ def train_step(state: TrainState, images: torch.Tensor, label_ids: torch.Tensor,
     on that mesh; ``images``, ``label_ids`` and ``sample_mask`` are this
     rank's rows (``mesh.batch_rows(n, mesh, grad_accum)``) and ``state``
     holds its shards (``loss_and_grads``; the optimizer runs on the
-    shards)."""
+    shards). ``spatial_partition``: the width is split over 'model' too
+    (not with ``tensor_parallel``); the rows come at the full width, are
+    augmented whole, and the step keeps this rank's columns."""
     del num_classes
+    split = _width_split(images, mesh, spatial_partition, tensor_parallel)
     if augment_fn is not None:
         key = augment_key(seed, state.step)
         if mesh is not None and mesh.shape[DATA_AXIS] > 1:
@@ -359,21 +382,32 @@ def train_step(state: TrainState, images: torch.Tensor, label_ids: torch.Tensor,
                                          spawn_key=key.spawn_key + (mesh.coords[DATA_AXIS],))
         with torch.no_grad():
             images, label_ids = augment_fn(key, images, label_ids)
+    if split is not None:
+        images, label_ids = split.columns(images, 2), split.columns(label_ids, 2)
     loss, grads = loss_and_grads(
         state.params, images, label_ids, sample_mask, seed=seed, step=state.step,
         l2_rate=l2_rate, keep_prob=keep_prob, compute_dtype=compute_dtype, remat=remat,
         grad_accum=grad_accum, ignore_label=ignore_label, class_weights=class_weights,
-        mesh=mesh, tensor_parallel=tensor_parallel)
+        mesh=mesh, tensor_parallel=tensor_parallel, split=split)
     optimizer.apply(state.params, grads, state.opt_state, learning_rate, mesh=mesh,
                     tensor_parallel=tensor_parallel)
     state.step += 1
     return state, loss
 
 
+def _width_split(images: torch.Tensor, mesh, spatial_partition: bool, tensor_parallel: bool):
+    """The width split of a step's NHWC ``images`` (None: the width is
+    whole), after JAX's check that the two uses of 'model' exclude each
+    other."""
+    if spatial_partition and tensor_parallel:
+        raise ValueError("spatial_partition and tensor_parallel are mutually exclusive")
+    return width_split(images.shape[2], mesh) if spatial_partition else None
+
+
 def eval_step(params: dict, metrics_state: dict, images: torch.Tensor, label_ids: torch.Tensor,
               sample_mask: torch.Tensor, *, num_classes: int, compute_dtype=torch.bfloat16,
               ignore_label: int | None = None, class_weights=None, mesh=None,
-              tensor_parallel: bool = False) -> dict:
+              tensor_parallel: bool = False, spatial_partition: bool = False) -> dict:
     """Forward-only metric accumulation at keep_prob=1: the forward in
     ``compute_dtype`` with logits kept in it, the CE through K1 with
     ``sample_mask`` (through K3 with the pixel weights of ``ignore_label`` /
@@ -385,10 +419,18 @@ def eval_step(params: dict, metrics_state: dict, images: torch.Tensor, label_ids
     ``images``, ``label_ids`` and ``sample_mask`` being this rank's rows;
     the batch's loss (over the whole batch's normaliser) and its K5 counts
     are summed over 'data' before they join the state, which is then the
-    same on every rank."""
+    same on every rank. ``spatial_partition``: as in ``train_step``, this
+    rank's columns of its rows, the sums over both axes."""
+    split = _width_split(images, mesh, spatial_partition, tensor_parallel)
     dp = mesh is not None and mesh.shape[DATA_AXIS] > 1
+    spread = dp or split is not None
+    axes = ALL_AXES if split is not None else DATA_AXIS
+    pps = label_ids.shape[1] * label_ids.shape[2]  # a sample's pixels, the whole width's
+    if split is not None:
+        images, label_ids = split.columns(images, 2), split.columns(label_ids, 2)
     logits = apply_fcn8s(params, images, compute_dtype=compute_dtype,
-                         logits_dtype=compute_dtype, mesh=mesh, tensor_parallel=tensor_parallel)
+                         logits_dtype=compute_dtype, mesh=mesh, tensor_parallel=tensor_parallel,
+                         split=split)
     if class_weights is not None:
         weights = class_pixel_weights(label_ids, sample_mask, class_weights, ignore_label)
     elif ignore_label is not None:
@@ -396,13 +438,14 @@ def eval_step(params: dict, metrics_state: dict, images: torch.Tensor, label_ids
     else:
         weights = sample_mask
     denominator = None
-    if dp:
-        denominator = all_reduce(weights.float().sum(), mesh)
-        if weights is sample_mask:
-            denominator = denominator * label_ids[0].numel()
+    if spread:
+        if weights is sample_mask:  # replicated over 'model'
+            denominator = all_reduce(weights.float().sum(), mesh) * pps
+        else:
+            denominator = all_reduce(weights.float().sum(), mesh, axes)
     loss = softmax_cross_entropy(logits, label_ids, weights, denominator=denominator)
     pred = torch.argmax(logits, dim=-1).to(torch.int32)
-    if not dp:
+    if not spread:
         return update_metrics_state(metrics_state, loss=loss, pred_ids=pred, gt_ids=label_ids,
                                     num_classes=num_classes, sample_mask=sample_mask)
     batch = update_metrics_state(
@@ -411,25 +454,26 @@ def eval_step(params: dict, metrics_state: dict, images: torch.Tensor, label_ids
          "conf_matrix": torch.zeros_like(metrics_state["conf_matrix"])},
         loss=loss, pred_ids=pred, gt_ids=label_ids, num_classes=num_classes,
         sample_mask=sample_mask)
-    metrics_state["loss_sum"] += all_reduce(batch["loss_sum"], mesh)
+    metrics_state["loss_sum"] += all_reduce(batch["loss_sum"], mesh, axes)
     metrics_state["loss_count"] += 1.0
-    metrics_state["conf_matrix"] += all_reduce(batch["conf_matrix"], mesh)
+    metrics_state["conf_matrix"] += all_reduce(batch["conf_matrix"], mesh, axes)
     return metrics_state
 
 
 def _forward(params: dict, images: torch.Tensor, quantized: bool, mesh, tensor_parallel,
-             **kwargs) -> torch.Tensor:
+             split=None, **kwargs) -> torch.Tensor:
     """The inference forward: int8 encoder for a quantized tree (replicated
     on a mesh, as JAX keeps it), else the compute-dtype model."""
     if quantized:
-        return apply_fcn8s_int8(params, images, mesh=mesh, **kwargs)
-    return apply_fcn8s(params, images, mesh=mesh, tensor_parallel=tensor_parallel, **kwargs)
+        return apply_fcn8s_int8(params, images, mesh=mesh, split=split, **kwargs)
+    return apply_fcn8s(params, images, mesh=mesh, tensor_parallel=tensor_parallel, split=split,
+                       **kwargs)
 
 
 def predict_step(params: dict, images: torch.Tensor, *, argmax: bool = True,
                  compute_dtype=torch.bfloat16, id_dtype=torch.int32, overlay_lut=None,
-                 quantized: bool = False, mesh=None,
-                 tensor_parallel: bool = False) -> torch.Tensor:
+                 quantized: bool = False, mesh=None, tensor_parallel: bool = False,
+                 spatial_partition: bool = False) -> torch.Tensor:
     """Inference head on NHWC ``images``: argmax ids ``(N, H, W)`` in
     ``id_dtype``, the fp32 softmax ``(N, H, W, C)`` (``argmax=False``), or
     with ``overlay_lut`` ((C, 4) RGBA rows) the alpha-composited uint8 RGB
@@ -444,16 +488,23 @@ def predict_step(params: dict, images: torch.Tensor, *, argmax: bool = True,
     ``mesh``/``tensor_parallel``: JAX's ``compile_predict_step`` on that
     mesh; ``images`` are this rank's rows, and the output of the whole
     batch is gathered over 'data' (``tensor_parallel`` does not apply to
-    the int8 tree)."""
-    return all_gather_cat(_predict_rows(params, images, argmax, compute_dtype, id_dtype,
-                                        overlay_lut, quantized, mesh, tensor_parallel), mesh)
+    the int8 tree). ``spatial_partition``: as in ``train_step``, this rank's
+    columns of its rows; the output is gathered over 'model' along the
+    width first."""
+    split = _width_split(images, mesh, spatial_partition, tensor_parallel)
+    if split is not None:
+        images = split.columns(images, 2)
+    out = _predict_rows(params, images, argmax, compute_dtype, id_dtype, overlay_lut, quantized,
+                        mesh, tensor_parallel, split)
+    return all_gather_cat(gather_width(out, split, 2), mesh)
 
 
 def _predict_rows(params, images, argmax, compute_dtype, id_dtype, overlay_lut, quantized, mesh,
-                  tensor_parallel):
-    """``predict_step`` on this rank's rows."""
+                  tensor_parallel, split=None):
+    """``predict_step`` on this rank's rows (its columns of them under a
+    width ``split``)."""
     want_ids = argmax or overlay_lut is not None
-    logits = _forward(params, images, quantized, mesh, tensor_parallel,
+    logits = _forward(params, images, quantized, mesh, tensor_parallel, split,
                       compute_dtype=compute_dtype, logits_dtype=compute_dtype,
                       packed_final=want_ids)
     if not want_ids:

@@ -654,8 +654,8 @@ def test_tta_and_tiled_predict_on_the_card_equal_the_cpu(dev, no_tf32, monkeypat
         assert (got == want).mean() >= agree, name
     if quantized:
         routed = {name: call(card, argmax=False) for name, call in calls.items()}
-        monkeypatch.setattr(Q, "int8_conv_acc",
-                            lambda xq, qlayer: Q.conv2d_int8_reference(xq, qlayer["kernel_q"]))
+        monkeypatch.setattr(Q, "int8_conv_acc", lambda xq, qlayer, halo=False:
+                            Q.conv2d_int8_reference(xq, qlayer["kernel_q"], halo))
         for name, call in calls.items():
             np.testing.assert_array_equal(routed[name], call(card, argmax=False), err_msg=name)
 

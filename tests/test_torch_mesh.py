@@ -225,9 +225,13 @@ def _job_facade(job, mesh, tree):
 _JOBS = {"step": _job_step, "eval": _job_eval, "predict": _job_predict, "facade": _job_facade}
 
 
-def _rank_main(rank: int, world: int, store: str, spec_path: str, out_dir: str) -> None:
+def _rank_main(rank: int, world: int, store: str, spec_path: str, out_dir: str,
+               jobs: dict | None = None) -> None:
+    """One worker: ``jobs`` (default this file's) maps each job's kind to
+    the function that runs it on the rank's mesh."""
     import torch.distributed as dist
 
+    jobs = _JOBS if jobs is None else jobs
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
                             world_size=world,
@@ -241,7 +245,7 @@ def _rank_main(rank: int, world: int, store: str, spec_path: str, out_dir: str) 
             if shape not in meshes:
                 meshes[shape] = tmesh.create_mesh(*shape, devices=["cpu"] * world)
             mesh = meshes[shape]
-            results[name] = _JOBS[job["kind"]](job, mesh, spec["tree"])
+            results[name] = jobs[job["kind"]](job, mesh, spec["tree"])
             results[name]["coords"] = dict(mesh.coords)
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(results, f)
@@ -249,8 +253,9 @@ def _rank_main(rank: int, world: int, store: str, spec_path: str, out_dir: str) 
         dist.destroy_process_group()
 
 
-def launch(tmp_path, world: int, jobs: dict, tree=None) -> list:
-    """Run ``jobs`` in a gloo group of ``world`` worker processes; returns
+def launch(tmp_path, world: int, jobs: dict, tree=None, script: str | None = None) -> list:
+    """Run ``jobs`` in a gloo group of ``world`` worker processes, each
+    ``script`` (default this file) run with the rank's arguments; returns
     each rank's results. A worker that fails or a group that outlives
     ``GROUP_TIMEOUT_S`` fails the calling test with the workers' output."""
     tmp_path = str(tmp_path)
@@ -262,7 +267,8 @@ def launch(tmp_path, world: int, jobs: dict, tree=None) -> list:
         [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]),
         OMP_NUM_THREADS="1")
     logs = [open(os.path.join(tmp_path, f"rank{r}.log"), "w+") for r in range(world)]
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), str(r), str(world),
+    script = script or os.path.abspath(__file__)
+    procs = [subprocess.Popen([sys.executable, script, str(r), str(world),
                                store, spec, tmp_path], env=env, stdout=logs[r],
                               stderr=subprocess.STDOUT) for r in range(world)]
     deadline = time.monotonic() + GROUP_TIMEOUT_S

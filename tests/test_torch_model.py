@@ -227,8 +227,10 @@ def test_facade_predict_pads_crops_and_matches_jax(rng):
     probs = model.predict(images, argmax=False)
     assert probs.shape == (3, 50, 70, C)
     np.testing.assert_allclose(probs.sum(-1), 1.0, rtol=1e-5)
-    with pytest.raises(NotImplementedError):
-        model.predict(images, spatial_partition=True)
+    # without a mesh the width is whole: JAX's spatial spec is the plain layout
+    np.testing.assert_array_equal(model.predict(images, spatial_partition=True), got)
+    np.testing.assert_array_equal(model.predict(images, argmax=False, spatial_partition=True),
+                                  probs)
 
 
 def test_facade_evaluate_matches_jax_eval_steps(rng):

@@ -381,22 +381,40 @@ def test_facade_train_then_predict_uses_new_weights(tmp_path):
 
 
 @pytest.mark.parametrize("option", [
-    # every other option is ported; spatial partitioning beside any of them
-    # still raises before any step runs or anything is written
+    # spatial partitioning beside each train() option, on a model without a
+    # mesh, where JAX's spatial spec is the plain layout
     dict(save_during_training=True, save_dir="x", early_stopping=2),
     dict(record_summaries=True, summaries_dir="x"),
     dict(device_augment={"flip": 0.5}), dict(ema_decay=0.9), dict(),
     dict(early_stopping=2), dict(reduce_lr_on_plateau=2)])
 def test_train_options_not_ported_raise(option, tmp_path, monkeypatch):
-    monkeypatch.chdir(tmp_path)
-    model = FCN8s(num_classes=C, compute_dtype=torch.float32, device="cpu", **SMALL)
-    kw = dict(record_summaries=False, spatial_partition=True)
-    kw.update(option)
-    with pytest.raises(NotImplementedError):
+    """``spatial_partition=True`` beside each option gives exactly the run
+    of ``False`` on a mesh-less model: the params, the EMA, the loss, the
+    step and the files written. JAX's ``summaries_dir`` check still comes
+    first, before any step runs or anything is written."""
+    runs = []
+    for spatial in (False, True):
+        root = tmp_path / f"spatial_{spatial}"
+        root.mkdir()
+        monkeypatch.chdir(root)
+        model = FCN8s(num_classes=C, compute_dtype=torch.float32, device="cpu", **SMALL)
+        with pytest.raises(ValueError, match="summaries_dir"):
+            model.train(_stream(), 1, 1, lambda s: 1e-4, spatial_partition=spatial)
+        assert model.state.step == 0 and not os.listdir(root)
+        kw = dict(record_summaries=False, spatial_partition=spatial)
+        kw.update(option)
         model.train(_stream(), 1, 1, lambda s: 1e-4, **kw)
-    assert model.state.step == 0 and not os.listdir(tmp_path)
-    with pytest.raises(ValueError, match="summaries_dir"):
-        model.train(_stream(), 1, 1, lambda s: 1e-4)  # JAX's own check comes first
+        ema = bridge.to_numpy(model.ema_params) if "ema_decay" in option else None
+        files = sorted((os.path.relpath(d, root), len(f)) for d, _, f in os.walk(root))
+        runs.append((bridge.to_numpy(model.params), ema, model.training_loss, model.state.step,
+                     files))
+    (p0, e0, l0, s0, f0), (p1, e1, l1, s1, f1) = runs
+    assert l0 == l1 and s0 == s1 == 1 and f0 == f1
+    for a, b in ((p0, p1),) + (((e0, e1),) if e0 is not None else ()):
+        for part in a:
+            for name in a[part]:
+                for key in a[part][name]:
+                    np.testing.assert_array_equal(a[part][name][key], b[part][name][key])
 
 
 @pytest.mark.parametrize("option", [
