@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, eval, training, KB calibration,
 checkpoint, training-feature, int8/TTA/tiled predict, offline-benchmark,
-host data pipeline, serving-artifact, video, viewer, annotation, mesh and
-spatial-partition paths once on one CUDA card.
+host data pipeline, serving-artifact, video, viewer, annotation, mesh,
+spatial-partition and training-survival paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -14,7 +14,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    sm_90a, one process per source) and print the build time;
 3. the eval-path kernels (K4f, K1, K5) against their plain PyTorch twins on
    the card at the serving shapes (batch 8 x 512x1024, 20 classes, bf16),
-   with median times from CUDA events;
+   with median times from CUDA events; K1 and K5 run twice on one input
+   give the same bytes;
 4. the card against the CPU: a narrow fp32 model (TF32 off) gives the same
    logits, loss and ids on both;
 5. serving at full VGG-16 width: ``FCN8s`` -> ``InferenceService`` ->
@@ -25,7 +26,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 8. the training kernels (K4a, K4b, K3, CE grad) against their twins at the
    train shapes (batch 8 x 1024x512, bench.py's, 20 classes, bf16): the
    pool pair bit-exact on tie-heavy inputs at all five pool inputs, and
-   against ``F.max_pool2d``'s gradient;
+   against ``F.max_pool2d``'s gradient; K4a (values and codes), K4b, K3 and
+   the CE grad run twice on one input give the same bytes;
 9. the card against the CPU for training: three Adam ``train_step``s of a
    narrow fp32 model (TF32 off) from the same weights;
 10. ``FCN8s.train`` at full width: 2 epochs x 4 steps with keep_prob 0.5
@@ -133,7 +135,24 @@ Phases, in order; any failure raises and the script exits non-zero:
     card (described after the kernel line's keys below);
 22. spatial partitioning (the width over the mesh's 'model' axis, the hand
     halo exchange): a group of one rank, then two ranks on the one card
-    (described after phase 21).
+    (described after phase 21);
+23. the training-survival tools and the quickstart at full width (VGG-16,
+    fc 4096): (a) ``tools.endurance_canonical`` run with ``python -m`` at
+    the recipe's shape (256x512, effective batch 16 = 2 x 8, 6 classes,
+    keep_prob 0.5, ``--augment full``, EMA 0.999, the plateau observer,
+    save-best-only, the train log), cut in length only (40 steps of 10 an
+    epoch, 64 packed scenes, the SIGKILL near step 25, 0.15 s a step of
+    throttle, each cut printed): the killed and resumed run's fingerprint
+    equals the uninterrupted comparator's, every loss finite; (b)
+    ``tools.multihost_fault_injection.run`` on two gloo ranks sharing the
+    card, 5 classes, 2 x 256x512 a rank, 4 fp32 steps: rank 1's exit 17 and
+    rank 0's failed collective detected, the resumed params and EMA equal
+    the straight run's byte for byte; (c)
+    ``examples.quickstart_synthetic`` at its defaults. The children write
+    their launch counts into their result files: K4a, K4b, K1, the CE grad,
+    K4f and K5 in (a)'s resumed and comparator children, K4a, K4b, K1 and
+    the CE grad in each rank of (b). Each part's time, the gloo step and
+    the fingerprint are printed beside the card's name and power limit.
 
 Kernel launch counts are zeroed just before each path is driven and read
 just after it: serving + evaluation (phases 5-6), training (phase 10), the
@@ -157,7 +176,9 @@ counts; ``launches_train_features`` is the kernel's count in phase 16,
 ``launches_predict_rest`` in phase 17, ``launches_facade_rest`` in phase 18,
 ``launches_data_export`` in phase 19 (d) and (e), ``launches_viz_prep`` in
 phase 20, ``launches_mesh`` in phase 21 and ``launches_spatial`` in phase
-22: ``world1`` its (a), ``world2`` each rank's (b)). A ``{"viz_prep":
+22: ``world1`` its (a), ``world2`` each rank's (b); ``launches_survival``
+in phase 23: the endurance's resumed and comparator children, each
+fault-injection rank's straight run, the quickstart). A ``{"viz_prep":
 {...}}`` line gives phase 20's numbers.
 The last line is ``{"ok": true, "device": {...}}``.
 
@@ -251,6 +272,7 @@ from fcn8s_tensorflow_tpu_torch.prep.create_gt_imgs import (create_train_id_inst
 from fcn8s_tensorflow_tpu_torch.prep.label_tool import AnnotationTool
 from fcn8s_tensorflow_tpu_torch.prep.label_tool import make_server as make_tool_server
 from fcn8s_tensorflow_tpu_torch.prep.rasterize import create_instance_image, create_label_image
+from fcn8s_tensorflow_tpu_torch.tools import load_tree, save_tree
 from fcn8s_tensorflow_tpu_torch.utils.profiling import device_busy, trace
 from fcn8s_tensorflow_tpu_torch.utils.summary import model_summary_rows
 from fcn8s_tensorflow_tpu_torch.viz.overlay import (overlay_frames, print_segmentation_onto_image,
@@ -487,6 +509,9 @@ def phase_kernels(dev) -> dict:
             torch.zeros((C, C), dtype=torch.int32, device=dev), q, t, mask, H * W)
         err = int((conf_k - conf_t).abs().max())
         check(err == 0, f"K5 differs from its twin by up to {err} on {name} ids")
+        again = K.confusion_matrix_accumulate(
+            torch.zeros((C, C), dtype=torch.int32, device=dev), q, t, mask, H * W)
+        check(torch.equal(conf_k, again), f"K5 is not run-to-run identical on {name} ids")
     acc = torch.zeros((C, C), dtype=torch.int32, device=dev)
     k_ms = cuda_ms(lambda: K.confusion_matrix_accumulate(acc, pred, labels, mask, H * W))
     kg_ms = graph_ms(lambda: K.confusion_matrix_accumulate(acc, pred, labels, mask, H * W),
@@ -698,11 +723,17 @@ def phase_train_kernels(dev) -> dict:
         y_t, code_t = P.maxpool2x2_code_plain(x)
         check(torch.equal(y, y_t) and torch.equal(code, code_t),
               f"K4a differs from its twin at {tuple(x.shape)}")
+        y2, code2 = P.maxpool2x2_code_nhwc(x)
+        check(torch.equal(y, y2) and torch.equal(code, code2),
+              f"K4a is not run-to-run identical at {tuple(x.shape)}")
+        del y2, code2
         dy = torch.randn(y.shape, generator=g, device=dev).to(torch.bfloat16).contiguous(
             memory_format=torch.channels_last)
         dx = P.maxpool2x2_bwd_nhwc(dy, code)
         check(torch.equal(dx, P.maxpool2x2_bwd_plain(dy, code)),
               f"K4b differs from its twin at {tuple(x.shape)}")
+        check(torch.equal(dx, P.maxpool2x2_bwd_nhwc(dy, code)),
+              f"K4b is not run-to-run identical at {tuple(x.shape)}")
         xr = x.detach().clone().requires_grad_()
         F.max_pool2d(xr, 2, 2).backward(dy)
         check(torch.equal(dx, xr.grad),
@@ -786,6 +817,8 @@ def phase_train_kernels(dev) -> dict:
     times = {}
     for mode, (w_, pps) in {"per-sample": (mask, TH * TW), "per-pixel": (weights, None)}.items():
         d_k = K.ce_grad(logits, labels, w_, grad_out, pps)
+        check(torch.equal(d_k, K.ce_grad(logits, labels, w_, grad_out, pps)),
+              f"CE grad ({mode}) is not run-to-run identical")
         d_t = K.ce_grad_plain(logits, labels, w_, grad_out, pps)
         wg = (w_.repeat_interleave(pps) if pps else w_)[:, None] * grad_out
         ulps, close = _bf16_ulps(d_k, d_t, wg)
@@ -2835,20 +2868,6 @@ MESH_TIMEOUT_S = 600  # phase 21 (b): the two ranks, launch to join
 MESH_SHAPES = ((2, 1), (1, 2))  # phase 21 (b): the meshes of the two ranks
 
 
-def _save_tree(path: str, tree: dict) -> None:
-    np.savez(path, **{f"{p}/{n}/{k}": v for p, layers in tree.items()
-                      for n, layer in layers.items() for k, v in layer.items()})
-
-
-def _load_tree(path: str) -> dict:
-    tree = {}
-    with np.load(path) as z:
-        for key in z.files:
-            part, name, leaf = key.split("/")
-            tree.setdefault(part, {}).setdefault(name, {})[leaf] = z[key]
-    return tree
-
-
 def _mesh_tree(dev) -> dict:
     """Phase 21's weights: a seeded full-width model with the decoder
     redrawn (``_redraw_decoder``), as a JAX-layout numpy tree."""
@@ -2957,7 +2976,7 @@ def _mesh_refs(dev, tree: dict, work: str) -> None:
     np.savez(os.path.join(work, "batch.npz"), images=images, labels=labels)
     with open(os.path.join(work, "config.json"), "w") as f:
         json.dump({"device": str(dev), "classes": C, "batch": BATCH}, f)
-    _save_tree(os.path.join(work, "tree.npz"), tree)
+    save_tree(os.path.join(work, "tree.npz"), tree)
     # fp32 references with TF32 off, as the ranks run (cuDNN defaults it on)
     tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
@@ -3067,7 +3086,7 @@ def mesh_rank_main(rank: int, world: int, store: str, work: str) -> None:
         if dev.type == "cuda":
             build.library()
         report["gloo_cuda"] = _gloo_cuda_check(dev)
-        tree = _load_tree(os.path.join(work, "tree.npz"))
+        tree = load_tree(os.path.join(work, "tree.npz"))
         whole = bridge.to_port(tree, device=dev)  # once; each use takes fresh shards of it
         del tree
 
@@ -3363,7 +3382,7 @@ def _spatial_refs(dev, tree: dict, work: str) -> dict:
     np.savez(os.path.join(work, "batch.npz"), images=images, labels=labels)
     with open(os.path.join(work, "config.json"), "w") as f:
         json.dump({"device": str(dev)}, f)
-    _save_tree(os.path.join(work, "tree.npz"), tree)
+    save_tree(os.path.join(work, "tree.npz"), tree)
     f32, bf16 = torch.float32, torch.bfloat16
     tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
@@ -3446,7 +3465,7 @@ def spatial_rank_main(rank: int, world: int, store: str, work: str) -> None:
             parts = CL._all_gather_raw(mine, mesh, "model")
             check(all(torch.equal(p, torch.full_like(mine, r + 1)) for r, p in enumerate(parts)),
                   f"gloo all_gather of {dtype} as bytes")
-        tree = _load_tree(os.path.join(work, "tree.npz"))
+        tree = load_tree(os.path.join(work, "tree.npz"))
         with np.load(os.path.join(work, "batch.npz")) as z:
             images, labels = z["images"], z["labels"]
         refs = dict(np.load(os.path.join(work, "refs.npz")))
@@ -3602,6 +3621,148 @@ def phase_spatial(dev, smi: str) -> dict:
     return {"world1": world1, "world2": [r["launches"] for r in world2["reports"]]}
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the training-survival tools and the quickstart
+# ---------------------------------------------------------------------------
+
+SURVIVAL_SEED = 23
+# the endurance recipe's shape (256x512, effective batch 16 = 2 x 8, 6
+# classes, keep_prob 0.5, --augment full, EMA, plateau, save-best-only, the
+# train log), cut in length only: a 64-scene pool, 10 steps an epoch, 4
+# epochs, the kill 0.1 s after step 20's record, while that epoch's 2.15 GB
+# asynchronous save is still writing (so the resume reads step 10's and
+# replays step 20, which ``replay`` holds against the killed trainer's
+# record), a throttle of THROTTLE_S a step so the kill lands mid-epoch
+ENDURANCE = {"total-steps": 40, "spe": 10, "batch": 16, "grad-accum": 2, "height": 256,
+             "width": 512, "dataset-size": 64, "width-mult": 1.0, "fc-channels": 4096,
+             "augment": "full", "kill-at-step": 20, "kill-delay-s": 0.1, "poll-s": 0.1,
+             "stall-timeout-s": 300, "first-progress-timeout-s": 600, "max-resumes": 2,
+             "miou-floor": 0.0}
+ENDURANCE_CUTS = ("13,000 -> 40 steps", "500 -> 10 steps an epoch", "2,048 -> 64 scenes",
+                  "kill at ~6,500 -> ~21 (step 20's save still writing)",
+                  "throttle 0.15 s a step")
+THROTTLE_S = 0.15
+ENDURANCE_TIMEOUT_S = 600
+FAULT_HW = (256, 512)  # 2 x 256x512 a rank
+TRAIN_KERNELS = ("maxpool2x2_code_nhwc", "maxpool2x2_bwd_nhwc", "ce_sum_per_sample", "ce_grad")
+EVAL_KERNELS = ("maxpool2x2_nhwc", "ce_sum_per_sample", "confusion_matrix_accumulate")
+
+
+def phase_endurance(root: str, smi: str) -> dict:
+    """(a) ``tools.endurance_canonical`` at full width, run as a user runs it
+    (``python -m``): a SIGKILL, a resume, the comparator; returns the report."""
+    from fcn8s_tensorflow_tpu_torch.tools import child_env
+
+    report = os.path.join(root, "endurance_report.json")
+    cmd = [sys.executable, "-m", "fcn8s_tensorflow_tpu_torch.tools.endurance_canonical",
+           "--device", "cuda", "--packed", os.path.join(root, "packed"),
+           "--out-root", os.path.join(root, "out"), "--report", report]
+    for key, value in ENDURANCE.items():
+        cmd += [f"--{key}", str(value)]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, env=dict(child_env(), ENDURANCE_THROTTLE_S=str(THROTTLE_S)),
+                         capture_output=True, text=True, timeout=ENDURANCE_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    check(out.returncode == 0, f"endurance run failed (rc {out.returncode}):\n"
+          f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    with open(report) as f:
+        rep = json.load(f)
+    check(rep["bitexact_resume"], "the killed and resumed run is not bit-exact: "
+          f"{rep['final']['fingerprint']} vs {rep['comparator']['fingerprint']}")
+    check(rep["replay"]["match"], "the resumed trainer's replayed train-log records differ "
+          f"from the killed trainer's: {rep['replay']}")
+    check(rep["all_losses_finite"], "a non-finite training loss")
+    kills = [e for e in rep["events"] if e["event"] == "sigkill"]
+    check(len(kills) == 1 and rep["final"]["final_step"] == ENDURANCE["total-steps"],
+          f"events {rep['events']}, final step {rep['final']['final_step']}")
+    for who in ("final", "comparator"):
+        counts = rep[who]["launches"]
+        for name in TRAIN_KERNELS + EVAL_KERNELS:
+            check(counts[name] > 0, f"{name} never launched in the endurance {who} child")
+    miou = [r.get("eval_mean_iou") for r in rep["history"]]
+    print(f"phase 23 (a) endurance on {smi}: {seconds:.1f} s (train {rep['wall_s_train']} s); "
+          f"cuts: {'; '.join(ENDURANCE_CUTS)}; SIGKILL at logged step {kills[0]['at_step']} "
+          f"(checkpoint {kills[0]['ckpt']}; writes the kill cut: {kills[0]['cut_writes']}), "
+          f"resumed; bit-exact {rep['bitexact_resume']}, the killed trainer's records of steps "
+          f"{rep['replay']['replayed_steps']} replayed equal, "
+          f"fingerprint {rep['final']['fingerprint']}; losses finite; eval mIoU per epoch "
+          f"{miou}; launches (resumed child) {rep['final']['launches']}; child seconds "
+          f"(resumed, comparator): {rep['final']['seconds']}, {rep['comparator']['seconds']}")
+    return {"seconds": seconds, "report": rep}
+
+
+def phase_fault_injection(root: str, smi: str) -> dict:
+    """(b) ``tools.multihost_fault_injection.run`` on two gloo ranks sharing
+    the card, at full width (5 classes), 2 x 256x512 a rank, 4 steps."""
+    from fcn8s_tensorflow_tpu_torch.models.fcn8s import init_fcn8s
+    from fcn8s_tensorflow_tpu_torch.tools import multihost_fault_injection as fi
+
+    tree = init_fcn8s(torch.Generator().manual_seed(SURVIVAL_SEED), fi.NUM_CLASSES)
+    t0 = time.perf_counter()
+    out = fi.run(os.path.join(root, "fault"), tree, device="cuda", hw=FAULT_HW,
+                 global_batch=2 * fi.NUM_PROCESSES)
+    seconds = time.perf_counter() - t0
+    check(out["straight_ok"], "the straight fault-injection run failed")
+    check(out["detected"], f"the injected fault was not detected: exit codes {out['fault_rcs']}")
+    check(out["resume_ok"] and out["bitexact"],
+          f"the resumed run differs from the straight run: {out['differing_leaves']}")
+    ranks = out["results"]["straight"]
+    for r, res in enumerate(ranks):
+        check(res["backend"] == "gloo", f"rank {r} ran {res['backend']}")
+        for name in TRAIN_KERNELS:
+            check(res["launches"][name] > 0, f"{name} never launched in fault-injection rank {r}")
+    step_ms = [round(1e3 * t, 1) for t in ranks[0]["step_s"]]
+    print(f"phase 23 (b) fault injection on {smi}: {seconds:.1f} s; two gloo ranks on the "
+          f"card, full width, 5 classes, 2 x {FAULT_HW[0]}x{FAULT_HW[1]} a rank, fp32: rank 1 "
+          f"exit {out['fault_rcs'][1]}, rank 0 exit {out['fault_rcs'][0]} (detected); resumed "
+          f"from step 2, params and EMA bit-exact; the gloo step (rank 0, host clock, loss "
+          f"read back) {step_ms} ms; launches per rank "
+          f"{[res['launches'] for res in ranks]}")
+    return {"seconds": seconds, "launches": [res["launches"] for res in ranks],
+            "step_ms": step_ms}
+
+
+def phase_quickstart(root: str, smi: str) -> dict:
+    """(c) ``examples.quickstart_synthetic`` at its defaults on the card
+    (full width), in this process; returns its launch counts."""
+    from fcn8s_tensorflow_tpu_torch.examples import quickstart_synthetic
+
+    out = os.path.join(root, "quickstart")
+    zero_counts()
+    t0 = time.perf_counter()
+    quickstart_synthetic.main(["--out", out])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    preds = sorted(os.listdir(os.path.join(out, "predictions")))
+    check(len(preds) == 8 and os.path.isfile(os.path.join(out, "viewer", "index.html")),
+          f"quickstart wrote {preds}")
+    for name in TRAIN_KERNELS + EVAL_KERNELS:
+        check(counts[name] > 0, f"{name} never launched in the quickstart")
+    print(f"phase 23 (c) quickstart_synthetic at its defaults on {smi}: {seconds:.1f} s, "
+          f"8 predictions and the gallery; launches {counts}")
+    return {"seconds": seconds, "launches": counts}
+
+
+def phase_survival(dev, smi: str) -> dict:
+    """Phase 23: (a) the endurance kill-and-resume, (b) fault injection, (c)
+    the quickstart, in a temporary directory removed at the end. The tools'
+    children run with ``tools.make_deterministic``; this process does not."""
+    del dev
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="fcn8s_survival_")
+    try:
+        endurance = phase_endurance(root, smi)
+        fault = phase_fault_injection(root, smi)
+        quick = phase_quickstart(root, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 23: {time.perf_counter() - t0:.1f} s ({smi})")
+    rep = endurance["report"]
+    return {"endurance": rep["final"]["launches"], "comparator": rep["comparator"]["launches"],
+            "fault": fault["launches"], "quickstart": quick["launches"]}
+
+
 def main() -> None:
     smi = phase_card()
     dev = torch.device("cuda", 0)
@@ -3651,6 +3812,8 @@ def main() -> None:
     mesh_counts = phase_mesh(dev, smi)
     torch.cuda.empty_cache()
     spatial_counts = phase_spatial(dev, smi)
+    torch.cuda.empty_cache()
+    survival_counts = phase_survival(dev, smi)
     paths = {"serve+eval": serve_counts, "train": train_counts, "train weighted": weighted_counts,
              "conv1 calibration": conv1_counts}
     source_path = {"maxpool2x2_nhwc": "serve+eval", "ce_sum_per_sample": "serve+eval",
@@ -3671,6 +3834,10 @@ def main() -> None:
                            "world2": [c[name] for c in mesh_counts["world2"]]},
          "launches_spatial": {"world1": spatial_counts["world1"][name],
                               "world2": [c[name] for c in spatial_counts["world2"]]},
+         "launches_survival": {"endurance": survival_counts["endurance"][name],
+                               "comparator": survival_counts["comparator"][name],
+                               "fault": [c[name] for c in survival_counts["fault"]],
+                               "quickstart": survival_counts["quickstart"][name]},
          **measured[name]}
         for name in WRAPPERS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

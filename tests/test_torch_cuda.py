@@ -44,11 +44,14 @@ def test_pool_kernel_equals_twin(dev, dtype, shape):
     assert torch.equal(y, max_pool_2x2(x))
 
 
-# The CE kernels' cases: C of 3, 20 and 150 classes (a tile of 1024, 256 and
-# 16 or 32 rows); 4099 pixels a sample, so P is no multiple of the tile; and
-# inputs whose base lies one row (and one label) past an allocation's start,
-# so no tensor is 16-byte aligned (logits[1:] is 8 bytes off at C = 20 bf16).
-CE_CLASSES = [3, 20, 150]
+# The CE kernels' cases: C of 2 (KITTI), 3, 5 (the fault-injection tool), 6
+# (the endurance and convergence tools: a bf16 row of 5 or 6 logits is not
+# 16-byte aligned, so rows go down row_tiles.cuh's ragged path), 20 and 150
+# classes (a tile of 1024, 256 and 16 or 32 rows); 4099 pixels a sample, so
+# P is no multiple of the tile; and inputs whose base lies one row (and one
+# label) past an allocation's start, so no tensor is 16-byte aligned
+# (logits[1:] is 8 bytes off at C = 20 bf16).
+CE_CLASSES = [2, 3, 5, 6, 20, 150]
 CE_PPS = 4099
 
 
@@ -309,6 +312,7 @@ def test_ce_grad_kernel_matches_twin(dev, per_pixel, logit_dtype, c, offset):
     got = K.ce_grad(logits, labels, weights, g, arg)
     want = K.ce_grad_plain(logits, labels, weights, g, arg)
     assert got.dtype == logit_dtype and got.shape == logits.shape
+    assert torch.equal(got, K.ce_grad(logits, labels, weights, g, arg))  # deterministic
     wg = (weights if per_pixel else weights.repeat_interleave(pps))[:, None] * g
     if logit_dtype == torch.bfloat16:
         assert _within_one_bf16_ulp(got, want, wg)
