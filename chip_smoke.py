@@ -2,7 +2,8 @@
 """Drive the PyTorch port's serving, eval, training, KB calibration,
 checkpoint, training-feature, int8/TTA/tiled predict, offline-benchmark,
 host data pipeline, serving-artifact, video, viewer, annotation, mesh,
-spatial-partition and training-survival paths once on one CUDA card.
+spatial-partition and training-survival paths, the measurement scripts and
+the tutorial notebook once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -153,6 +154,20 @@ Phases, in order; any failure raises and the script exits non-zero:
     K4f and K5 in (a)'s resumed and comparator children, K4a, K4b, K1 and
     the CE grad in each rank of (b). Each part's time, the gloo step and
     the fingerprint are printed beside the card's name and power limit.
+24. the measurement scripts and the tutorial notebook
+    (``fcn8s_tensorflow_tpu_torch/benchmarks``, ``examples/fcn8s_tutorial.ipynb``):
+    (a) ``benchmarks.bench`` at its full shape, run with ``python -m``: its
+    JSON line printed, a value, a step within 25% of phase 13's, the
+    analytic step 10.68 TFLOP, an ``mfu``, the batched, int8 and overlay
+    rows; (b) the other scripts at their own shapes, cut in length only (in
+    this process, their module constants set): the overlay variants
+    bit-identical, the masked and dense losses within 1e-5, the int8 and
+    bf16 wgrad errors within 5e-2 and 5e-3, the closed loop's two mIoUs
+    finite after 4 steps, the profile ranking K4a, K4b, K1 and the CE grad
+    by name, and the hand pool pair equal to ``F.max_pool2d``'s on a
+    tie-free input at pool1's shape; a ``{"benchmark_scripts": ...}`` line;
+    (c) the notebook's code cells at its defaults (6 x 50 steps at 4 x
+    256x512, evaluate, predict).
 
 Kernel launch counts are zeroed just before each path is driven and read
 just after it: serving + evaluation (phases 5-6), training (phase 10), the
@@ -178,7 +193,8 @@ counts; ``launches_train_features`` is the kernel's count in phase 16,
 phase 20, ``launches_mesh`` in phase 21 and ``launches_spatial`` in phase
 22: ``world1`` its (a), ``world2`` each rank's (b); ``launches_survival``
 in phase 23: the endurance's resumed and comparator children, each
-fault-injection rank's straight run, the quickstart). A ``{"viz_prep":
+fault-injection rank's straight run, the quickstart; ``launches_benchmarks``
+in phase 24: (b) the scripts, (c) the notebook). A ``{"viz_prep":
 {...}}`` line gives phase 20's numbers.
 The last line is ``{"ok": true, "device": {...}}``.
 
@@ -1016,8 +1032,9 @@ def phase_weighted(dev, model: FCN8s) -> dict:
     return total
 
 
-def phase_train_times(dev, model: FCN8s, smi: str) -> None:
-    """The full-width train step at batch 8 x 1024x512, bf16, keep_prob 0.5."""
+def phase_train_times(dev, model: FCN8s, smi: str) -> float:
+    """The full-width train step at batch 8 x 1024x512, bf16, keep_prob 0.5;
+    returns its host-clock ms."""
     rng = np.random.default_rng(9)
     images, labels = _synthetic(rng, BATCH)
     im, lb = torch.from_numpy(images).to(dev), torch.from_numpy(labels).to(dev)
@@ -1077,6 +1094,7 @@ def phase_train_times(dev, model: FCN8s, smi: str) -> None:
           f"({BATCH / accum_ms * 1e3:.2f} images/s); "
           f"fc6 (7x7, 512->4096) forward {fc6_fwd:.2f} ms, "
           f"backward {fc6_bwd:.2f} ms = {(fc6_fwd + fc6_bwd) / step_ms:.1%} of the step")
+    return step_ms
 
 
 # ---------------------------------------------------------------------------
@@ -3763,6 +3781,207 @@ def phase_survival(dev, smi: str) -> dict:
             "fault": fault["launches"], "quickstart": quick["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the measurement scripts and the tutorial notebook
+# ---------------------------------------------------------------------------
+
+BENCH_TIMEOUT_S = 600
+BENCH_STEP_TOLERANCE = 0.25  # the bench's step against phase 13's
+BENCH_STEP_TFLOPS = 10.68  # the JAX bench's analytic step at 8 x 1024x512 (6 x fwd MACs)
+# (b): each script at its own shapes, cut in length only
+SCRIPT_CUTS = {
+    "overlay_bench": {"WARMUP": 1, "ITERS": 2},
+    "ignore_label_bench": {"WARMUP": 2, "ITERS": 2},
+    "int8_wgrad_bench": {"ITERS": 5},
+    "pallas_pool_bench": {"WARMUP": 1, "ITERS": 2},
+    "device_augment_bench": {"WARMUP": 1, "ITERS": 2},
+    "e2e_input_bench": {"WARM_STEPS": 1, "TIMED_STEPS": 2, "ROUNDS": 1},
+    "packed_input_bench": {"N_BATCHES": 5},
+}
+CLOSED_LOOP_ARGS = ["--steps", "4", "--batch", "4", "--val-images", "4"]
+PROFILE_ARGS = ["--steps", "2", "--top", "100000"]
+# the hand kernels' names in a CUPTI trace (demangled, or mangled): K4a and
+# K4b are modes 1 and 2 of csrc/maxpool2x2.cu's pool_kernel, K1 the
+# per-sample instance of csrc/ce_sum.cu's partial-sum kernel
+PROFILE_KERNELS = {
+    "maxpool2x2_code_nhwc": r"pool_kernel<\(?[^,]*Mode\)?1\b|pool_kernelILN\w*ModeE1E",
+    "maxpool2x2_bwd_nhwc": r"pool_kernel<\(?[^,]*Mode\)?2\b|pool_kernelILN\w*ModeE2E",
+    "ce_sum_per_sample": r"ce_partial_kernel<false|ce_partial_kernelILb0E",
+    "ce_grad": r"ce_grad_kernel",
+}
+SCRIPT_KERNELS = ("maxpool2x2_nhwc", "maxpool2x2_code_nhwc", "maxpool2x2_bwd_nhwc",
+                  "ce_sum_per_sample", "ce_sum_weighted", "ce_grad")
+
+
+def phase_bench(smi: str, train_step_ms: float) -> dict:
+    """(a) ``benchmarks.bench`` at its full shape, run as a user runs it."""
+    from fcn8s_tensorflow_tpu_torch.tools import child_env
+
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "fcn8s_tensorflow_tpu_torch.benchmarks.bench"],
+                         env=child_env(), capture_output=True, text=True,
+                         timeout=BENCH_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    check(out.returncode == 0, f"bench failed (rc {out.returncode}):\n{out.stdout[-2000:]}\n"
+          f"{out.stderr[-4000:]}")
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    ex = line["extras"]
+    print(f"phase 24 (a) bench on {smi}, {seconds:.1f} s: {json.dumps(line)}")
+    check(line["value"] is not None and line["value"] > 0, f"bench value {line['value']}")
+    ratio = ex["train_ms_per_step"] / train_step_ms
+    check(abs(ratio - 1.0) <= BENCH_STEP_TOLERANCE,
+          f"bench step {ex['train_ms_per_step']} ms against phase 13's {train_step_ms:.2f}")
+    check(ex["train_step_analytic_tflops"] == BENCH_STEP_TFLOPS,
+          f"analytic step {ex['train_step_analytic_tflops']} TFLOP, expected {BENCH_STEP_TFLOPS}")
+    check(ex["mfu"] is not None, f"mfu null on {ex['device']}")
+    for row in ("batched", "int8", "overlay"):
+        stats = ex[f"infer_{row}_stats"]
+        check(stats is not None and stats["images_per_sec_per_chip"] > 0, f"{row} row {stats}")
+    return {"seconds": seconds, "line": line}
+
+
+class _cut:
+    """Set a module's constants for a block, then restore them."""
+
+    def __init__(self, mod, values: dict):
+        self.mod, self.values = mod, values
+
+    def __enter__(self):
+        self.old = {k: getattr(self.mod, k) for k in self.values}
+        for k, v in self.values.items():
+            setattr(self.mod, k, v)
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            setattr(self.mod, k, v)
+
+
+def _pool_pair_check(dev) -> None:
+    """The hand pool pair against ``F.max_pool2d``'s on a tie-free input at
+    pool1's shape: the same max and the same dx, bit for bit."""
+    from fcn8s_tensorflow_tpu_torch.benchmarks import pallas_pool_bench as pp
+
+    g = torch.Generator(device=dev).manual_seed(24)
+    n, h, w, c = pp.N, pp.H, pp.W, pp.C
+    pos = torch.zeros((h, w), dtype=torch.int64, device=dev)
+    pos[0::2, 1::2], pos[1::2, 0::2], pos[1::2, 1::2] = 1, 2, 3
+    # the low two bits name the position in the 2x2 window: no ties
+    x = (torch.randint(0, 60, (n, h, w, c), generator=g, device=dev) * 4
+         + pos[None, :, :, None]).to(torch.bfloat16)
+    dy = torch.randn((n, h // 2, w // 2, c), generator=g, device=dev).to(torch.bfloat16)
+    (yk, dxk), (yl, dxl) = (pair(nchw(x), nchw(dy)) for pair in (pp.kernel_pair, pp.library_pair))
+    check(torch.equal(yk, yl) and torch.equal(dxk, dxl),
+          "the hand pool pair differs from F.max_pool2d's on a tie-free input")
+
+
+def _profile_kernels(ranked: list) -> dict:
+    """{wrapper: the ranked device op names that are its kernel}."""
+    import re
+
+    return {k: [name for name, _, _ in ranked if re.search(pat, name)]
+            for k, pat in PROFILE_KERNELS.items()}
+
+
+def phase_scripts(dev, root: str, smi: str) -> tuple[dict, dict]:
+    """(b) every other script at its own shapes, cut in length, in this
+    process; returns (their results, launch counts)."""
+    import importlib
+
+    from fcn8s_tensorflow_tpu_torch import benchmarks as B
+
+    results = {}
+    zero_counts()
+    t0 = time.perf_counter()
+    for name, cut in SCRIPT_CUTS.items():
+        mod = importlib.import_module(f"fcn8s_tensorflow_tpu_torch.benchmarks.{name}")
+        t1 = time.perf_counter()
+        with _cut(mod, cut):
+            results[name] = mod.main([] if name == "packed_input_bench" else ["--device", "cuda"])
+        print(f"phase 24 (b) {name} ({cut}): {time.perf_counter() - t1:.1f} s")
+    from fcn8s_tensorflow_tpu_torch.benchmarks import int8_closed_loop, profile_train_step
+
+    results["int8_closed_loop"] = int8_closed_loop.main(
+        CLOSED_LOOP_ARGS + ["--device", "cuda", "--out", os.path.join(root, "closed_loop.json")])
+    prof = profile_train_step.main(PROFILE_ARGS + ["--device", "cuda", "--keep-trace",
+                                                   os.path.join(root, "trace")])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    seconds = time.perf_counter() - t0
+    _pool_pair_check(dev)
+
+    check(all(results["overlay_bench"]["bit_identical_vs_v0"].values()),
+          f"overlay variants differ: {results['overlay_bench']['bit_identical_vs_v0']}")
+    check(results["ignore_label_bench"]["loss_rel_disagreement"] <= 1e-5,
+          f"masked vs dense loss {results['ignore_label_bench']['loss_rel_disagreement']}")
+    wg = results["int8_wgrad_bench"]
+    check(wg["dw_rel_err_int8"] <= 5e-2 and wg["dw_rel_err_bf16"] <= 5e-3,
+          f"wgrad dW errors int8 {wg['dw_rel_err_int8']}, bf16 {wg['dw_rel_err_bf16']}")
+    cl = results["int8_closed_loop"]
+    check(all(math.isfinite(cl[k]) for k in ("bf16_miou", "int8_miou")), f"closed loop {cl}")
+    found = _profile_kernels(prof["ranked"])
+    check(all(found.values()), f"hand kernels missing from the profile: {found}; ranked "
+          f"{[n for n, _, _ in prof['ranked']]}")
+    check(prof["steps"] == 2 and prof["device_total_ms"] > 0, f"profile {prof['steps']} steps, "
+          f"{prof['device_total_ms']} ms")
+    for k in SCRIPT_KERNELS:
+        check(counts[k] > 0, f"{k} never launched by the scripts")
+    top = [(n[:60], round(ms / prof["steps"], 3)) for n, ms, _ in prof["ranked"][:5]]
+    print(f"phase 24 (b) the scripts on {smi}: {seconds:.1f} s; profile per step "
+          f"{prof['device_total_ms'] / prof['steps']:.2f} ms on the card, top {top}, the hand "
+          f"kernels {({k: v[0][:60] for k, v in found.items() if v})}; the pool pair equals "
+          f"F.max_pool2d's; launches {counts}")
+    print(json.dumps({"benchmark_scripts": results | {"profile_train_step": {
+        "device_total_ms": prof["device_total_ms"], "steps": prof["steps"], "top": top}}}))
+    return results, counts
+
+
+def phase_notebook(root: str, smi: str) -> dict:
+    """(c) the tutorial notebook's code cells at its own defaults on the
+    card (6 x 50 steps at 4 x 256x512, evaluate, predict), in ``root``."""
+    from fcn8s_tensorflow_tpu_torch.examples import run_notebook
+
+    cwd = os.getcwd()
+    zero_counts()
+    t0 = time.perf_counter()
+    os.chdir(root)
+    try:
+        ns = run_notebook()
+    finally:
+        os.chdir(cwd)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    metrics = {k: float(v) for k, v in ns["metrics"].items()}
+    h, w = ns["RESOLUTION"]
+    check(ns["model"].state.step == ns["EPOCHS"] * ns["STEPS_PER_EPOCH"],
+          f"notebook trained {ns['model'].state.step} steps")
+    check(all(math.isfinite(v) for v in metrics.values()), f"notebook metrics {metrics}")
+    check(ns["grid"].shape == (2 * h, 2 * w, 3), f"notebook panels {ns['grid'].shape}")
+    for k in TRAIN_KERNELS + EVAL_KERNELS:
+        check(counts[k] > 0, f"{k} never launched by the notebook")
+    print(f"phase 24 (c) the tutorial notebook at its defaults on {smi}: {seconds:.1f} s, "
+          f"{ns['model'].state.step} steps, evaluate {metrics}; launches {counts}")
+    ns["model"].close()
+    return counts
+
+
+def phase_benchmarks(dev, smi: str, train_step_ms: float) -> dict:
+    """Phase 24: (a) the bench, (b) the other scripts, (c) the notebook, in
+    a temporary directory removed at the end."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="fcn8s_benchmarks_")
+    try:
+        phase_bench(smi, train_step_ms)
+        torch.cuda.empty_cache()
+        _, scripts = phase_scripts(dev, root, smi)
+        torch.cuda.empty_cache()
+        notebook = phase_notebook(root, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 24: {time.perf_counter() - t0:.1f} s ({smi})")
+    return {"scripts": scripts, "notebook": notebook}
+
+
 def main() -> None:
     smi = phase_card()
     dev = torch.device("cuda", 0)
@@ -3786,7 +4005,7 @@ def main() -> None:
     trained, train_counts = phase_train(dev)
     phase_learnable(dev)
     weighted_counts = phase_weighted(dev, trained)
-    phase_train_times(dev, trained, smi)
+    train_step_ms = phase_train_times(dev, trained, smi)
     conv1_measured, conv1_counts = phase_conv1_calibration(dev, smi)
     measured["conv1_core"] = conv1_measured
     phase_persistence(dev, trained, smi)
@@ -3814,6 +4033,8 @@ def main() -> None:
     spatial_counts = phase_spatial(dev, smi)
     torch.cuda.empty_cache()
     survival_counts = phase_survival(dev, smi)
+    torch.cuda.empty_cache()
+    bench_counts = phase_benchmarks(dev, smi, train_step_ms)
     paths = {"serve+eval": serve_counts, "train": train_counts, "train weighted": weighted_counts,
              "conv1 calibration": conv1_counts}
     source_path = {"maxpool2x2_nhwc": "serve+eval", "ce_sum_per_sample": "serve+eval",
@@ -3838,6 +4059,8 @@ def main() -> None:
                                "comparator": survival_counts["comparator"][name],
                                "fault": [c[name] for c in survival_counts["fault"]],
                                "quickstart": survival_counts["quickstart"][name]},
+         "launches_benchmarks": {"scripts": bench_counts["scripts"][name],
+                                 "notebook": bench_counts["notebook"][name]},
          **measured[name]}
         for name in WRAPPERS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,4 +1,5 @@
-"""Training-survival tools of the port, each runnable with ``python -m``.
+"""The port's tools, each runnable with ``python -m``: the training-survival
+tools and the TensorFlow interop.
 
 Ports of the JAX package's ``benchmarks/endurance_canonical.py``,
 ``benchmarks/convergence_synthetic.py``, ``tools/multihost_fault_injection.py``
@@ -10,11 +11,16 @@ and ``tools/multihost_smoke.py``:
 * ``convergence_synthetic``: the three variants learning a 6-class task;
 * ``multihost_fault_injection``: a rank of a process group dies, the death
   is detected, the run resumes from its step-2 checkpoint bit-exactly;
-* ``multihost_smoke``: process groups with global or sharded input.
+* ``multihost_smoke``: process groups with global or sharded input;
+* ``parity_harness``, ``tf_interop`` (ports of ``tools/parity_harness.py``
+  and ``tools/tf_interop.py``): the TF reference graph on the port's
+  weights, and TF SavedModel export and import; TensorFlow on the host's
+  CPU, imported only inside their functions.
 
-Every tool defaults to ``--device cuda`` and raises without a card unless
-given ``--device cpu``. The processes that train (the endurance and
-fault-injection children, the smoke's ranks, the convergence run) call
+Every tool that runs the model defaults to ``--device cuda`` (its Python
+entry points to ``device="cuda"``) and raises without a card unless given
+the CPU. The processes that train (the endurance and fault-injection
+children, the smoke's ranks, the convergence run) call
 ``make_deterministic()`` before CUDA initialises; the facade itself never
 does, so its defaults and speed stay as they are.
 """

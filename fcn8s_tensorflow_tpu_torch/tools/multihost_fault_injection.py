@@ -25,7 +25,8 @@ Scenario, one process per data position of a ``torch.distributed`` group
     python -m fcn8s_tensorflow_tpu_torch.tools.multihost_fault_injection [--device cuda]
 
 ``run(workdir, params, ...)`` drives the three groups from any initial
-params and sizes; the constants below are the JAX tool's.
+params and sizes, on the card unless given ``device="cpu"``; the constants
+below are the JAX tool's.
 """
 
 from __future__ import annotations
@@ -87,7 +88,7 @@ def _to(tree: dict, dev, copy: bool = False) -> dict:
                 for n, layer in layers.items()} for p, layers in tree.items()}
 
 
-def child(rank: int, mode: str, workdir: str, params: dict, *, device: str = "cpu",
+def child(rank: int, mode: str, workdir: str, params: dict, *, device: str = "cuda",
           hw=IMAGE_HW, global_batch: int = GLOBAL_BATCH) -> None:
     """One rank of one group (``mode``: 'straight', 'fault' or 'resume')
     from the JAX-layout ``params``. Rank 0 writes the checkpoints and
@@ -205,13 +206,18 @@ def final_leaves(workdir: str, mode: str) -> dict:
             for n, layer in layers.items() for k, v in layer.items()}
 
 
-def run(workdir: str, params: dict, *, device: str = "cpu", hw=IMAGE_HW,
+def run(workdir: str, params: dict, *, device: str = "cuda", hw=IMAGE_HW,
         global_batch: int = GLOBAL_BATCH) -> dict:
-    """The three groups from the JAX-layout ``params`` at the given sizes.
-    Returns {'ok', 'straight_ok', 'detected', 'fault_rcs', 'resume_ok',
-    'bitexact', 'differing_leaves', 'results'} ('results': each mode's
-    per-rank result files)."""
+    """The three groups from the JAX-layout ``params`` at the given sizes,
+    the ranks on ``device`` (the card by default; without one this raises
+    and names ``device="cpu"`` before any rank starts). Returns {'ok',
+    'straight_ok', 'detected', 'fault_rcs', 'resume_ok', 'bitexact',
+    'differing_leaves', 'results'} ('results': each mode's per-rank result
+    files)."""
+    from ..kernels import resolve_device
     from . import save_tree
+
+    resolve_device(device)
 
     os.makedirs(workdir, exist_ok=True)
     save_tree(os.path.join(workdir, "params.npz"), params)

@@ -19,7 +19,8 @@ disjoint and cover the epoch, and that every rank computed the same
 global loss.
 
 ``run(ranks, ..., params=)`` starts every rank from the given JAX-layout
-params (by default the port's seed-0 init at the tool's sizes).
+params (by default the port's seed-0 init at the tool's sizes), on the
+card unless given ``device="cpu"``.
 
     python -m fcn8s_tensorflow_tpu_torch.tools.multihost_smoke [--device cuda]
     python -m fcn8s_tensorflow_tpu_torch.tools.multihost_smoke --procs 4 --devices-per-proc 2
@@ -74,7 +75,7 @@ def mesh_shape(ranks: int, sharded: bool) -> tuple[int, int]:
     return ranks // 2, 2
 
 
-def child(rank: int, ranks: int, store: str, params: dict, device: str = "cpu",
+def child(rank: int, ranks: int, store: str, params: dict, device: str = "cuda",
           data_dir: str | None = None) -> float:
     """One rank: one fp32 train step of the width-1/16, 20-class model
     ``params`` (a JAX-layout tree) on the global batch (``default_rng(0)``)
@@ -152,12 +153,16 @@ def child(rank: int, ranks: int, store: str, params: dict, device: str = "cpu",
     return loss
 
 
-def run(ranks: int, device: str = "cpu", sharded: bool = False, workdir: str | None = None,
+def run(ranks: int, device: str = "cuda", sharded: bool = False, workdir: str | None = None,
         timeout_s: float = 600.0, params: dict | None = None) -> dict:
-    """Launch ``ranks`` ranks from ``params`` (default: ``initial_params``
-    at width 1/16, fc 64) and check them; returns {'ok', 'losses',
-    'consumed', 'rcs', 'mesh', 'output'}."""
+    """Launch ``ranks`` ranks on ``device`` (the card by default; without
+    one this raises and names ``device="cpu"`` before any rank starts) from
+    ``params`` (default: ``initial_params`` at width 1/16, fc 64) and check
+    them; returns {'ok', 'losses', 'consumed', 'rcs', 'mesh', 'output'}."""
+    from ..kernels import resolve_device
     from . import child_env, initial_params, save_tree
+
+    resolve_device(device)
 
     workdir = workdir or tempfile.mkdtemp(prefix="multihost_")
     if params is None:

@@ -150,6 +150,30 @@ def test_fault_injection_cli_without_a_card_raises():
     assert out.returncode != 0 and 'device="cpu"' in out.stderr
 
 
+@pytest.mark.parametrize("fn", [fi.run, fi.child, ms.run, ms.child],
+                         ids=["fault_run", "fault_child", "smoke_run", "smoke_child"])
+def test_tool_entry_points_default_to_the_card(fn):
+    import inspect
+
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_fault_injection_run_without_a_card_raises_and_names_cpu(tmp_path, monkeypatch):
+    """``run``'s default device is the card: without one it raises and
+    names ``device="cpu"`` before any rank starts."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        fi.run(str(tmp_path / "work"), {})
+    assert not os.path.exists(tmp_path / "work")
+
+
+def test_multihost_smoke_run_without_a_card_raises_and_names_cpu(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ms.run(2, workdir=str(tmp_path))
+    assert not os.listdir(tmp_path)
+
+
 # ---------------------------------------------------------------------------
 # the multihost smoke
 # ---------------------------------------------------------------------------
