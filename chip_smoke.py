@@ -2,8 +2,8 @@
 """Drive the PyTorch port's serving, eval, training, KB calibration,
 checkpoint, training-feature, int8/TTA/tiled predict, offline-benchmark,
 host data pipeline, serving-artifact, video, viewer, annotation, mesh,
-spatial-partition and training-survival paths, the measurement scripts and
-the tutorial notebook once on one CUDA card.
+spatial-partition and training-survival paths, the measurement scripts,
+the tutorial notebook and the compiled steps once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -167,7 +167,20 @@ Phases, in order; any failure raises and the script exits non-zero:
     by name, and the hand pool pair equal to ``F.max_pool2d``'s on a
     tie-free input at pool1's shape; a ``{"benchmark_scripts": ...}`` line;
     (c) the notebook's code cells at its defaults (6 x 50 steps at 4 x
-    256x512, evaluate, predict).
+    256x512, evaluate, predict);
+25. the compiled steps (``parallel/steps.py`` ``compile_*_step``, CUDA
+    graphs) at full width, batch 8 x 1024x512, 20 classes, bf16,
+    keep_prob 0.5, TF1 Adam, device augmentation, under
+    ``tools.make_deterministic``: (a) 5 compiled train steps equal to 5
+    eager ones from a copy of the same state (params, Adam's moments and
+    the losses by sha256, the counters); (b) ``compile_multi_train_step``
+    at S=4 equal to 4 compiled single steps, which run on a copy of the
+    state (a swap: captured anew, the old state untouched); (c) compiled
+    eval (matrix, loss), predict (ids, overlay, int8) and (d) TTA equal to
+    eager; with the switches back, (e) ``benchmarks.multistep_bench`` at
+    S=4 and 8: ms a step and device busy share of the eager step,
+    ``compile_train_step`` and ``compile_multi_train_step``; a
+    ``{"compiled_steps": ...}`` line.
 
 Kernel launch counts are zeroed just before each path is driven and read
 just after it: serving + evaluation (phases 5-6), training (phase 10), the
@@ -194,7 +207,9 @@ phase 20, ``launches_mesh`` in phase 21 and ``launches_spatial`` in phase
 22: ``world1`` its (a), ``world2`` each rank's (b); ``launches_survival``
 in phase 23: the endurance's resumed and comparator children, each
 fault-injection rank's straight run, the quickstart; ``launches_benchmarks``
-in phase 24: (b) the scripts, (c) the notebook). A ``{"viz_prep":
+in phase 24: (b) the scripts, (c) the notebook; ``launches_compiled`` in
+phase 25 (a)-(d): the warm-ups' launches and each replay's recorded ones).
+A ``{"viz_prep":
 {...}}`` line gives phase 20's numbers.
 The last line is ``{"ok": true, "device": {...}}``.
 
@@ -3982,6 +3997,198 @@ def phase_benchmarks(dev, smi: str, train_step_ms: float) -> dict:
     return {"scripts": scripts, "notebook": notebook}
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the compiled steps (CUDA graphs)
+# ---------------------------------------------------------------------------
+
+COMPILED_SEED = 25
+COMPILED_STEPS = 5  # (a): compiled train steps against eager ones
+COMPILED_S = 4  # (b): compile_multi_train_step's S against S compiled single steps
+COMPILED_SCALARS = (COMPILED_SEED, 1e-4, 5e-4, 0.5)  # seed, lr, l2, keep_prob
+COMPILED_AUG = dict(flip=0.5, brightness=(0.8, 1.2, 0.5), translate=((0, 16), (0, 8), 0.5))
+COMPILED_TTA_HW = (768, 384)  # (d): TTA's view of the train frame at scale 0.75
+MULTISTEP = dict(total_steps=16, h=TH, w=TW, batch=BATCH)  # (e): multistep_bench at S=4, 8
+COMPILED_KERNELS = ("maxpool2x2_code_nhwc", "maxpool2x2_bwd_nhwc", "ce_sum_per_sample", "ce_grad",
+                    "maxpool2x2_nhwc", "confusion_matrix_accumulate")
+
+
+def _digest(tensors) -> str:
+    """sha256 of the tensors' bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        t = t.detach().contiguous()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        h.update(t.cpu().numpy())
+    return h.hexdigest()
+
+
+def _state_digest(state) -> dict:
+    """The digests of a train state's params and Adam moments, and its
+    counters."""
+    inner = state.opt_state.inner
+    return {"params": _digest(bridge.param_leaves(state.params)), "mu": _digest(inner.mu),
+            "nu": _digest(inner.nu), "step": state.step,
+            "counts": (state.opt_state.count, inner.count)}
+
+
+def _copy_state(state):
+    """A train state of new tensors with the values of ``state``'s."""
+    params = {part: {name: {k: t.detach().clone().requires_grad_(True) for k, t in layer.items()}
+                     for name, layer in layers.items()} for part, layers in state.params.items()}
+    opt = state.opt_state
+    return S.TrainState(step=state.step, params=params,
+                        opt_state=opt.to(bridge.param_leaves(params)[0].device, copy=True))
+
+
+def _compiled_refs(dev, state, ims, lbs, mask, aug, opt) -> dict:
+    """(a)-(d)'s eager references: COMPILED_STEPS eager train steps on a
+    copy of ``state``, then on their weights the eval, predict (ids,
+    overlay, int8) and TTA of the first batch."""
+    eager = _copy_state(state)
+    losses = [S.train_step(eager, ims[i], lbs[i], mask, *COMPILED_SCALARS, optimizer=opt,
+                           num_classes=C, augment_fn=aug)[1] for i in range(COMPILED_STEPS)]
+    with torch.no_grad():
+        run = bridge.cast_params(eager.params, torch.bfloat16)
+        qtree = Q.quantize_fcn8s_params(eager.params)
+    metrics = empty_metrics_state(C, dev)
+    for i in range(2):
+        eval_step(run, metrics, ims[i], lbs[i], mask, num_classes=C)
+    return {"state": eager, "losses": losses, "run": run, "qtree": qtree, "metrics": metrics,
+            "ids": S.predict_step(run, ims[0], id_dtype=torch.uint8),
+            "overlay": S.predict_step(run, ims[0], overlay_lut=SPATIAL_LUT),
+            "int8": S.predict_step(qtree, ims[0], id_dtype=torch.uint8, quantized=True),
+            "tta": S.tta_step(run, ims[0], scale_hw=COMPILED_TTA_HW)}
+
+
+def _phase_compiled_checks(dev, state, ims, lbs, mask, aug, opt, ref) -> dict:
+    """(a)-(d) on the compiled steps; returns what it recorded."""
+    from fcn8s_tensorflow_tpu_torch.parallel import graphs as G
+
+    out = {}
+    comp = _copy_state(state)
+    step = S.compile_train_step(None, opt, C, augment_fn=aug, device=dev)
+    t0 = time.perf_counter()
+    losses = [step(comp, ims[i], lbs[i], mask, *COMPILED_SCALARS)[1]
+              for i in range(COMPILED_STEPS)]
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    want = _state_digest(ref["state"])
+    check(_state_digest(comp) == want and _digest(losses) == _digest(ref["losses"]),
+          f"{COMPILED_STEPS} compiled train steps differ from the eager ones: "
+          f"{_state_digest(comp)} against {want}")
+    (captured, _), = step.captures.values()
+    out["recorded"] = {name: captured.launches[G.KERNEL_WRAPPERS.index(fn)]
+                       for name, fn in WRAPPERS.items()}
+    out["losses"] = [float(x) for x in losses]
+    out["digest"] = want
+
+    # (b) S compiled single steps on a copy (a state swap: captured anew)
+    # against compile_multi_train_step(S) on another copy
+    swapped, multi_state = _copy_state(comp), _copy_state(comp)
+    kept = [t.clone() for t in bridge.param_leaves(comp.params)]
+    singles = [step(swapped, ims[COMPILED_STEPS + k], lbs[COMPILED_STEPS + k], mask,
+                    *COMPILED_SCALARS)[1] for k in range(COMPILED_S)]
+    (recaptured, _), = step.captures.values()
+    check(recaptured is not captured, "a swapped state replayed the old capture")
+    check(all(torch.equal(a, b) for a, b in zip(bridge.param_leaves(comp.params), kept)),
+          "the swapped state's steps wrote into the old state")
+    multi = S.compile_multi_train_step(None, opt, C, steps_per_dispatch=COMPILED_S,
+                                       augment_fn=aug, device=dev)
+    stack = slice(COMPILED_STEPS, COMPILED_STEPS + COMPILED_S)
+    _, multi_losses = multi(multi_state, ims[stack], lbs[stack],
+                            mask.expand(COMPILED_S, -1).contiguous(), *COMPILED_SCALARS)
+    check(_state_digest(multi_state) == _state_digest(swapped)
+          and torch.equal(multi_losses, torch.stack(singles)),
+          f"compile_multi_train_step(S={COMPILED_S}) differs from {COMPILED_S} compiled steps")
+    out["multi_losses"] = multi_losses.tolist()
+    del step, multi, comp, swapped, multi_state, kept
+
+    # (c) eval, predict (ids, overlay, int8) and (d) TTA against eager
+    run, qtree = ref["run"], ref["qtree"]
+    ev = S.compile_eval_step(None, C, device=dev)
+    metrics = empty_metrics_state(C, dev)
+    for i in range(2):
+        ev(run, metrics, ims[i], lbs[i], mask)
+    check(all(torch.equal(metrics[k], ref["metrics"][k]) for k in metrics),
+          f"compiled eval {metrics} differs from eager {ref['metrics']}")
+    got = {"ids": S.compile_predict_step(None, id_dtype=torch.uint8, device=dev)(run, ims[0]),
+           "overlay": S.compile_predict_step(None, overlay_lut=SPATIAL_LUT, device=dev)(run,
+                                                                                      ims[0]),
+           "int8": S.compile_predict_step(None, id_dtype=torch.uint8, quantized=True,
+                                          device=dev)(qtree, ims[0]),
+           "tta": S.compile_tta_step(None, scale_hw=COMPILED_TTA_HW, device=dev)(run, ims[0])}
+    for k, v in got.items():
+        check(torch.equal(v, ref[k]), f"compiled {k} differs from the eager one")
+    out["eval_loss"] = float(metrics["loss_sum"] / metrics["loss_count"])
+    return out
+
+
+def phase_compiled(dev, smi: str) -> tuple[dict, dict]:
+    """Phase 25: the compiled steps at full width (batch 8 x 1024x512, 20
+    classes, bf16, keep_prob 0.5, TF1 Adam, device augmentation) under
+    ``tools.make_deterministic``: (a) compiled train steps equal to eager
+    ones from a copy of the same state (params, moments and losses by
+    sha256); (b) compile_multi_train_step(S) equal to S compiled single
+    steps, run on a swapped state (captured anew); (c) compiled eval,
+    predict (ids, overlay, int8) and (d) TTA equal to eager; then, with the
+    determinism switches back as they were, (e) ``multistep_bench`` at S=4
+    and 8: ms a step and busy share of eager, compiled and multi. Returns
+    (the launch counts of (a)-(d)'s compiled calls, the numbers)."""
+    from fcn8s_tensorflow_tpu_torch.benchmarks import multistep_bench
+    from fcn8s_tensorflow_tpu_torch.models.fcn8s import init_fcn8s
+    from fcn8s_tensorflow_tpu_torch.tools import make_deterministic
+
+    t0 = time.perf_counter()
+    switches = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic,
+                torch.backends.cudnn.benchmark)
+    make_deterministic()
+    try:
+        g = torch.Generator(device=dev).manual_seed(COMPILED_SEED)
+        n = COMPILED_STEPS + COMPILED_S
+        ims = torch.randint(0, 256, (n, BATCH, TH, TW, 3), generator=g, device=dev,
+                            dtype=torch.uint8)
+        lbs = torch.randint(0, C, (n, BATCH, TH, TW), generator=g, device=dev, dtype=torch.uint8)
+        mask = torch.ones(BATCH, device=dev)
+        opt = S.make_optimizer()
+        tree = init_fcn8s(torch.Generator().manual_seed(COMPILED_SEED), C)
+        state = S.create_train_state(bridge.to_port(tree, device=dev), opt)
+        aug = A.make_augment_fn(**COMPILED_AUG)
+        ref = _compiled_refs(dev, state, ims, lbs, mask, aug, opt)
+        zero_counts()
+        out = _phase_compiled_checks(dev, state, ims, lbs, mask, aug, opt, ref)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        del ref, state, ims, lbs
+    finally:
+        torch.use_deterministic_algorithms(switches[0])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = switches[1:]
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in COMPILED_KERNELS:
+        check(counts[name] > 0, f"{name} was never launched by the compiled steps")
+    checks_s = time.perf_counter() - t0
+    print(f"phase 25 (a)-(d) on {smi}: {checks_s:.1f} s; {COMPILED_STEPS} compiled train steps "
+          f"= eager (sha256 params {out['digest']['params'][:16]}, losses {out['losses']}), "
+          f"multi S={COMPILED_S} = {COMPILED_S} compiled steps on a swapped state (losses "
+          f"{out['multi_losses']}), eval (loss {out['eval_loss']:.6f}), ids, overlay, int8 and "
+          f"TTA equal; launches recorded per train replay {out['recorded']}; launches {counts}")
+    times = {}
+    for s in (4, 8):
+        t1 = time.perf_counter()
+        times[s] = multistep_bench.main(steps_per_dispatch=s, device=dev, **MULTISTEP)
+        torch.cuda.empty_cache()
+        print(f"phase 25 (e) multistep_bench S={s} on {smi}, {time.perf_counter() - t1:.1f} s: "
+              f"{json.dumps(times[s])}")
+    result = {"card": smi, "checks_s": checks_s, "train_5_compiled_s": out["train_s"],
+              "recorded_per_replay": out["recorded"], "multistep": times}
+    print(json.dumps({"compiled_steps": result}))
+    print(f"phase 25: {time.perf_counter() - t0:.1f} s ({smi})")
+    return counts, result
+
+
 def main() -> None:
     smi = phase_card()
     dev = torch.device("cuda", 0)
@@ -4035,6 +4242,8 @@ def main() -> None:
     survival_counts = phase_survival(dev, smi)
     torch.cuda.empty_cache()
     bench_counts = phase_benchmarks(dev, smi, train_step_ms)
+    torch.cuda.empty_cache()
+    compiled_counts, _ = phase_compiled(dev, smi)
     paths = {"serve+eval": serve_counts, "train": train_counts, "train weighted": weighted_counts,
              "conv1 calibration": conv1_counts}
     source_path = {"maxpool2x2_nhwc": "serve+eval", "ce_sum_per_sample": "serve+eval",
@@ -4061,6 +4270,7 @@ def main() -> None:
                                "quickstart": survival_counts["quickstart"][name]},
          "launches_benchmarks": {"scripts": bench_counts["scripts"][name],
                                  "notebook": bench_counts["notebook"][name]},
+         "launches_compiled": compiled_counts[name],
          **measured[name]}
         for name in WRAPPERS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,11 +9,13 @@ All progress chatter goes to stderr.
 
 Headline metric: train images/sec/card at 1024x512, 20 Cityscapes trainId
 classes, full-width FCN-8s (VGG-16 encoder), bf16, TF1 Adam, lr 1e-4,
-keep_prob 0.5 (``parallel.steps.train_step``), 3 warm-up and 10 timed
-steps. Then the batch-1 predict p50 (uint8 ids D2H) and its breakdown, and
-the batched, int8 (calibrated static scales, ``ops/quantize.py``) and
-overlay rows at batch 8, each pipelined two in flight, their reps
-interleaved round-robin.
+keep_prob 0.5, 3 warm-up and 10 timed steps of
+``parallel.steps.compile_train_step`` (the step captured in a CUDA graph,
+one replay a step), where the JAX script times its compiled step. Then the
+batch-1 predict p50 (uint8 ids D2H) and its breakdown, and the batched,
+int8 (calibrated static scales, ``ops/quantize.py``) and overlay rows at
+batch 8, each pipelined two in flight, their reps interleaved round-robin,
+every predict through ``compile_predict_step``.
 
 ``vs_baseline`` and ``infer_vs_baseline`` are null: the JAX script's
 TF-on-CPU constants were measured on another machine's CPU, and the card's
@@ -165,7 +167,7 @@ def main(argv=None) -> dict:
 
     from .. import bridge
     from ..ops.quantize import collect_activation_absmax, quantize_fcn8s_params
-    from ..parallel.steps import make_optimizer, predict_step, train_step
+    from ..parallel.steps import compile_predict_step, compile_train_step, make_optimizer
 
     n_chips = 1
     kind = device_name(dev)
@@ -180,9 +182,10 @@ def main(argv=None) -> dict:
         rng.integers(0, NUM_CLASSES, (TRAIN_BATCH, H, W), np.uint8),
         np.ones((TRAIN_BATCH,), np.float32))
 
+    train = compile_train_step(None, optimizer, NUM_CLASSES, device=dev)
+
     def step():
-        return train_step(state, im, lb, mk, 1, 1e-4, 0.0, 0.5, optimizer=optimizer,
-                          num_classes=NUM_CLASSES)[1]
+        return train(state, im, lb, mk, 1, 1e-4, 0.0, 0.5)[1]
 
     for _ in range(WARMUP):
         loss = step()
@@ -209,8 +212,7 @@ def main(argv=None) -> dict:
         run = bridge.cast_params(state.params, torch.bfloat16)
     del im, lb, mk
 
-    def pred_ids(params_, x):
-        return predict_step(params_, x, argmax=True, id_dtype=torch.uint8)
+    pred_ids = compile_predict_step(None, argmax=True, id_dtype=torch.uint8, device=dev)
 
     # ---- inference throughput + p50 latency (batch 1, uint8 ids D2H) ----
     with torch.inference_mode():
@@ -306,9 +308,9 @@ def main(argv=None) -> dict:
         lut = overlay_lut(NUM_CLASSES)
         rows = {
             "batched": (pred_ids, run),
-            "int8": (lambda p_, x: predict_step(p_, x, argmax=True, id_dtype=torch.uint8,
-                                                quantized=True), qparams),
-            "overlay": (lambda p_, x: predict_step(p_, x, argmax=True, overlay_lut=lut), run),
+            "int8": (compile_predict_step(None, argmax=True, id_dtype=torch.uint8, quantized=True,
+                                          device=dev), qparams),
+            "overlay": (compile_predict_step(None, argmax=True, overlay_lut=lut, device=dev), run),
         }
         rows = {tag: (fn, pr, setup_row(fn, pr), []) for tag, (fn, pr) in rows.items()}
         # every rep of every row in turn, so the rows share the card's state

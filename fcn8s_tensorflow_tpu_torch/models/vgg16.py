@@ -18,12 +18,13 @@ the fp32 accumulation of the whole layer. With a width split instead
 
 from __future__ import annotations
 
+import functools
 from functools import partial
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.nn import conv2d, dropout, dropout_mask, nchw, nhwc
+from ..ops.nn import applies_dropout, conv2d, dropout, dropout_mask, nchw, nhwc
 from ..ops.pool import maxpool2x2
 from ..parallel.collectives import copy_to_model, halo_exchange, reduce_from_model
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
@@ -43,6 +44,15 @@ FC6_KERNEL = (7, 7, 512, 4096)
 FC7_KERNEL = (1, 1, 4096, 4096)
 
 VGG_MEAN_RGB = (123.68, 116.779, 103.939)
+
+
+@functools.lru_cache(maxsize=None)
+def vgg_mean_rgb(device: torch.device) -> torch.Tensor:
+    """``VGG_MEAN_RGB`` as an fp32 tensor on ``device``, made once per
+    device and shared by every forward (read only): a new one per forward
+    would be a host-to-device copy, which syncs with the host and cannot be
+    captured in a CUDA graph (``parallel/graphs.py``)."""
+    return torch.tensor(VGG_MEAN_RGB, dtype=torch.float32, device=device)
 
 
 def init_vgg16(gen: torch.Generator, *, width_mult: float = 1.0,
@@ -145,6 +155,8 @@ def apply_vgg16(params: dict, images: torch.Tensor, *, keep_prob: float = 1.0,
     ``deterministic=False`` applies dropout at ``keep_prob`` after fc6 and
     fc7 with masks drawn from ``generator`` (required then) before the head
     runs, so a recomputed head (``remat=True``) applies the same masks.
+    ``keep_prob`` is a float, or a captured step's 0-d fp32 tensor on the
+    device (``ops.nn.applies_dropout``).
     ``remat`` checkpoints each block and the head: the backward recomputes
     their activations instead of keeping them.
 
@@ -164,7 +176,7 @@ def apply_vgg16(params: dict, images: torch.Tensor, *, keep_prob: float = 1.0,
         mesh = None
     x = images.float()
     if normalize:
-        x = x - torch.tensor(VGG_MEAN_RGB, dtype=torch.float32, device=images.device)
+        x = x - vgg_mean_rgb(images.device)
     x = nchw(x.to(compute_dtype).contiguous())
 
     def run(fn, *args):
@@ -181,7 +193,7 @@ def apply_vgg16(params: dict, images: torch.Tensor, *, keep_prob: float = 1.0,
     fc6, fc7 = params["fc6"], params["fc7"]
     tp = mesh is not None and mesh.tensor_parallel(tensor_parallel)
     masks = (None, None)
-    if not deterministic and keep_prob < 1.0:
+    if not deterministic and applies_dropout(keep_prob):
         masks = _head_masks(x, fc6["weight"].shape[0], fc7["weight"].shape[0], keep_prob,
                             generator, mesh, tp, split)
     head = partial(_run_head_tp, mesh) if tp else partial(_run_head, split)

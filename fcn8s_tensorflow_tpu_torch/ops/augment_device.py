@@ -29,6 +29,8 @@ transform never moves another's draws.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -38,16 +40,25 @@ from .resize_host import nearest_indices
 CROP, BRIGHTNESS, FLIP, TRANSLATE, SCALE, CONTRAST, SATURATION, HUE, GAMMA, LABEL_NOISE = range(10)
 
 
-def transform_generator(key, index: int, device) -> torch.Generator:
-    """The generator of transform slot ``index`` under ``key`` (a
-    ``SeedSequence`` or an int): seeded from the key's entropy with
-    ``index`` appended to its spawn key, so it is a function of (key, index)
-    alone."""
+def transform_seed(key, index: int) -> int:
+    """The seed of transform slot ``index`` under ``key`` (a ``SeedSequence``
+    or an int): from the key's entropy with ``index`` appended to its spawn
+    key, so it is a function of (key, index) alone."""
     if not isinstance(key, np.random.SeedSequence):
         key = np.random.SeedSequence(int(key))
     child = np.random.SeedSequence(key.entropy, spawn_key=tuple(key.spawn_key) + (index,))
-    seed = int(child.generate_state(1, np.uint64)[0] >> np.uint64(1))
-    return torch.Generator(device=device).manual_seed(seed)
+    return int(child.generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+
+def transform_generator(key, index: int, device) -> torch.Generator:
+    """The generator of transform slot ``index`` under ``key``: a fresh one
+    seeded with ``transform_seed``, or, when ``key`` is a callable, the
+    generator it returns for ``index`` (a step captured in a CUDA graph
+    keeps one per slot and re-seeds it with ``transform_seed`` before each
+    replay, ``parallel/graphs.py``)."""
+    if callable(key):
+        return key(index)
+    return torch.Generator(device=device).manual_seed(transform_seed(key, index))
 
 
 def _uniform(gen: torch.Generator, n: int, lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
@@ -352,20 +363,26 @@ def resize(images, label_ids, size_hw):
     h_out, w_out = int(size_hw[0]), int(size_hw[1])
     n, h, w = images.shape[:3]
     dev = images.device
-
-    def per_sample(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(dev)[None, :].expand(n, -1)
-
-    fy = per_sample(((np.arange(h_out) + 0.5) * (h / h_out) - 0.5).astype(np.float32))
-    fx = per_sample(((np.arange(w_out) + 0.5) * (w / w_out) - 0.5).astype(np.float32))
+    fy, fx, iy, ix = (t[None, :].expand(n, -1) for t in _resize_coords(h_out, h, w_out, w, dev))
     all_y = torch.ones((n, h_out), dtype=torch.bool, device=dev)
     all_x = torch.ones((n, w_out), dtype=torch.bool, device=dev)
     out_img = _bilinear_sample(images, fy, fx, all_y, all_x).to(images.dtype)
     out_lbl = None
     if label_ids is not None:
-        out_lbl = _nearest_sample(label_ids, per_sample(nearest_indices(h_out, h)),
-                                  per_sample(nearest_indices(w_out, w)), all_y, all_x, 0)
+        out_lbl = _nearest_sample(label_ids, iy, ix, all_y, all_x, 0)
     return out_img, out_lbl
+
+
+@functools.lru_cache(maxsize=64)
+def _resize_coords(h_out: int, h: int, w_out: int, w: int, device: torch.device):
+    """``resize``'s bilinear coordinates (fp32) and nearest indices along
+    each axis on ``device``, made once per shape and device and shared
+    (read only): a copy from the host on every call would sync with it, and
+    cannot be captured in a CUDA graph."""
+    fy = ((np.arange(h_out) + 0.5) * (h / h_out) - 0.5).astype(np.float32)
+    fx = ((np.arange(w_out) + 0.5) * (w / w_out) - 0.5).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in (fy, fx, nearest_indices(h_out, h), nearest_indices(w_out, w)))
 
 
 def grayscale(images):
@@ -534,8 +551,9 @@ def make_augment_fn(
       transforms;
     * ``label_noise``: (rate, block, num_classes), applied last.
 
-    ``key``: a ``numpy.random.SeedSequence`` or an int (see
-    ``transform_generator``). The draws are made on the batch's device."""
+    ``key``: a ``numpy.random.SeedSequence``, an int, or a callable from
+    slot to generator (see ``transform_generator``). The draws are made on
+    the batch's device."""
 
     def augment(key, images, label_ids):
         dev = images.device

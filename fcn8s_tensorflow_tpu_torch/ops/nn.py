@@ -106,23 +106,38 @@ def resize_bilinear(x_nhwc: torch.Tensor, size_hw) -> torch.Tensor:
     return nhwc(out).contiguous()
 
 
-def dropout_mask(shape, keep_prob: float, generator: torch.Generator) -> torch.Tensor:
+def applies_dropout(keep_prob) -> bool:
+    """Whether dropout at ``keep_prob`` drops anything: a float below 1, or
+    a 0-d tensor, which a step captured in a CUDA graph passes in place of
+    a keep_prob below 1 (``parallel/graphs.py``: its value is filled in
+    before each replay, and reading it back here would sync)."""
+    return isinstance(keep_prob, torch.Tensor) or keep_prob < 1.0
+
+
+def dropout_mask(shape, keep_prob, generator: torch.Generator) -> torch.Tensor:
     """A bool keep-mask of NCHW ``shape`` (channels_last memory, like the
-    activations), each unit kept with probability ``keep_prob``, drawn from
+    activations), each unit kept with probability ``keep_prob`` (a float,
+    or a 0-d fp32 tensor on the generator's device), drawn from
     ``generator`` on its device. Drawn apart from ``dropout`` so that a
-    recomputed forward (remat) can apply the same mask again."""
+    recomputed forward (remat) can apply the same mask again. Both forms
+    compare the fp32 uniforms with the fp32 ``keep_prob``."""
     n, c, h, w = shape
     u = torch.rand((n, h, w, c), generator=generator, device=generator.device)
     return nchw(u < keep_prob)
 
 
-def dropout(x: torch.Tensor, keep_prob: float, mask: torch.Tensor) -> torch.Tensor:
+def dropout(x: torch.Tensor, keep_prob, mask: torch.Tensor) -> torch.Tensor:
     """Inverted dropout as TF's ``tf.nn.dropout`` (the JAX package's
     ``dropout``): kept units are divided by ``max(keep_prob, 1e-8)``, that
     scale rounded to ``x.dtype`` first, and dropped units are exact zeros.
-    At ``keep_prob >= 1`` it is the identity, as JAX's bernoulli(1.0) is."""
-    if keep_prob >= 1.0:
+    At a float ``keep_prob >= 1`` it is the identity, as JAX's
+    bernoulli(1.0) is. A 0-d fp32 tensor ``keep_prob`` on ``x``'s device
+    (``applies_dropout``) gives the float's result bit for bit, its scale
+    computed on the device instead of the host."""
+    if not applies_dropout(keep_prob):
         return x
-    kp = torch.tensor(keep_prob, dtype=torch.float32)
-    scale = (1.0 / torch.clamp(kp, min=1e-8)).to(x.dtype)  # a 0-d CPU tensor acts as a scalar
+    kp = keep_prob
+    if not isinstance(kp, torch.Tensor):
+        kp = torch.tensor(keep_prob, dtype=torch.float32)  # a 0-d CPU tensor acts as a scalar
+    scale = (1.0 / torch.clamp(kp, min=1e-8)).to(x.dtype)
     return torch.where(mask, x * scale, 0.0)

@@ -57,7 +57,7 @@ import torch.nn.functional as F
 
 from .. import bridge
 from ..models.fcn8s import apply_fcn8s_decoder
-from ..models.vgg16 import _BLOCK_ENDS, VGG16_CONV_LAYERS, VGG_MEAN_RGB
+from ..models.vgg16 import _BLOCK_ENDS, VGG16_CONV_LAYERS, vgg_mean_rgb
 from ..parallel.collectives import all_reduce, halo_exchange
 from ..parallel.mesh import ALL_AXES, DATA_AXIS
 from .nn import conv2d, nchw, nhwc
@@ -246,7 +246,7 @@ def _normalized(images: torch.Tensor, normalize: bool, compute_dtype) -> torch.T
     ``normalize``), the cast, NCHW channels_last."""
     x = images.float()
     if normalize:
-        x = x - torch.tensor(VGG_MEAN_RGB, dtype=torch.float32, device=images.device)
+        x = x - vgg_mean_rgb(images.device)
     return nchw(x.to(compute_dtype).contiguous())
 
 

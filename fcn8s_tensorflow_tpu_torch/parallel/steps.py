@@ -1,16 +1,22 @@
 """The train, eval and predict steps and the optimizers. Port of
 ``fcn8s_tensorflow_tpu/parallel/steps.py``.
 
-Eager PyTorch needs no compiled executable per shape, so each step is a
-plain function of (params, device tensors). On a mesh (``parallel/mesh.py``:
-one process per position, ``mesh=`` and ``tensor_parallel=`` on every step)
-each rank passes its rows of the batch (``mesh.batch_rows``) and, under
-tensor parallelism, its fc6/fc7 shards (``mesh.shard_params``), and the
-step returns what the single-card step returns for the whole batch: the
-loss is the masked mean over the global batch (its normalisers summed over
-'data'), gradients are summed over 'data', metrics too, and predictions are
-gathered over 'data' (``parallel/collectives.py``). On the (1, 1) mesh, or
-with no mesh, every step runs the single-card code.
+Each step is a plain function of (params, device tensors), run eagerly.
+``compile_train_step``, ``compile_multi_train_step``, ``compile_eval_step``,
+``compile_predict_step`` and ``compile_tta_step`` (JAX's compiled steps,
+at the end of this module) capture the same bodies in CUDA graphs
+(``parallel/graphs.py``) and replay them, one dispatch per step (or per S
+steps), with the eager steps' results bit for bit; on one position only.
+
+On a mesh (``parallel/mesh.py``: one process per position, ``mesh=`` and
+``tensor_parallel=`` on every step) each rank passes its rows of the batch
+(``mesh.batch_rows``) and, under tensor parallelism, its fc6/fc7 shards
+(``mesh.shard_params``), and the step returns what the single-card step
+returns for the whole batch: the loss is the masked mean over the global
+batch (its normalisers summed over 'data'), gradients are summed over
+'data', metrics too, and predictions are gathered over 'data'
+(``parallel/collectives.py``). On the (1, 1) mesh, or with no mesh, every
+step runs the single-card code.
 
 ``spatial_partition=True`` (JAX's ``spatial_spec``) splits the width over
 'model' too, with replicated params: each step takes this rank's rows at
@@ -38,19 +44,24 @@ is a mutable record that ``train_step`` advances and returns.
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Any
 
 import numpy as np
 import torch
 
 from .. import bridge
+from ..kernels import resolve_device
 from ..models.fcn8s import apply_fcn8s, decoder_l2_loss
+from ..ops.augment_device import transform_seed
 from ..ops.kernels import softmax_cross_entropy
 from ..ops.losses import class_pixel_weights, valid_pixel_weights
 from ..ops.metrics import update_metrics_state
 from ..ops.nn import resize_bilinear
 from ..ops.quantize import apply_fcn8s_int8
 from .collectives import all_gather_cat, all_reduce, all_reduce_flat, gather_width
+from .graphs import (FixedGenerators, binding, capture, fill_scalars, signature, static_like,
+                     tensors_of)
 from .mesh import ALL_AXES, DATA_AXIS, MODEL_AXIS, sharded_leaves, width_split
 
 OPTIMIZERS = ("adam", "adamw", "momentum", "sgd")
@@ -127,16 +138,46 @@ class Optimizer:
             inner = zeros() if self.name == "momentum" else None
         return OptimizerState(count=0, learning_rate=INITIAL_LEARNING_RATE, inner=inner)
 
-    @torch.no_grad()
     def apply(self, params: dict, grads: list, opt_state: OptimizerState,
               learning_rate: float, *, mesh=None, tensor_parallel: bool = False) -> None:
         """One update of ``params`` and ``opt_state`` in place from ``grads``
-        (aligned with ``bridge.param_leaves(params)``). Every rule is
-        elementwise, so on a mesh it runs on this rank's shards; only the
-        clip's global norm needs the mesh: the squares of the replicated
-        leaves once, plus those of the fc6/fc7 shards summed over 'model'."""
+        (aligned with ``bridge.param_leaves(params)``): ``advance``, then
+        ``update``."""
+        lr_scale = self.advance(opt_state, learning_rate)
+        self.update(params, grads, opt_state, learning_rate, lr_scale, mesh=mesh,
+                    tensor_parallel=tensor_parallel)
+
+    def advance(self, opt_state: OptimizerState, learning_rate: float) -> float | None:
+        """The host half of one update: the counters advance, the learning
+        rate is recorded, and Adam's ``lr_scale`` for the new count is
+        returned (None for the other rules). A step captured in a CUDA graph
+        runs this on the host before each replay."""
         opt_state.count += 1
         opt_state.learning_rate = learning_rate
+        if self.name not in ("adam", "adamw"):
+            return None
+        opt_state.inner.count += 1
+        return self.lr_scale(opt_state.inner.count)
+
+    def lr_scale(self, count: int) -> float:
+        """``scale_by_adam_tf1``'s ``sqrt(1 - b2^t) / (1 - b1^t)`` at ``t =
+        count``, computed in fp32 as JAX computes it (``_adam_tf1``)."""
+        b1, b2 = self.hyper.get("b1", 0.9), self.hyper.get("b2", 0.999)
+        t = torch.tensor(float(count), dtype=torch.float32)
+        f32 = dict(dtype=torch.float32)
+        return float(torch.sqrt(1.0 - torch.pow(torch.tensor(b2, **f32), t))
+                     / (1.0 - torch.pow(torch.tensor(b1, **f32), t)))
+
+    @torch.no_grad()
+    def update(self, params: dict, grads: list, opt_state: OptimizerState, learning_rate,
+               lr_scale=None, *, mesh=None, tensor_parallel: bool = False) -> None:
+        """The device half of one update: ``params`` and the rule's state in
+        place. ``learning_rate`` and Adam's ``lr_scale`` (``advance``) are
+        floats, or 0-d fp32 tensors on the params' device, which a captured
+        step fills before each replay; both give the same bits. Every rule
+        is elementwise, so on a mesh it runs on this rank's shards; only the
+        clip's global norm needs the mesh: the squares of the replicated
+        leaves once, plus those of the fc6/fc7 shards summed over 'model'."""
         state = opt_state.inner
         leaves = bridge.param_leaves(params)
         if self.clip_norm is not None:  # optax.clip_by_global_norm
@@ -150,7 +191,7 @@ class Optimizer:
             keep = g_norm < self.clip_norm
             grads = [torch.where(keep, g, (g / g_norm) * self.clip_norm) for g in grads]
         if self.name in ("adam", "adamw"):
-            updates = self._adam_tf1(grads, state)
+            updates = self._adam_tf1(grads, state, lr_scale)
             if self.name == "adamw":  # optax.add_decayed_weights
                 wd = self.hyper.get("weight_decay", 1e-4)
                 updates = [u.add_(p * wd) for u, p in zip(updates, leaves)]
@@ -166,7 +207,7 @@ class Optimizer:
         for p, u in zip(leaves, updates):
             p.add_(u * lr)
 
-    def _adam_tf1(self, grads: list, state: ScaleByAdamTF1State) -> list:
+    def _adam_tf1(self, grads: list, state: ScaleByAdamTF1State, lr_scale) -> list:
         """``scale_by_adam_tf1``: TF1's ``AdamOptimizer`` rule, written out
         because ``torch.optim.Adam`` (like optax) adds eps to the
         bias-corrected sqrt(v_hat), which fails the one-step TF parity:
@@ -174,14 +215,9 @@ class Optimizer:
             lr_scale = sqrt(1 - b2^t) / (1 - b1^t)
             update   = lr_scale * m_t / (sqrt(v_t) + eps)
 
-        The scalar is computed in fp32, as JAX computes it."""
+        ``lr_scale`` comes from ``lr_scale`` (fp32, as JAX computes it)."""
         b1, b2 = self.hyper.get("b1", 0.9), self.hyper.get("b2", 0.999)
         eps = self.hyper.get("eps", 1e-8)
-        state.count += 1
-        t = torch.tensor(float(state.count), dtype=torch.float32)
-        f32 = dict(dtype=torch.float32)
-        lr_scale = float(torch.sqrt(1.0 - torch.pow(torch.tensor(b2, **f32), t))
-                         / (1.0 - torch.pow(torch.tensor(b1, **f32), t)))
         updates = []
         for m, v, g in zip(state.mu, state.nu, grads):
             m.mul_(b1).add_(g * (1 - b1))
@@ -220,14 +256,18 @@ def create_train_state(params: dict, optimizer: Optimizer) -> TrainState:
     return TrainState(step=0, params=params, opt_state=optimizer.init(params))
 
 
-def dropout_generator(device, seed: int, step: int, microbatch: int | None = None):
-    """The dropout draw of one step (and grad-accum microbatch), derived from
-    (seed, step[, microbatch]) alone: the counterpart of JAX's
+def dropout_seed(seed: int, step: int, microbatch: int | None = None) -> int:
+    """The seed of one step's (and grad-accum microbatch's) dropout draw,
+    derived from (seed, step[, microbatch]) alone: the counterpart of JAX's
     ``fold_in(rng, state.step)``, so a run restarted at step k draws the
     same masks as the uninterrupted run."""
     key = [seed, step] + ([] if microbatch is None else [microbatch])
-    draw = int(np.random.SeedSequence(key).generate_state(1, np.uint64)[0] >> np.uint64(1))
-    return torch.Generator(device=device).manual_seed(draw)
+    return int(np.random.SeedSequence(key).generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+
+def dropout_generator(device, seed: int, step: int, microbatch: int | None = None):
+    """A fresh generator on ``device`` seeded with ``dropout_seed``."""
+    return torch.Generator(device=device).manual_seed(dropout_seed(seed, step, microbatch))
 
 
 AUGMENT_STREAM = 1  # the spawn key that sets the augmentation draws apart
@@ -247,10 +287,15 @@ def loss_and_grads(params: dict, images: torch.Tensor, label_ids: torch.Tensor,
                    sample_mask: torch.Tensor, *, seed: int, step: int, l2_rate: float,
                    keep_prob: float, compute_dtype=torch.bfloat16, remat: bool = False,
                    grad_accum: int = 1, ignore_label: int | None = None, class_weights=None,
-                   mesh=None, tensor_parallel: bool = False, split=None):
+                   mesh=None, tensor_parallel: bool = False, split=None, generators=None):
     """The loss and the gradient of every leaf of ``params`` (in
     ``bridge.param_leaves`` order): the value-and-grad half of
-    ``train_step``. See ``train_step`` for the arguments.
+    ``train_step``. See ``train_step`` for the arguments. ``generators``: a
+    callable ``microbatch -> torch.Generator`` (``microbatch`` None without
+    ``grad_accum``) in place of ``dropout_generator``'s fresh ones from
+    (``seed``, ``step``), which a step captured in a CUDA graph keeps fixed
+    and re-seeds with the same seeds (``parallel/graphs.py``); ``l2_rate``
+    and ``keep_prob`` may then be 0-d fp32 tensors on the device.
 
     Over a >1 'data' axis each rank holds its rows (with ``grad_accum``, in
     ``batch_rows``' microbatch layout) and computes ``sum(w * ce)`` over
@@ -276,6 +321,10 @@ def loss_and_grads(params: dict, images: torch.Tensor, label_ids: torch.Tensor,
             return class_pixel_weights(lb, mk, class_weights, ignore_label)
         return valid_pixel_weights(lb, mk, ignore_label)
 
+    if generators is None:
+        def generators(microbatch=None):
+            return dropout_generator(images.device, seed, step, microbatch)
+
     def loss_for(im, lb, mk, generator, denominator):
         run = bridge.cast_params(params, compute_dtype)  # inside autograd, every call
         logits = apply_fcn8s(run, im, keep_prob=keep_prob, generator=generator,
@@ -286,7 +335,9 @@ def loss_and_grads(params: dict, images: torch.Tensor, label_ids: torch.Tensor,
                                    denominator=denominator)
         if not with_l2:
             return ce
-        reg = torch.tensor(l2_rate, dtype=torch.float32) * decoder_l2_loss(params["decoder"])
+        rate = (l2_rate if isinstance(l2_rate, torch.Tensor)
+                else torch.tensor(l2_rate, dtype=torch.float32))  # 0-d on the CPU: a scalar
+        reg = rate * decoder_l2_loss(params["decoder"])
         return ce + reg
 
     def global_counts(lb, mk):
@@ -306,8 +357,7 @@ def loss_and_grads(params: dict, images: torch.Tensor, label_ids: torch.Tensor,
 
     if grad_accum <= 1:
         denominator = global_counts(label_ids, sample_mask)[1][0] if spread else None
-        loss = loss_for(images, label_ids, sample_mask,
-                        dropout_generator(images.device, seed, step), denominator)
+        loss = loss_for(images, label_ids, sample_mask, generators(), denominator)
         grads = list(torch.autograd.grad(loss, leaves))
         if spread:
             loss, grads = all_reduce(loss.detach(), mesh, axes), all_reduce_flat(grads, mesh, axes)
@@ -329,8 +379,8 @@ def loss_and_grads(params: dict, images: torch.Tensor, label_ids: torch.Tensor,
     total = torch.zeros((), dtype=torch.float32, device=images.device)
     for i in range(grad_accum):
         part = slice(i * b, (i + 1) * b)
-        loss_i = loss_for(images[part], label_ids[part], sample_mask[part],
-                          dropout_generator(images.device, seed, step, i), denominators[i])
+        loss_i = loss_for(images[part], label_ids[part], sample_mask[part], generators(i),
+                          denominators[i])
         g_i = torch.autograd.grad(loss_i, leaves)
         with torch.no_grad():
             for acc, g in zip(grads, g_i):
@@ -558,3 +608,316 @@ def tta_step(params: dict, images: torch.Tensor, *, scale_hw=None, flip: bool = 
     if probs.shape[1:3] != (h, w):
         probs = resize_bilinear(probs, (h, w))
     return all_gather_cat(probs, mesh)
+
+
+# ---------------------------------------------------------------------------
+# the compiled steps: each step body captured once per signature in a CUDA
+# graph (parallel/graphs.py) and replayed
+# ---------------------------------------------------------------------------
+
+
+def _check_compilable(name: str, mesh, spatial_partition: bool, tensor_parallel: bool) -> None:
+    """JAX's argument check, then what the compiled steps take: no mesh or
+    a mesh of one position, and the whole width."""
+    if spatial_partition and tensor_parallel:
+        raise ValueError("spatial_partition and tensor_parallel are mutually exclusive")
+    if spatial_partition:
+        raise NotImplementedError(f"{name}(spatial_partition=True) is not captured: run the "
+                                  "eager steps with mesh=..., spatial_partition=True")
+    if mesh is not None and mesh.size > 1:
+        raise NotImplementedError(
+            f"{name} on a mesh of {mesh.size} positions is not captured: run the eager "
+            "train_step/eval_step/predict_step/tta_step with mesh=...")
+
+
+def _require_on(device: torch.device, tensors, what: str) -> None:
+    if any(t.device != device for t in tensors):
+        raise ValueError(f"{what} must lie on {device}, the compiled step's device")
+
+
+def _device(device) -> torch.device:
+    """The compiled step's device: the card unless the caller asks for the
+    CPU (``kernels.resolve_device``), with the card's index made explicit."""
+    device = resolve_device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _class_weights(class_weights, device):
+    """The class weights as an fp32 tensor on ``device``, made once when the
+    step is compiled: a tuple copied to the card on every step would sync."""
+    if class_weights is None:
+        return None
+    return torch.as_tensor(class_weights, dtype=torch.float32).to(device)
+
+
+def _site_seed(seed: int, step: int, site) -> int:
+    """The seed of one draw site of a compiled train dispatch that starts at
+    ``step``: the eager step's dropout seed per microbatch, or its
+    augmentation slot's seed, for the dispatch's ``k``-th step."""
+    kind, k, index = site
+    if kind == "dropout":
+        return dropout_seed(seed, step + k, index)
+    return transform_seed(augment_key(seed, step + k), index)
+
+
+class _CompiledTrain:
+    """``compile_train_step``'s and ``compile_multi_train_step``'s callable:
+    ``steps`` train steps (S) captured in one graph per input signature and
+    keep_prob regime, over one state's tensors."""
+
+    def __init__(self, optimizer: Optimizer, *, multi: bool, steps: int, device,
+                 compute_dtype, augment_fn, remat: bool, grad_accum: int, ignore_label,
+                 class_weights):
+        self.optimizer, self.multi, self.steps, self.device = optimizer, multi, steps, device
+        self.augment_fn = augment_fn
+        self.loss_kw = dict(compute_dtype=compute_dtype, remat=remat, grad_accum=grad_accum,
+                            ignore_label=ignore_label,
+                            class_weights=_class_weights(class_weights, device))
+        self.generators = FixedGenerators(device)
+        # learning rate, L2 rate, keep_prob, then Adam's lr_scale of each step
+        self.scalars = torch.zeros(3 + steps, dtype=torch.float32, device=device)
+        self.captures: dict = {}
+        self._bound = None
+
+    @staticmethod
+    def state_tensors(state: TrainState) -> list:
+        inner = state.opt_state.inner
+        if isinstance(inner, ScaleByAdamTF1State):
+            inner = [inner.mu, inner.nu]
+        return bridge.param_leaves(state.params) + tensors_of(inner)
+
+    def __call__(self, state: TrainState, images, label_ids, sample_mask, seed: int,
+                 learning_rate: float, l2_rate: float, keep_prob: float):
+        inputs = (images, label_ids, sample_mask)
+        held = self.state_tensors(state)
+        _require_on(self.device, held, "the train state")
+        bound = binding(held)
+        if bound != self._bound:  # another state: its own captures
+            self.captures.clear()
+            self._bound = bound
+        drops = not keep_prob >= 1.0
+        key = (signature(inputs), drops)
+        inner = state.opt_state.inner
+        adam = isinstance(inner, ScaleByAdamTF1State)
+        scales = [self.optimizer.lr_scale(inner.count + k + 1) if adam else 0.0
+                  for k in range(self.steps)]
+        fill_scalars(self.scalars, [learning_rate, l2_rate, keep_prob] + scales)
+        self.generators.reseed(partial(_site_seed, seed, state.step))
+        entry = self.captures.get(key)
+        if entry is None:
+            statics = [static_like(x, self.device) for x in inputs]
+            for buf, x in zip(statics, inputs):
+                buf.copy_(x)
+            body = partial(self._body, state.params, state.opt_state, statics, drops)
+            entry = self.captures[key] = (capture(body, self.device, restore=held,
+                                                  generators=self.generators), statics)
+            self.generators.reseed(partial(_site_seed, seed, state.step))
+        captured, statics = entry
+        for buf, x in zip(statics, inputs):
+            buf.copy_(x)
+        for _ in range(self.steps):
+            self.optimizer.advance(state.opt_state, learning_rate)
+        losses = captured.run().clone()
+        state.step += self.steps
+        return state, losses
+
+    def _draw(self, kind: str, k: int, index=None) -> torch.Generator:
+        return self.generators.get((kind, k, index))
+
+    def _body(self, params: dict, opt_state: OptimizerState, statics: list, drops: bool):
+        """The device work of ``steps`` train steps on the static inputs,
+        every host scalar read from ``scalars``: the eager step's augment,
+        ``loss_and_grads`` and ``Optimizer.update``, each draw from a fixed
+        generator of ``generators``."""
+        lr, l2 = self.scalars[0], self.scalars[1]
+        keep_prob = self.scalars[2] if drops else 1.0
+        losses = []
+        for k in range(self.steps):
+            images, label_ids, sample_mask = (x[k] for x in statics) if self.multi else statics
+            if self.augment_fn is not None:
+                with torch.no_grad():
+                    images, label_ids = self.augment_fn(partial(self._draw, "augment", k),
+                                                        images, label_ids)
+            loss, grads = loss_and_grads(params, images, label_ids, sample_mask, seed=None,
+                                         step=None, l2_rate=l2, keep_prob=keep_prob,
+                                         generators=partial(self._draw, "dropout", k),
+                                         **self.loss_kw)
+            self.optimizer.update(params, grads, opt_state, lr, self.scalars[3 + k])
+            losses.append(loss)
+        return torch.stack(losses) if self.multi else losses[0]
+
+
+def compile_train_step(mesh, optimizer: Optimizer, num_classes: int, *,
+                       tensor_parallel: bool = True, compute_dtype=torch.bfloat16,
+                       example_state=None, donate: bool = True, augment_fn=None,
+                       remat: bool = False, grad_accum: int = 1, spatial_partition: bool = False,
+                       use_pallas_ce: bool | None = None, ignore_label: int | None = None,
+                       class_weights=None, device="cuda"):
+    """``train_step`` captured in a CUDA graph: returns ``step(state,
+    images, label_ids, sample_mask, seed, learning_rate, l2_rate,
+    keep_prob) -> (state, loss)`` with ``train_step``'s semantics and
+    arguments, ``state`` advanced in place and ``loss`` a fresh 0-d fp32
+    tensor on the device (no sync).
+
+    The first call for a set of input shapes and dtypes, keep_prob regime
+    (below 1 or not) and state tensors warms the step up (the state put
+    back as it was), captures one whole step (augment, forward, autograd
+    backward, optimizer) and replays it; later calls copy the inputs into
+    the capture's buffers and replay. The learning rate, ``l2_rate``,
+    ``keep_prob`` and Adam's ``lr_scale`` are written into a device buffer
+    before each replay, computed as the eager step computes them, and the
+    dropout and augmentation draws come from fixed generators re-seeded
+    with the eager step's seeds (``dropout_seed``, ``augment_key``): the
+    compiled step gives the eager step's results bit for bit. ``state.step``
+    and the optimizer's counters advance on the host once per call, as the
+    eager step advances them. A state whose tensors are others (a loaded
+    checkpoint, a new ``TrainState``) is captured anew.
+
+    ``device`` (default the card; without one it raises and names
+    ``device="cpu"``): on the CPU the same body runs without a capture.
+    On the card nothing falls back: a failed warm-up or capture raises.
+    ``mesh`` is None or a mesh of one position; a larger mesh, or
+    ``spatial_partition``, raises ``NotImplementedError`` (the eager
+    ``train_step(mesh=...)`` runs them). ``tensor_parallel``,
+    ``example_state``, ``donate`` and ``use_pallas_ce`` are JAX's and
+    change nothing here: one position has no 'model' axis, a capture is
+    made at the first call, the state is always updated in place, and the
+    CE always runs through K1/K3. ``num_classes`` is kept for the
+    signature."""
+    del num_classes, example_state, donate, use_pallas_ce
+    _check_compilable("compile_train_step", mesh, spatial_partition, tensor_parallel)
+    return _CompiledTrain(optimizer, multi=False, steps=1, device=_device(device),
+                          compute_dtype=compute_dtype, augment_fn=augment_fn, remat=remat,
+                          grad_accum=grad_accum, ignore_label=ignore_label,
+                          class_weights=class_weights)
+
+
+def compile_multi_train_step(mesh, optimizer: Optimizer, num_classes: int, *,
+                             steps_per_dispatch: int, tensor_parallel: bool = True,
+                             compute_dtype=torch.bfloat16, example_state=None,
+                             donate: bool = True, augment_fn=None, remat: bool = False,
+                             grad_accum: int = 1, use_pallas_ce: bool | None = None,
+                             ignore_label: int | None = None, class_weights=None,
+                             device="cuda"):
+    """``steps_per_dispatch`` (S) train steps captured in ONE CUDA graph:
+    returns ``step(state, images_s, labels_s, mask_s, seed, learning_rate,
+    l2_rate, keep_prob) -> (state, losses)`` over S-stacked ``(S, N, H, W,
+    C)``, ``(S, N, H, W)`` and ``(S, N)`` inputs, ``losses`` the (S,) fp32
+    losses. As in JAX, the S steps share (lr, l2, keep_prob): a learning
+    rate schedule advances per dispatch. Each step keeps its own dropout
+    and augmentation draws (those of its ``state.step``) and its own Adam
+    ``t``, so S single compiled steps at the same scalars give the same
+    state and losses. ``steps_per_dispatch < 1`` raises ``ValueError``;
+    the rest as ``compile_train_step``."""
+    del num_classes, example_state, donate, use_pallas_ce
+    if steps_per_dispatch < 1:
+        raise ValueError("steps_per_dispatch must be >= 1")
+    _check_compilable("compile_multi_train_step", mesh, False, tensor_parallel)
+    return _CompiledTrain(optimizer, multi=True, steps=steps_per_dispatch,
+                          device=_device(device), compute_dtype=compute_dtype,
+                          augment_fn=augment_fn, remat=remat, grad_accum=grad_accum,
+                          ignore_label=ignore_label, class_weights=class_weights)
+
+
+class _CompiledForward:
+    """A forward-only step ``fn(params, *inputs)`` under ``no_grad``,
+    captured per input signature over one params tree's tensors. With
+    ``metrics`` (the eval step) the step also takes a metrics state, which
+    is copied into the capture's accumulators before each replay and back
+    after it, so the caller's tensors are updated in place."""
+
+    def __init__(self, fn, device: torch.device, metrics: bool = False):
+        self.fn, self.device, self.metrics = fn, device, metrics
+        self.captures: dict = {}
+        self._bound = None
+
+    def __call__(self, params: dict, *args):
+        state, inputs = (args[0], args[1:]) if self.metrics else (None, args)
+        held = tensors_of(params)
+        _require_on(self.device, held, "the params")
+        bound = binding(held)
+        if bound != self._bound:
+            self.captures.clear()
+            self._bound = bound
+        names = sorted(state) if self.metrics else []
+        key = signature(inputs) + signature([state[k] for k in names])
+        entry = self.captures.get(key)
+        if entry is None:
+            statics = [static_like(x, self.device) for x in inputs]
+            acc = {k: static_like(state[k], self.device) for k in names}
+            self._copy_in(statics, inputs, acc, state)
+            body = partial(self._body, params, acc if self.metrics else None, statics)
+            entry = self.captures[key] = (capture(body, self.device, restore=list(acc.values())),
+                                          statics, acc)
+        captured, statics, acc = entry
+        self._copy_in(statics, inputs, acc, state)
+        out = captured.run()
+        if not self.metrics:
+            return out.clone()
+        for k in names:
+            state[k].copy_(acc[k])
+        return state
+
+    @staticmethod
+    def _copy_in(statics, inputs, acc, state) -> None:
+        for buf, x in zip(statics, inputs):
+            buf.copy_(x)
+        for k, buf in acc.items():
+            buf.copy_(state[k])
+
+    def _body(self, params, acc, statics):
+        with torch.no_grad():
+            if acc is None:
+                return self.fn(params, *statics)
+            return self.fn(params, acc, *statics)
+
+
+def compile_eval_step(mesh, num_classes: int, *, tensor_parallel: bool = True,
+                      compute_dtype=torch.bfloat16, example_params=None,
+                      spatial_partition: bool = False, ignore_label: int | None = None,
+                      class_weights=None, device="cuda"):
+    """``eval_step`` captured in a CUDA graph: returns ``step(params,
+    metrics_state, images, label_ids, sample_mask) -> metrics_state``, the
+    metrics state updated in place (JAX donates it) with ``eval_step``'s
+    results bit for bit: K4f, K1 (K3 with ``ignore_label`` /
+    ``class_weights``) and K5 inside the graph. A capture is made per input
+    signature over one params tree's tensors (a tree of other tensors is
+    captured anew). ``mesh``, ``spatial_partition``, ``device`` and JAX's
+    ``tensor_parallel``/``example_params`` as in ``compile_train_step``."""
+    del example_params
+    _check_compilable("compile_eval_step", mesh, spatial_partition, tensor_parallel)
+    device = _device(device)
+    fn = partial(eval_step, num_classes=num_classes, compute_dtype=compute_dtype,
+                 ignore_label=ignore_label, class_weights=_class_weights(class_weights, device))
+    return _CompiledForward(fn, device, metrics=True)
+
+
+def compile_predict_step(mesh, *, argmax: bool = True, tensor_parallel: bool = True,
+                         compute_dtype=torch.bfloat16, example_params=None,
+                         spatial_partition: bool = False, id_dtype=torch.int32,
+                         overlay_lut=None, quantized: bool = False, device="cuda"):
+    """``predict_step`` captured in a CUDA graph: returns ``step(params,
+    images)`` -> ids, softmax or overlay (a fresh tensor on the device),
+    ``predict_step``'s result bit for bit. ``quantized``: ``params`` is the
+    int8 tree (``apply_fcn8s_int8``). The rest as ``compile_eval_step``."""
+    del example_params
+    _check_compilable("compile_predict_step", mesh, spatial_partition, tensor_parallel)
+    fn = partial(predict_step, argmax=argmax, compute_dtype=compute_dtype, id_dtype=id_dtype,
+                 overlay_lut=overlay_lut, quantized=quantized)
+    return _CompiledForward(fn, _device(device))
+
+
+def compile_tta_step(mesh, *, scale_hw=None, flip: bool = True, tensor_parallel: bool = True,
+                     compute_dtype=torch.bfloat16, example_params=None, quantized: bool = False,
+                     device="cuda"):
+    """``tta_step`` for one scale captured in a CUDA graph: returns
+    ``step(params, images)`` -> (N, H, W, C) fp32 mean probabilities (a
+    fresh tensor), ``tta_step``'s result bit for bit. The rest as
+    ``compile_predict_step``."""
+    del example_params
+    _check_compilable("compile_tta_step", mesh, False, tensor_parallel)
+    fn = partial(tta_step, scale_hw=scale_hw, flip=flip, compute_dtype=compute_dtype,
+                 quantized=quantized)
+    return _CompiledForward(fn, _device(device))

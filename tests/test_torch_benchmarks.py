@@ -16,7 +16,9 @@ documents. The numbers that are not times are held against JAX:
 * every overlay variant against JAX's jitted ``predict_step(overlay_lut=)``
   (the body of ``compile_predict_step``) on the same weights and images;
 * the int8 wgrad, JAX's jitted ``int8_wgrad_dynamic``, within 1e-6;
-* ``synth_labelid_scene``, the e2e tree and the packed tree, byte for byte.
+* ``synth_labelid_scene``, the e2e tree and the packed tree, byte for byte;
+* ``multistep_bench``: the JAX script's arguments and its result keys (the
+  modes it times), plus the eager step.
 
 Every script defaults to ``--device cuda`` and, without a card, raises (the
 bench prints its null line and exits 1) naming ``--device cpu``; none of
@@ -25,6 +27,7 @@ them imports JAX.
 
 import ast
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -48,8 +51,9 @@ from fcn8s_tensorflow_tpu_torch import bridge  # noqa: E402
 from fcn8s_tensorflow_tpu_torch.benchmarks import (bench, device_augment_bench,  # noqa: E402
                                                    e2e_input_bench, ignore_label_bench,
                                                    int8_closed_loop, int8_wgrad_bench,
-                                                   overlay_bench, packed_input_bench,
-                                                   pallas_pool_bench, profile_train_step)
+                                                   multistep_bench, overlay_bench,
+                                                   packed_input_bench, pallas_pool_bench,
+                                                   profile_train_step)
 from fcn8s_tensorflow_tpu_torch.parallel import steps as tsteps  # noqa: E402
 from fcn8s_tensorflow_tpu_torch.tools import child_env  # noqa: E402
 
@@ -62,6 +66,8 @@ NO_JAX_FILES = (sorted(os.path.join(PORT, "benchmarks", f)
                        for f in os.listdir(os.path.join(PORT, "benchmarks")) if f.endswith(".py"))
                 + [os.path.join(PORT, "tools", "parity_harness.py"),
                    os.path.join(PORT, "tools", "tf_interop.py"),
+                   os.path.join(PORT, "parallel", "steps.py"),
+                   os.path.join(PORT, "parallel", "graphs.py"),
                    os.path.join(REPO, "chip_smoke.py"),
                    os.path.join(REPO, "probes", "benchmarks_phase.py")])
 
@@ -237,6 +243,61 @@ def test_bench_runs_on_the_cpu_with_the_jax_keys(narrow, monkeypatch, capsys):
     for row in ("batched", "int8", "overlay"):
         assert ex[f"infer_{row}_stats"]["reps"] == bench.INFER_REPS
     assert ex["infer_batch1_breakdown"]["payload_bytes"] == 64 * 64  # uint8 ids
+
+
+# ---------------------------------------------------------------------------
+# multistep_bench
+# ---------------------------------------------------------------------------
+
+
+def _jax_multistep_modes() -> set:
+    """The mode names the JAX script times (its result keys)."""
+    loop = next(node for node in ast.walk(_source_tree("benchmarks/multistep_bench.py"))
+                if isinstance(node, ast.For) and isinstance(node.iter, ast.Tuple)
+                and isinstance(node.target, ast.Tuple))
+    return {elt.elts[0].value for elt in loop.iter.elts}
+
+
+def test_multistep_bench_takes_the_jax_scripts_arguments():
+    jax_main = next(node for node in _source_tree("benchmarks/multistep_bench.py").body
+                    if isinstance(node, ast.FunctionDef) and node.name == "main")
+    want = {a.arg: ast.literal_eval(d) for a, d in zip(jax_main.args.args, jax_main.args.defaults)}
+    params = inspect.signature(multistep_bench.main).parameters
+    assert {k: params[k].default for k in want} == want == dict(
+        steps_per_dispatch=4, total_steps=16, h=1024, w=512, batch=8)
+    assert params["device"].default == "cuda"
+
+
+def test_multistep_bench_runs_with_the_jax_keys(narrow):
+    out = multistep_bench.main(steps_per_dispatch=2, total_steps=4, h=64, w=64, batch=2,
+                               device="cpu")
+    modes = _jax_multistep_modes()
+    assert modes == {"single", "multi"}
+    assert modes | {"eager"} <= set(out) and set(out["busy_share"]) == modes | {"eager"}
+    assert all(out[m] > 0 for m in modes | {"eager"})
+    assert out["busy_share"]["eager"] is None and out["device"] == "cpu"  # no device on the CPU
+    assert out["steps_per_dispatch"] == 2 and out["shape"] == [2, 64, 64]
+
+
+def test_multistep_bench_defaults_to_the_card_and_names_device_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        multistep_bench.main()
+    with pytest.raises(ValueError, match="no multiple"):
+        multistep_bench.main(steps_per_dispatch=3, device="cpu")
+
+
+def test_multistep_bench_cli_runs_each_s(monkeypatch, capsys):
+    calls = []
+    monkeypatch.setattr(multistep_bench, "main",
+                        lambda **kw: calls.append(kw) or {"multi": 1.0, **kw})
+    assert len(multistep_bench.cli(["--device", "cpu"])) == 2
+    assert calls == [dict(steps_per_dispatch=4, device="cpu"),
+                     dict(steps_per_dispatch=8, device="cpu")]
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [json.loads(x)["steps_per_dispatch"] for x in lines] == [4, 8]
+    multistep_bench.cli(["2", "--device", "cpu"])
+    assert calls[-1] == dict(steps_per_dispatch=2, device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -882,3 +882,162 @@ def test_card_exported_artifact_equals_predict(dev, tmp_path):
     with pytest.raises(ValueError, match="traced on cuda:0.*asked for cpu"):
         load_serving_artifact(out, device="cpu")
     model.close()
+
+
+# ---------------------------------------------------------------------------
+# the compiled steps (parallel/steps.py compile_*_step, parallel/graphs.py):
+# captured in CUDA graphs and held against the eager steps bit for bit
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def deterministic():
+    """``tools.make_deterministic`` for the test, then the switches back."""
+    from fcn8s_tensorflow_tpu_torch.tools import make_deterministic
+
+    switches = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic,
+                torch.backends.cudnn.benchmark)
+    make_deterministic()
+    yield
+    torch.use_deterministic_algorithms(switches[0])
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = switches[1:]
+
+
+def _compiled_setup(dev, n_batches=3, c=5):
+    from fcn8s_tensorflow_tpu_torch.models.fcn8s import init_fcn8s
+
+    tree = init_fcn8s(torch.Generator().manual_seed(4), c, width_mult=1 / 16, fc_channels=64)
+    g = torch.Generator(device=dev).manual_seed(5)
+    ims = torch.randint(0, 256, (n_batches, 4, 64, 96, 3), generator=g, device=dev,
+                        dtype=torch.uint8)
+    lbs = torch.randint(0, c, (n_batches, 4, 64, 96), generator=g, device=dev, dtype=torch.uint8)
+    lbs[:, :, :8] = 255  # ignored rows
+    return tree, ims, lbs, torch.ones(4, device=dev)
+
+
+def _train_state(dev, tree, opt):
+    from fcn8s_tensorflow_tpu_torch import bridge
+    from fcn8s_tensorflow_tpu_torch.parallel import steps as S
+
+    return S.create_train_state(bridge.to_port(tree, device=dev), opt)
+
+
+def _states_equal(a, b) -> bool:
+    from fcn8s_tensorflow_tpu_torch import bridge
+
+    ia, ib = a.opt_state.inner, b.opt_state.inner
+    return (a.step == b.step and ia.count == ib.count
+            and all(torch.equal(x, y) for x, y in zip(
+                bridge.param_leaves(a.params) + ia.mu + ia.nu,
+                bridge.param_leaves(b.params) + ib.mu + ib.nu)))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_compiled_train_step_equals_eager_on_the_card(dev, deterministic, dtype):
+    """keep_prob 0.5, device augmentation, grad_accum=2, ignore_label, TF1
+    Adam, a changing learning rate: three replays give the eager steps'
+    losses, params and moments bit for bit, and each replay counts the
+    kernels it recorded."""
+    from fcn8s_tensorflow_tpu_torch.ops.augment_device import make_augment_fn
+    from fcn8s_tensorflow_tpu_torch.parallel import steps as S
+
+    tree, ims, lbs, mask = _compiled_setup(dev)
+    opt = S.make_optimizer()
+    aug = make_augment_fn(flip=0.5, brightness=(0.8, 1.2, 0.5), translate=(8, 4, 0.5))
+    kw = dict(compute_dtype=dtype, grad_accum=2, ignore_label=255, augment_fn=aug)
+    eager, comp = _train_state(dev, tree, opt), _train_state(dev, tree, opt)
+    step = S.compile_train_step(None, opt, 5, **kw, device=dev)
+    for i in range(3):
+        lr = 1e-3 * (i + 1)
+        _, want = S.train_step(eager, ims[i], lbs[i], mask, 9, lr, 1e-3, 0.5, optimizer=opt,
+                               num_classes=5, **kw)
+        before = (P.maxpool2x2_code_nhwc.launches, K.ce_grad.launches, K.ce_sum_weighted.launches)
+        _, got = step(comp, ims[i], lbs[i], mask, 9, lr, 1e-3, 0.5)
+        after = (P.maxpool2x2_code_nhwc.launches, K.ce_grad.launches, K.ce_sum_weighted.launches)
+        if i > 0:  # a replay: the recorded launches, 5 pools and 2 microbatches
+            assert [a - b for a, b in zip(after, before)] == [10, 2, 2]
+        assert torch.equal(got, want)
+    torch.cuda.synchronize()
+    assert _states_equal(comp, eager)
+
+
+def test_compiled_multi_step_equals_single_steps_on_the_card(dev, deterministic):
+    from fcn8s_tensorflow_tpu_torch.parallel import steps as S
+
+    tree, ims, lbs, mask = _compiled_setup(dev)
+    opt = S.make_optimizer()
+    singles, multi_state = _train_state(dev, tree, opt), _train_state(dev, tree, opt)
+    step = S.compile_train_step(None, opt, 5, device=dev)
+    want = torch.stack([step(singles, ims[i], lbs[i], mask, 9, 1e-3, 1e-3, 0.5)[1]
+                        for i in range(3)])
+    multi = S.compile_multi_train_step(None, opt, 5, steps_per_dispatch=3, device=dev)
+    _, got = multi(multi_state, ims, lbs, mask.expand(3, -1).contiguous(), 9, 1e-3, 1e-3, 0.5)
+    assert torch.equal(got, want) and len(set(got.tolist())) == 3
+    assert _states_equal(multi_state, singles)
+
+
+def test_compiled_train_step_recaptures_a_swapped_state_on_the_card(dev, deterministic):
+    from fcn8s_tensorflow_tpu_torch import bridge
+    from fcn8s_tensorflow_tpu_torch.parallel import steps as S
+
+    tree, ims, lbs, mask = _compiled_setup(dev)
+    opt = S.make_optimizer()
+    first, second, eager = (_train_state(dev, tree, opt) for _ in range(3))
+    step = S.compile_train_step(None, opt, 5, device=dev)
+    step(first, ims[0], lbs[0], mask, 9, 1e-3, 0.0, 0.5)
+    kept = [t.clone() for t in bridge.param_leaves(first.params)]
+    (old, _), = step.captures.values()
+    _, got = step(second, ims[1], lbs[1], mask, 9, 1e-3, 0.0, 0.5)
+    (new, _), = step.captures.values()
+    _, want = S.train_step(eager, ims[1], lbs[1], mask, 9, 1e-3, 0.0, 0.5, optimizer=opt,
+                           num_classes=5)
+    assert new is not old and torch.equal(got, want) and _states_equal(second, eager)
+    assert all(torch.equal(a, b) for a, b in zip(bridge.param_leaves(first.params), kept))
+
+
+def test_compiled_forward_steps_equal_eager_on_the_card(dev, deterministic):
+    """Eval (K4f, K1, K5 in the graph), predict (ids, overlay, int8) and
+    TTA replayed on two batches give the eager results bit for bit."""
+    import numpy as np
+
+    from fcn8s_tensorflow_tpu_torch import bridge
+    from fcn8s_tensorflow_tpu_torch.ops.metrics import empty_metrics_state
+    from fcn8s_tensorflow_tpu_torch.ops.quantize import quantize_fcn8s_params
+    from fcn8s_tensorflow_tpu_torch.parallel import steps as S
+
+    tree, ims, lbs, mask = _compiled_setup(dev)
+    master = bridge.to_port(tree, device=dev)
+    run = bridge.cast_params(master, torch.bfloat16)
+    qtree = quantize_fcn8s_params(master)
+    lut = np.array([[255, 0, 0, 128], [0, 255, 0, 0], [0, 0, 255, 255], [9, 9, 9, 77],
+                    [0, 0, 0, 200]], np.float32)
+    ev = S.compile_eval_step(None, 5, ignore_label=255, device=dev)
+    got, want = empty_metrics_state(5, dev), empty_metrics_state(5, dev)
+    n5 = P.maxpool2x2_nhwc.launches, K.confusion_matrix_accumulate.launches
+    for i in range(2):
+        ev(run, got, ims[i], lbs[i], mask)
+    assert [a - b for a, b in zip((P.maxpool2x2_nhwc.launches,
+                                   K.confusion_matrix_accumulate.launches), n5)] == [20, 4]
+    for i in range(2):
+        S.eval_step(run, want, ims[i], lbs[i], mask, num_classes=5, ignore_label=255)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    cases = [(S.compile_predict_step(None, id_dtype=torch.uint8, device=dev), run,
+              dict(id_dtype=torch.uint8), S.predict_step),
+             (S.compile_predict_step(None, overlay_lut=lut, device=dev), run,
+              dict(overlay_lut=lut), S.predict_step),
+             (S.compile_predict_step(None, quantized=True, device=dev), qtree,
+              dict(quantized=True), S.predict_step),
+             (S.compile_tta_step(None, scale_hw=(96, 128), device=dev), run,
+              dict(scale_hw=(96, 128)), S.tta_step)]
+    for step, params, kw, eager in cases:
+        for i in range(2):
+            assert torch.equal(step(params, ims[i]), eager(params, ims[i], **kw))
+
+
+def test_a_capture_that_syncs_raises_on_the_card(dev):
+    """No fallback: a body that reads a value back fails its capture."""
+    from fcn8s_tensorflow_tpu_torch.parallel import graphs as G
+
+    t = torch.ones(4, device=dev)
+    with pytest.raises(RuntimeError):
+        G.capture(lambda: t.sum().item(), dev)
