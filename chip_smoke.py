@@ -3,7 +3,8 @@
 checkpoint, training-feature, int8/TTA/tiled predict, offline-benchmark,
 host data pipeline, serving-artifact, video, viewer, annotation, mesh,
 spatial-partition and training-survival paths, the measurement scripts,
-the tutorial notebook and the compiled steps once on one CUDA card.
+the tutorial notebook, the compiled steps and the facade on them once on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -180,7 +181,29 @@ Phases, in order; any failure raises and the script exits non-zero:
     eager; with the switches back, (e) ``benchmarks.multistep_bench`` at
     S=4 and 8: ms a step and device busy share of the eager step,
     ``compile_train_step`` and ``compile_multi_train_step``; a
-    ``{"compiled_steps": ...}`` line.
+    ``{"compiled_steps": ...}`` line;
+26. the facade on the compiled steps at full width (batch 8 x 1024x512,
+    20 classes, bf16, TF1 Adam, keep_prob 0.5, device augmentation,
+    ``ema_decay``, ``prefetch=2``, an evaluation on 'train' after each
+    epoch) under ``tools.make_deterministic``: (a) ``FCN8s.train`` for 6
+    steps equal to an eager ``train_step`` + EMA loop from a copy of the
+    weights (params, Adam's moments, EMA and losses by sha256, the last
+    evaluation's state), one train and one eval capture, the launches
+    exactly steps and eval batches plus ``WARMUP`` per capture; (b)
+    ``evaluate`` (live, ``use_ema``), ``predict`` (ids, overlay, int8,
+    ``use_ema``), a 1024x2048 frame in (512, 512) tiles, ``predict_tta``
+    and ``predict_and_save`` of 10 images in chunks of 8 each equal to the
+    same call on the facade's eager steps, no capture while the live, EMA
+    and int8 trees alternate or for a padded tail, the device memory each
+    first call added and the peak; with the switches back, (c) images/s of
+    ``train`` on resident batches compiled against eager in turns, the
+    busy share of each, and the seconds spent capturing; a
+    ``{"facade_compiled": ...}`` line.
+
+The facade's steps are CUDA-graph replays (``FCN8s._get_*_step``): the
+exact launch checks of phases 5, 6, 10, 12, 16 and 17 count each kernel's
+launches a call times the calls plus ``graphs.WARMUP`` times the captures
+the facade reports (``FCN8s.capture_counts``).
 
 Kernel launch counts are zeroed just before each path is driven and read
 just after it: serving + evaluation (phases 5-6), training (phase 10), the
@@ -208,7 +231,9 @@ phase 20, ``launches_mesh`` in phase 21 and ``launches_spatial`` in phase
 in phase 23: the endurance's resumed and comparator children, each
 fault-injection rank's straight run, the quickstart; ``launches_benchmarks``
 in phase 24: (b) the scripts, (c) the notebook; ``launches_compiled`` in
-phase 25 (a)-(d): the warm-ups' launches and each replay's recorded ones).
+phase 25 (a)-(d): the warm-ups' launches and each replay's recorded ones;
+``launches_facade_compiled`` in phase 26 (a)-(b), the eager comparisons
+left out).
 A ``{"viz_prep":
 {...}}`` line gives phase 20's numbers.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -295,6 +320,7 @@ from fcn8s_tensorflow_tpu_torch.ops.metrics import (benchmark_iou_from_confusion
                                                     confusion_matrix, empty_metrics_state)
 from fcn8s_tensorflow_tpu_torch.ops.nn import conv2d, max_pool_2x2, nchw, nhwc
 from fcn8s_tensorflow_tpu_torch.ops.pool import maxpool2x2_nhwc
+from fcn8s_tensorflow_tpu_torch.parallel import graphs as G
 from fcn8s_tensorflow_tpu_torch.parallel import steps as S
 from fcn8s_tensorflow_tpu_torch.parallel.steps import eval_step
 from fcn8s_tensorflow_tpu_torch.prep.annotation import Annotation
@@ -627,7 +653,7 @@ def phase_serving(model: FCN8s) -> None:
     thread.start()
     base = "http://127.0.0.1:%d" % srv.server_address[1]
     rng = np.random.default_rng(2)
-    pool0 = maxpool2x2_nhwc.launches
+    pool0, caps0 = maxpool2x2_nhwc.launches, model.capture_counts()
     try:
         for _ in range(3):
             status, body = _post(base + "/predict", _png(rng.integers(0, 256, (H, W, 3), np.uint8)))
@@ -666,13 +692,16 @@ def phase_serving(model: FCN8s) -> None:
         service.close()
         thread.join(timeout=60)
     pool_launches = maxpool2x2_nhwc.launches - pool0
+    captures = new_captures(model, caps0)["predict"]
     check(stats["requests"] == 13 and stats["errors"] == 1, f"stats {stats}")
     check(stats["dispatches"] < stats["requests"], f"no micro-batching: {stats}")
-    check(pool_launches == 5 * stats["dispatches"],
-          f"K4f launched {pool_launches} times for {stats['dispatches']} dispatches")
+    want = facade_launches({"k4f": 5}, stats["dispatches"], captures)["k4f"]
+    check(0 < captures <= stats["dispatches"] and pool_launches == want,
+          f"K4f launched {pool_launches} times for {stats['dispatches']} dispatches and "
+          f"{captures} captures, not {want}")
     print(f"serving: {stats['requests']} requests in {stats['dispatches']} dispatches, "
           f"p50 {stats['p50_ms']:.1f} ms, p95 {stats['p95_ms']:.1f} ms; K4f launches "
-          f"{pool_launches} = 5 x dispatches")
+          f"{pool_launches} = 5 x (dispatches + {G.WARMUP} x {captures} captures)")
 
 
 def phase_evaluate(model: FCN8s) -> None:
@@ -685,15 +714,20 @@ def phase_evaluate(model: FCN8s) -> None:
                    rng.integers(0, C, (n, H, W), dtype=np.uint8))
 
     k1, k5 = K.ce_sum_per_sample.launches, K.confusion_matrix_accumulate.launches
+    caps0 = model.capture_counts()
     values = model.evaluate(batches(), len(sizes))
     k1 = K.ce_sum_per_sample.launches - k1
     k5 = K.confusion_matrix_accumulate.launches - k5
+    captures = new_captures(model, caps0)["eval"]
+    want = facade_launches({"k": 1}, len(sizes), captures)["k"]
     total = int(model.metrics_state["conf_matrix"].sum())
     check(all(math.isfinite(v) for v in values.values()), f"evaluate gave {values}")
-    check(k1 == 3 and k5 == 3, f"evaluate launched K1 {k1} and K5 {k5} times, not 3 each")
+    check(captures == len(set(sizes)), f"evaluate made {captures} captures, not one a shape")
+    check(k1 == want and k5 == want,
+          f"evaluate launched K1 {k1} and K5 {k5} times, not {want} each")
     check(total == sum(sizes) * H * W, f"confusion matrix holds {total} pixels")
-    print(f"evaluate: {values}; K1 {k1}, K5 {k5} launches; matrix sums to {total} "
-          f"= 21*{H}*{W}")
+    print(f"evaluate: {values}; K1 {k1}, K5 {k5} launches = {len(sizes)} batches + "
+          f"{G.WARMUP} x {captures} captures; matrix sums to {total} = 21*{H}*{W}")
 
 
 def phase_times(model: FCN8s, dev, smi: str) -> None:
@@ -948,6 +982,38 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+def facade_launches(per_call: dict, calls: int, captures: int) -> dict:
+    """The launches of ``calls`` calls of the facade's compiled steps of one
+    kind, ``per_call`` each, that made ``captures`` captures: every call
+    replays its graph, and every capture first ran its step
+    ``graphs.WARMUP`` times."""
+    return {name: n * (calls + G.WARMUP * captures) for name, n in per_call.items()}
+
+
+def new_captures(model: FCN8s, before: dict) -> dict:
+    """The captures ``model``'s compiled steps made since ``before`` (an
+    earlier ``capture_counts()``), by kind."""
+    return {k: v - before[k] for k, v in model.capture_counts().items()}
+
+
+TRAIN_STEP_LAUNCHES = {"maxpool2x2_code_nhwc": 5, "maxpool2x2_bwd_nhwc": 5,
+                       "ce_sum_per_sample": 1, "ce_grad": 1}
+EVAL_STEP_LAUNCHES = {"maxpool2x2_nhwc": 5, "ce_sum_per_sample": 1,
+                      "confusion_matrix_accumulate": 1}
+
+
+def train_and_eval_launches(steps: int, train_captures: int, evals: int,
+                            eval_captures: int) -> dict:
+    """Every kernel's launches over a facade ``train`` of ``steps`` steps
+    (K1) with ``evals`` eval batches."""
+    out = dict.fromkeys(WRAPPERS, 0)
+    for part in (facade_launches(TRAIN_STEP_LAUNCHES, steps, train_captures),
+                 facade_launches(EVAL_STEP_LAUNCHES, evals, eval_captures)):
+        for name, n in part.items():
+            out[name] += n
+    return out
+
+
 def phase_train(dev) -> tuple[FCN8s, dict]:
     """``FCN8s.train`` at full width and bench.py's shape; returns the model
     and the launch counts of the run."""
@@ -960,6 +1026,7 @@ def phase_train(dev) -> tuple[FCN8s, dict]:
 
     w0 = model.params["encoder"]["conv1_1"]["weight"].detach().clone()
     conversions = P.MaxPool2x2.dy_conversions
+    caps0 = model.capture_counts()
     zero_counts()
     t0 = time.perf_counter()
     model.train(stream(), epochs=2, steps_per_epoch=4, learning_rate_schedule=lambda s: 1e-4,
@@ -969,9 +1036,9 @@ def phase_train(dev) -> tuple[FCN8s, dict]:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = read_counts()
-    want = {"maxpool2x2_code_nhwc": 40, "maxpool2x2_bwd_nhwc": 40, "ce_sum_per_sample": 12,
-            "ce_grad": 8, "ce_sum_weighted": 0, "maxpool2x2_nhwc": 20,
-            "confusion_matrix_accumulate": 4, "conv1_core": 0}
+    caps = new_captures(model, caps0)
+    check(caps["train"] == 1 and caps["eval"] == 1, f"train made the captures {caps}")
+    want = train_and_eval_launches(8, caps["train"], 4, caps["eval"])
     check(counts == want, f"train launched {counts}, expected {want}")
     check(math.isfinite(model.training_loss), f"training loss {model.training_loss}")
     check(not torch.equal(model.params["encoder"]["conv1_1"]["weight"], w0), "params did not move")
@@ -1033,12 +1100,16 @@ def phase_weighted(dev, model: FCN8s) -> dict:
     total = dict.fromkeys(WRAPPERS, 0)
     cw = np.linspace(0.5, 2.0, C).astype(np.float32)
     for m, kw, ignore in ((ignoring, {}, True), (model, {"class_weights": cw}, False)):
+        caps0 = m.capture_counts()
         zero_counts()
         m.train(stream(ignore), epochs=1, steps_per_epoch=2, learning_rate_schedule=lambda s: 1e-4,
                 keep_prob=0.5, record_summaries=False, **kw)
         counts = read_counts()
-        check(counts["ce_sum_weighted"] == 2 and counts["ce_grad"] == 2
-              and counts["ce_sum_per_sample"] == 0, f"weighted train launched {counts}")
+        captures = new_captures(m, caps0)["train"]
+        want = facade_launches({"k": 1}, 2, captures)["k"]
+        check(captures == 1 and counts["ce_sum_weighted"] == want and counts["ce_grad"] == want
+              and counts["ce_sum_per_sample"] == 0,
+              f"weighted train launched {counts} with {captures} captures")
         check(math.isfinite(m.training_loss), f"weighted training loss {m.training_loss}")
         print(f"weighted train ({'ignore_label=255' if ignore else 'class_weights'}): loss "
               f"{m.training_loss:.5f}; launches {counts}")
@@ -1376,6 +1447,7 @@ def phase_training_features(dev, smi: str) -> dict:
     root = tempfile.mkdtemp(prefix="fcn8s_features_")
     try:
         log, tb = os.path.join(root, "train_log.jsonl"), os.path.join(root, "tb")
+        caps0 = model.capture_counts()
         zero_counts()
         t0 = time.perf_counter()
         model.train(_cycle(batches), epochs=3, steps_per_epoch=3, keep_prob=0.5,
@@ -1384,9 +1456,9 @@ def phase_training_features(dev, smi: str) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = read_counts()
-        want = {"maxpool2x2_code_nhwc": 45, "maxpool2x2_bwd_nhwc": 45, "ce_sum_per_sample": 18,
-                "ce_grad": 9, "ce_sum_weighted": 0, "maxpool2x2_nhwc": 45,
-                "confusion_matrix_accumulate": 9, "conv1_core": 0}
+        caps = new_captures(model, caps0)
+        check(caps["train"] == 1 and caps["eval"] == 1, f"the features' train made {caps}")
+        want = train_and_eval_launches(9, caps["train"], 9, caps["eval"])
         check(counts == want, f"the features' train launched {counts}, expected {want}")
         check(model.g_step == 9 and math.isfinite(model.training_loss),
               f"features' train: step {model.g_step}, loss {model.training_loss}")
@@ -1595,15 +1667,19 @@ def phase_int8_route(model: FCN8s, images: np.ndarray, dev) -> list[dict]:
     return rows
 
 
-def _twin_route(fn):
-    """``fn()`` with every int8 conv on the fp64 twin (on the card)."""
+def _twin_route(model: FCN8s, fn):
+    """``fn()`` with every int8 conv on the fp64 twin (on the card), the
+    facade on its eager steps: a replay of a captured graph would run the
+    route it recorded."""
     route = Q.int8_conv_acc
     Q.int8_conv_acc = lambda xq, qlayer, halo=False: Q.conv2d_int8_reference(
         xq, qlayer["kernel_q"], halo)
+    model._compiled = lambda spatial_partition=False: False
     try:
         return fn()
     finally:
         Q.int8_conv_acc = route
+        del model._compiled
 
 
 def phase_int8_predict(model: FCN8s, images: np.ndarray, rng, smi: str) -> dict:
@@ -1621,14 +1697,17 @@ def phase_int8_predict(model: FCN8s, images: np.ndarray, rng, smi: str) -> dict:
                 "calibrate_quantization gave no positive absmax per layer")
             check("act_scale" in model._quantized_params()["encoder_q"]["fc7"],
                   "the calibrated scales are not in the int8 tree")
-        routes = Q.conv2d_int8_im2col.launches
+        routes, caps0 = Q.conv2d_int8_im2col.launches, model.capture_counts()
         ids, k4f = _k4f_window(lambda: model.predict(images, quantized=True))
         routes = Q.conv2d_int8_im2col.launches - routes
+        captures = new_captures(model, caps0)["predict"]
         launches += k4f
-        check(k4f == 5 and routes == 15, f"int8 predict launched K4f {k4f}, the route {routes}")
+        want = facade_launches({"k4f": 5, "route": 15}, 1, captures)
+        check(captures == 1 and k4f == want["k4f"] and routes == want["route"],
+              f"int8 predict launched K4f {k4f}, the route {routes}, with {captures} captures")
         check(ids.shape == (BATCH, H, W) and ids.dtype == np.int32 and 0 <= ids.min()
               and ids.max() < C, "int8 predict ids")
-        twin = _twin_route(lambda: model.predict(images, quantized=True))
+        twin = _twin_route(model, lambda: model.predict(images, quantized=True))
         agree_twin = float((ids == twin).mean())
         check(agree_twin >= 0.999, f"{mode} int8 ids agree with the twin path on {agree_twin}")
         out[mode] = {"agree_twin": agree_twin, "agree_bf16": float((ids == bf16_ids).mean())}
@@ -1646,16 +1725,19 @@ def phase_int8_predict(model: FCN8s, images: np.ndarray, rng, smi: str) -> dict:
         f"{m}: {v}" for m, v in out.items()) + " (ms: host clock, median of 5, H2D + D2H in; "
         "agree_twin: ids equal to the int8 path on its fp64 twin on the card; agree_bf16: to "
         "bf16 predict, random-init weights, no threshold); K4f 5 and the route 15 launches a "
-        "dispatch")
+        f"dispatch, and {G.WARMUP} dispatches more at each capture")
     return {"launches": launches, **out}
 
 
 def phase_tta(model: FCN8s, images: np.ndarray, smi: str) -> dict:
     """(c) ``predict_tta`` at 8 x 512x1024 with three scales and the flip."""
-    launches = 0
+    launches, caps0 = 0, model.capture_counts()
     probs, k4f = _k4f_window(lambda: model.predict_tta(images, scales=TTA_SCALES, argmax=False))
     launches += k4f
-    check(k4f == 5 * len(TTA_SCALES), f"TTA launched K4f {k4f} times")
+    captures = new_captures(model, caps0)["tta"]
+    want = facade_launches({"k4f": 5}, len(TTA_SCALES), captures)["k4f"]
+    check(captures == len(TTA_SCALES) and k4f == want,
+          f"TTA launched K4f {k4f} times with {captures} captures, not {want}")
     check(probs.shape == (BATCH, H, W, C) and probs.dtype == np.float32
           and float(np.abs(probs.sum(-1) - 1).max()) <= 1e-5 and probs.min() >= 0,
           "TTA probabilities are no distribution")
@@ -1714,16 +1796,24 @@ def phase_tiled(model: FCN8s, rng, smi: str) -> dict:
     """(d) One 1024x2048 frame in (512, 512) tiles, overlap 128."""
     frame = rng.integers(0, 256, (1, *FRAME, 3), dtype=np.uint8)
     kw = dict(tile=TILE, tile_overlap=TILE_OVERLAP)
-    launches = 0
+    launches, caps0 = 0, model.capture_counts()
     hard, k4f = _k4f_window(lambda: model.predict(frame, **kw))
     launches += k4f
+    captures = new_captures(model, caps0)["predict"]
     rows = model._tile_grid(FRAME[0], TILE[0], TILE_OVERLAP)
     cols = model._tile_grid(FRAME[1], TILE[1], TILE_OVERLAP)
     grid = [(r, c) for r in rows for c in cols]
     tiles = np.concatenate([frame[:, ys:ys + TILE[0], xs:xs + TILE[1]]
                             for (ys, _, _), (xs, _, _) in grid])
-    check(k4f == 5 * math.ceil(len(grid) / 8), f"tiled predict launched K4f {k4f} times")
-    parts = np.concatenate([model.predict(tiles[i:i + 8]) for i in range(0, len(tiles), 8)])
+    chunks = math.ceil(len(grid) / 8)
+    want = facade_launches({"k4f": 5}, chunks, captures)["k4f"]
+    check(captures == 1 and k4f == want,
+          f"tiled predict launched K4f {k4f} times with {captures} captures, not {want}")
+    # the chunks of 8 as the tiled path runs them: the tail padded with
+    # copies of its last tile, and cut back
+    parts = np.concatenate([model.predict(np.concatenate(
+        [tiles[i:i + 8], np.repeat(tiles[-1:], max(0, i + 8 - len(tiles)), axis=0)]))[:8]
+        for i in range(0, len(tiles), 8)])[:len(tiles)]
     composed = np.zeros((1, *FRAME), np.int32)
     coverage = np.zeros(FRAME, np.int32)
     for i, ((ys, ylo, yhi), (xs, xlo, xhi)) in enumerate(grid):
@@ -4065,8 +4155,6 @@ def _compiled_refs(dev, state, ims, lbs, mask, aug, opt) -> dict:
 
 def _phase_compiled_checks(dev, state, ims, lbs, mask, aug, opt, ref) -> dict:
     """(a)-(d) on the compiled steps; returns what it recorded."""
-    from fcn8s_tensorflow_tpu_torch.parallel import graphs as G
-
     out = {}
     comp = _copy_state(state)
     step = S.compile_train_step(None, opt, C, augment_fn=aug, device=dev)
@@ -4079,7 +4167,8 @@ def _phase_compiled_checks(dev, state, ims, lbs, mask, aug, opt, ref) -> dict:
     check(_state_digest(comp) == want and _digest(losses) == _digest(ref["losses"]),
           f"{COMPILED_STEPS} compiled train steps differ from the eager ones: "
           f"{_state_digest(comp)} against {want}")
-    (captured, _), = step.captures.values()
+    first, = step.captures.values()
+    captured = first.captured
     out["recorded"] = {name: captured.launches[G.KERNEL_WRAPPERS.index(fn)]
                        for name, fn in WRAPPERS.items()}
     out["losses"] = [float(x) for x in losses]
@@ -4091,7 +4180,9 @@ def _phase_compiled_checks(dev, state, ims, lbs, mask, aug, opt, ref) -> dict:
     kept = [t.clone() for t in bridge.param_leaves(comp.params)]
     singles = [step(swapped, ims[COMPILED_STEPS + k], lbs[COMPILED_STEPS + k], mask,
                     *COMPILED_SCALARS)[1] for k in range(COMPILED_S)]
-    (recaptured, _), = step.captures.values()
+    check(step.captures_made == 2 and len(step.captures) == 2,
+          f"a swapped state made {step.captures_made} captures, not one of its own")
+    recaptured = step.captures.values()[-1].captured
     check(recaptured is not captured, "a swapped state replayed the old capture")
     check(all(torch.equal(a, b) for a, b in zip(bridge.param_leaves(comp.params), kept)),
           "the swapped state's steps wrote into the old state")
@@ -4189,6 +4280,317 @@ def phase_compiled(dev, smi: str) -> tuple[dict, dict]:
     return counts, result
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the facade on the compiled steps
+# ---------------------------------------------------------------------------
+
+FACADE_SEED = 26
+FACADE_EPOCHS, FACADE_SPE = 3, 2  # (a): 6 steps, an evaluation on 'train' after each epoch
+FACADE_TRAIN = dict(learning_rate_schedule=lambda s: 1e-4, keep_prob=0.5,
+                    l2_regularization=5e-4, eval_dataset="train", eval_frequency=1,
+                    metrics={"loss", "mean_iou"}, record_summaries=False,
+                    device_augment=COMPILED_AUG, ema_decay=0.99, prefetch=2)
+FACADE_TTA = (0.75, 1.0)  # (b)
+FACADE_SAVE = 10  # (b): predict_and_save images, in chunks of BATCH (a tail of 2)
+FACADE_RATE_STEPS = 10  # (c): steps a timed train call
+FACADE_KERNELS = COMPILED_KERNELS
+
+
+def _facade_reference(dev, params: dict, batches: list, dtype) -> dict:
+    """(a)'s eager loop on a copy of the initial weights ``params``, in
+    ``dtype``:
+    ``train_step`` and the EMA update (``FCN8s._update_ema``'s two
+    multi-tensor passes) on each epoch's train batches, then the eval step
+    on the next ``FACADE_SPE`` batches of the stream, as ``train`` takes
+    them."""
+    params = {part: {name: {k: t.detach().clone() for k, t in layer.items()}
+                     for name, layer in layers.items()} for part, layers in params.items()}
+    opt = S.make_optimizer()
+    state = S.create_train_state(params, opt)
+    aug = A.make_augment_fn(**FACADE_TRAIN["device_augment"])
+    mask = torch.ones(BATCH, device=dev)
+    it = iter(batches)
+    d = np.float32(FACADE_TRAIN["ema_decay"])
+    ema, losses, metrics = None, [], None
+    for _ in range(FACADE_EPOCHS):
+        for _ in range(FACADE_SPE):
+            im, lb = (torch.from_numpy(a).to(dev) for a in next(it))
+            state, loss = S.train_step(state, im, lb, mask, FACADE_SEED, 1e-4,
+                                       FACADE_TRAIN["l2_regularization"],
+                                       FACADE_TRAIN["keep_prob"], optimizer=opt, num_classes=C,
+                                       compute_dtype=dtype, augment_fn=aug)
+            losses.append(loss)
+            params = bridge.param_leaves(state.params)
+            with torch.no_grad():
+                if ema is None:
+                    ema = [t.detach().clone() for t in params]
+                else:
+                    torch._foreach_mul_(ema, float(d))
+                    torch._foreach_add_(ema, params, alpha=float(np.float32(1) - d))
+        metrics = empty_metrics_state(C, dev)
+        with torch.no_grad():
+            run = bridge.cast_params(state.params, dtype)
+            for _ in range(FACADE_SPE):
+                im, lb = (torch.from_numpy(a).to(dev) for a in next(it))
+                eval_step(run, metrics, im, lb, mask, num_classes=C, compute_dtype=dtype)
+    return {"state": _state_digest(state), "ema": _digest(ema), "losses": _digest(losses),
+            "metrics": metrics}
+
+
+def _eager_facade(model: FCN8s, fn):
+    """``fn()`` on the facade's eager steps, its launches not counted."""
+    saved = read_counts()
+    model._compiled = lambda spatial_partition=False: False
+    try:
+        return fn()
+    finally:
+        del model._compiled
+        for name, wrapper in WRAPPERS.items():
+            wrapper.launches = saved[name]
+
+
+def _first_call(dev, fn, pools: dict, name: str):
+    """``fn()``, with what its captures kept on the device in ``pools[name]``:
+    ``live_bytes``, the tensors it left allocated (static buffers, outputs,
+    the trees it built), and ``pool_bytes``, the rest of what the caching
+    allocator holds after it beyond before it, both read with the cache
+    emptied (a capture's private pool cannot be emptied while its graph
+    lives)."""
+    def held():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        stats = torch.cuda.memory_stats(dev)
+        return stats["reserved_bytes.all.current"], stats["allocated_bytes.all.current"]
+
+    reserved, allocated = held()
+    out = fn()
+    reserved_after, allocated_after = held()
+    live = allocated_after - allocated
+    pools[name] = {"live_bytes": live, "pool_bytes": reserved_after - reserved - live}
+    return out
+
+
+def _facade_forward_checks(dev, model: FCN8s, rng, root: str, pools: dict) -> dict:
+    """(b): each forward path of the trained facade against the same calls
+    on its eager steps, and the captures they make."""
+    images = rng.integers(0, 256, (BATCH, H, W, 3), dtype=np.uint8)
+    evals = [_synthetic(rng, BATCH) for _ in range(2)]
+    kinds = {"ids": {}, "overlay": dict(overlay=TRAINIDS_TO_RGBA_DICT),
+             "int8": dict(quantized=True), "ema": dict(use_ema=True)}
+    out = {}
+    for name, kw in kinds.items():
+        got = _first_call(dev, lambda: model.predict(images, **kw), pools, f"predict {name}")
+        want = _eager_facade(model, lambda: model.predict(images, **kw))
+        check(got.dtype == want.dtype and np.array_equal(got, want),
+              f"the compiled facade's predict ({name}) differs from its eager steps'")
+    caps = model.capture_counts()
+    check(caps["predict"] == 4, f"predict made {caps['predict']} captures, not 4")
+    for kw in (kinds["ids"], kinds["ema"], kinds["int8"], kinds["ids"], kinds["int8"],
+               kinds["ema"]):
+        model.predict(images, **kw)
+    check(model.capture_counts() == caps,
+          f"the live, EMA and int8 trees alternating made captures: {model.capture_counts()}")
+
+    for use_ema in (False, True):
+        got = model.evaluate(iter(evals), 2, metrics={"loss", "mean_iou"}, use_ema=use_ema)
+        got_state = {k: v.clone() for k, v in model.metrics_state.items()}
+        want = _eager_facade(model, lambda: model.evaluate(iter(evals), 2,
+                                                           metrics={"loss", "mean_iou"},
+                                                           use_ema=use_ema))
+        check(got == want and all(torch.equal(got_state[k], model.metrics_state[k])
+                                  for k in got_state),
+              f"the compiled facade's evaluate(use_ema={use_ema}) {got} differs from {want}")
+        out[f"evaluate{'_ema' if use_ema else ''}"] = got
+    check(new_captures(model, caps)["eval"] == 1,
+          "evaluate on the train shape made a capture beside the EMA's")
+
+    frame = rng.integers(0, 256, (1, *FRAME, 3), dtype=np.uint8)
+    tiled_kw = dict(tile=TILE, tile_overlap=TILE_OVERLAP)
+    before = model.capture_counts()
+    got = _first_call(dev, lambda: model.predict(frame, **tiled_kw), pools, "tiled")
+    check(np.array_equal(got, _eager_facade(model, lambda: model.predict(frame, **tiled_kw))),
+          "the compiled facade's tiled predict differs from its eager steps'")
+    check(new_captures(model, before)["predict"] == 1, "the tiled tail made a capture")
+
+    tta_kw = dict(scales=FACADE_TTA, argmax=False)
+    got = _first_call(dev, lambda: model.predict_tta(images, **tta_kw), pools, "tta")
+    check(np.array_equal(got, _eager_facade(model, lambda: model.predict_tta(images, **tta_kw))),
+          "the compiled facade's predict_tta differs from its eager steps'")
+    del got
+
+    src = os.path.join(root, "images")
+    os.makedirs(src)
+    for i in range(FACADE_SAVE):
+        Image.fromarray(rng.integers(0, 256, (H, W, 3), dtype=np.uint8)).save(
+            os.path.join(src, f"img{i:02d}.png"))
+    save_kw = dict(output_format="ids", id_map=TRAINIDS_TO_IDS_ARRAY, batch_size=BATCH,
+                   verbose=False)
+    before = model.capture_counts()
+    model.predict_and_save(os.path.join(root, "got"), src, **save_kw)
+    check(model.capture_counts() == before,
+          "predict_and_save (a tail of 2 padded to 8) made a capture")
+    _eager_facade(model, lambda: model.predict_and_save(os.path.join(root, "want"), src,
+                                                        **save_kw))
+    names = sorted(os.listdir(src))
+    check(sorted(os.listdir(os.path.join(root, "got"))) == names and all(
+        _file_bytes(os.path.join(root, "got", n)) == _file_bytes(os.path.join(root, "want", n))
+        for n in names), "the compiled facade's predict_and_save PNGs differ from its eager "
+                         "steps'")
+    out["captures"] = model.capture_counts()
+    check(out["captures"] == {"train": 1, "eval": 2, "predict": 5, "tta": len(FACADE_TTA)},
+          f"phase 26 (b) captures {out['captures']}")
+    return out
+
+
+def _facade_rates(dev, model: FCN8s, batches: list, root: str) -> dict:
+    """(c): images/s of ``train`` on resident batches, compiled and on the
+    eager steps in turns (compiled, eager, eager, compiled; host clock,
+    ``FACADE_RATE_STEPS`` steps a call after a warm call each), then the
+    device busy share of 3 steps of each under ``utils.profiling.trace``."""
+    kw = {**FACADE_TRAIN, "metrics": set()}
+    model._train_steps.clear()  # captured anew under the switches of this part
+
+    def rate(eager: bool, steps: int = FACADE_RATE_STEPS):
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.train(_cycle(batches), epochs=1, steps_per_epoch=steps, **kw)
+            torch.cuda.synchronize()
+            return BATCH * steps / (time.perf_counter() - t0)
+        return _eager_facade(model, run) if eager else run()
+
+    rate(False, 2)
+    rate(True, 2)
+    rates = {"compiled": [rate(False)], "eager": [rate(True), rate(True)]}
+    rates["compiled"].append(rate(False))
+    busy = {}
+    for name, eager in (("compiled", False), ("eager", True)):
+        with trace(os.path.join(root, "trace")) as prof:
+            rate(eager, 3)
+        busy[name] = device_busy(prof)
+    return {"images_per_s": rates, "busy": busy}
+
+
+def phase_facade_compiled(dev, smi: str) -> tuple[dict, dict]:
+    """Phase 26: the facade on the compiled steps at full width (batch 8 x
+    1024x512, 20 classes, bf16, TF1 Adam, keep_prob 0.5, device
+    augmentation, ``ema_decay``, ``prefetch=2``, an evaluation on 'train'
+    after each epoch) under ``tools.make_deterministic``: (a) ``train`` for
+    6 steps equal to an eager loop (params, moments, EMA, losses by
+    sha256, the last evaluation's state), with one train and one eval
+    capture and their exact launches; (b) ``evaluate``, ``predict`` (ids,
+    overlay, int8, use_ema), tiled, ``predict_tta`` and ``predict_and_save``
+    equal to the same calls on the facade's eager steps, with the captures
+    each makes; then, with the switches back, (c) images/s and the busy
+    share compiled against eager, and the seconds spent capturing. Returns
+    (the launch counts of (a) and (b)'s compiled calls, the numbers)."""
+    from fcn8s_tensorflow_tpu_torch.tools import make_deterministic
+
+    t0 = time.perf_counter()
+    switches = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic,
+                torch.backends.cudnn.benchmark)
+    capture_s = []
+    capture = S.capture
+
+    def timed_capture(*a, **k):
+        t = time.perf_counter()
+        try:
+            return capture(*a, **k)
+        finally:
+            torch.cuda.synchronize()
+            capture_s.append(time.perf_counter() - t)
+
+    S.capture = timed_capture
+    root = tempfile.mkdtemp(prefix="fcn8s_facade_compiled_")
+    pools = {}
+    make_deterministic()
+    try:
+        rng = np.random.default_rng(FACADE_SEED)
+        batches = [_synthetic(rng, BATCH) for _ in range(2 * FACADE_EPOCHS * FACADE_SPE)]
+        model = FCN8s(num_classes=C, device=dev, seed=FACADE_SEED)
+        ref = _facade_reference(dev, model.params, batches, model.compute_dtype)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses = []
+        train_call = model._train_call
+
+        def recording(*a, **k):
+            state, loss = train_call(*a, **k)
+            losses.append(loss)
+            return state, loss
+
+        model._train_call = recording
+        zero_counts()
+        t1 = time.perf_counter()
+        _first_call(dev, lambda: model.train(_cycle(batches), epochs=FACADE_EPOCHS,
+                                             steps_per_epoch=FACADE_SPE, **FACADE_TRAIN),
+                    pools, "train + eval")
+        train_s = time.perf_counter() - t1
+        del model._train_call
+        counts_a = read_counts()
+        caps = model.capture_counts()
+        steps = FACADE_EPOCHS * FACADE_SPE
+        check(caps == {"train": 1, "eval": 1, "predict": 0, "tta": 0},
+              f"train with {FACADE_EPOCHS} periodic evaluations made the captures {caps}")
+        want = train_and_eval_launches(steps, 1, steps, 1)
+        check(counts_a == want, f"the compiled facade's train launched {counts_a}, not {want}")
+        got = {"state": _state_digest(model.state), "ema": _digest(
+            bridge.param_leaves(model.ema_params)), "losses": _digest(losses)}
+        check(got == {k: ref[k] for k in got},
+              f"the compiled facade's train differs from the eager loop: {got} against "
+              f"{ {k: ref[k] for k in got} }")
+        check(all(torch.equal(model.metrics_state[k], ref["metrics"][k]) for k in ref["metrics"]),
+              "the compiled facade's last evaluation differs from the eager loop's")
+        forward = _facade_forward_checks(dev, model, rng, root, pools)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+        checks_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(switches[0])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = switches[1:]
+    for name in FACADE_KERNELS:
+        check(counts[name] > 0, f"{name} was never launched by the compiled facade")
+    checked_captures = len(capture_s)
+    try:
+        rates = _facade_rates(dev, model, batches[:2], root)
+    finally:
+        S.capture = capture
+        model.close()
+        shutil.rmtree(root, ignore_errors=True)
+    del model, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    result = {"card": smi, "checks_s": checks_s, "train_6_steps_s": train_s,
+              "digest": got["state"]["params"], "losses": [float(x) for x in losses],
+              "captures": forward["captures"], "capture_s": capture_s,
+              "capture_s_sum": sum(capture_s), "capture_memory_bytes": pools,
+              "peak_gib": peak_gib, **rates}
+    print(f"phase 26 (a)-(b) on {smi}: {checks_s:.1f} s; FCN8s.train {steps} steps + "
+          f"{FACADE_EPOCHS} evaluations on 'train' = the eager loop (sha256 params "
+          f"{got['state']['params'][:16]}, EMA {got['ema'][:16]}, losses {result['losses']}); "
+          f"one train and one eval capture, launches {counts_a} = steps and eval batches + "
+          f"{G.WARMUP} x captures; evaluate, predict (ids, overlay, int8, use_ema), tiled, "
+          f"predict_tta and predict_and_save equal to the eager steps', no capture while the "
+          f"trees alternate or for the tails; captures {forward['captures']} in "
+          f"{checked_captures} capture calls ({sum(capture_s[:checked_captures]):.2f} s, "
+          f"warm-ups in); device memory each first call kept (live tensors; the rest, "
+          f"its captures' private pools) {pools}; peak {peak_gib:.2f} GiB "
+          f"(max_memory_allocated)")
+    rate_c, rate_e = statistics.mean(rates["images_per_s"]["compiled"]), statistics.mean(
+        rates["images_per_s"]["eager"])
+    print(f"phase 26 (c) on {smi}: facade train on resident batches, keep_prob 0.5, device "
+          f"augment, EMA, prefetch 2: compiled {rates['images_per_s']['compiled']} images/s, "
+          f"eager {rates['images_per_s']['eager']} (host clock, {FACADE_RATE_STEPS} steps a "
+          f"call, turns compiled/eager/eager/compiled): {rate_c / rate_e - 1:+.2%}; busy "
+          f"compiled {_busy(rates['busy']['compiled'])}, eager {_busy(rates['busy']['eager'])}; "
+          f"seconds capturing (warm-ups in) {capture_s}")
+    print(json.dumps({"facade_compiled": result}))
+    print(f"phase 26: {time.perf_counter() - t0:.1f} s ({smi})")
+    return counts, result
+
+
 def main() -> None:
     smi = phase_card()
     dev = torch.device("cuda", 0)
@@ -4244,6 +4646,8 @@ def main() -> None:
     bench_counts = phase_benchmarks(dev, smi, train_step_ms)
     torch.cuda.empty_cache()
     compiled_counts, _ = phase_compiled(dev, smi)
+    torch.cuda.empty_cache()
+    facade_compiled_counts, _ = phase_facade_compiled(dev, smi)
     paths = {"serve+eval": serve_counts, "train": train_counts, "train weighted": weighted_counts,
              "conv1 calibration": conv1_counts}
     source_path = {"maxpool2x2_nhwc": "serve+eval", "ce_sum_per_sample": "serve+eval",
@@ -4271,6 +4675,7 @@ def main() -> None:
          "launches_benchmarks": {"scripts": bench_counts["scripts"][name],
                                  "notebook": bench_counts["notebook"][name]},
          "launches_compiled": compiled_counts[name],
+         "launches_facade_compiled": facade_compiled_counts[name],
          **measured[name]}
         for name in WRAPPERS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

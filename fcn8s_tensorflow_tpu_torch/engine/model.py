@@ -36,6 +36,20 @@ replicated, so a tensor-parallel model runs such a call on its gathered
 params (and, for ``train``, moments and EMA, laid back into shards when
 the call ends). On a mesh whose 'model' axis has one position it is the
 plain layout, as JAX's spatial spec is there.
+
+The steps run compiled, as the JAX facade's do: ``train`` and
+``find_learning_rate`` through ``_get_train_step``, evaluation through
+``_get_eval_step``, ``predict`` (tiled too), ``predict_and_save``,
+``score_benchmark`` and the service through ``_get_predict_step``, and
+``predict_tta`` through ``_get_tta_step``: each a ``compile_*_step`` of
+``parallel/steps.py``, a CUDA graph captured at its first call per tree
+and replayed after, with the eager steps' results bit for bit. Each cache
+keeps a bounded number of steps, the least recently used evicted
+(``_StepCache``), and the trees the steps read (the compute-dtype params,
+the EMA's cast, the int8 tree) are refreshed in place, so a refresh keeps
+their captures valid. On a mesh of more than one position, and with
+``spatial_partition``, the eager steps run (``_compiled``): the compiled
+steps do not take them yet.
 """
 
 from __future__ import annotations
@@ -48,7 +62,7 @@ import shutil
 import sys
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from concurrent.futures import ThreadPoolExecutor
 from glob import glob
 
@@ -66,6 +80,7 @@ from ..ops.augment_device import make_augment_fn
 from ..ops.metrics import empty_metrics_state, finalize_metrics
 from ..ops.quantize import collect_activation_absmax, quantize_fcn8s_params
 from ..parallel import collectives
+from ..parallel.graphs import tensors_of
 from ..parallel.mesh import (
     DATA_AXIS,
     batch_rows,
@@ -78,6 +93,10 @@ from ..parallel.steps import (
     Optimizer,
     ScaleByAdamTF1State,
     TrainState,
+    compile_eval_step,
+    compile_predict_step,
+    compile_train_step,
+    compile_tta_step,
     create_train_state,
     eval_step,
     OptimizerState,
@@ -136,6 +155,77 @@ def _opt_scalars(opt_state) -> tuple:
     inner = opt_state.inner
     adam_count = inner.count if isinstance(inner, ScaleByAdamTF1State) else None
     return (opt_state.count, opt_state.learning_rate, adam_count)
+
+
+def _layout(tree):
+    """A nest's keys, and the shape, strides and dtype of each tensor."""
+    if isinstance(tree, torch.Tensor):
+        return (tuple(tree.shape), tree.stride(), tree.dtype)
+    if isinstance(tree, dict):
+        return tuple((k, _layout(tree[k])) for k in sorted(tree))
+    if isinstance(tree, (list, tuple)):
+        return tuple(_layout(v) for v in tree)
+    return tree
+
+
+def _refill(old, new):
+    """``new``'s values written into the tensors of ``old`` when the two
+    trees have one structure and every tensor one shape, strides and dtype,
+    so the captures over ``old`` stay valid; else ``new`` itself. Written
+    under inference mode: ``old`` may have been made there."""
+    if old is None or _layout(old) != _layout(new):
+        return new
+    pairs = [(a, b) for a, b in zip(tensors_of(old), tensors_of(new)) if a is not b]
+    if pairs:
+        with torch.inference_mode():
+            torch._foreach_copy_([a for a, _ in pairs], [b for _, b in pairs])
+    return old
+
+
+class _StepCache:
+    """The facade's compiled steps of one kind by key, the least recently
+    used evicted beyond ``limit``. An evicted or dropped step releases its
+    captures (graphs, static buffers, private pools). ``captures_made``
+    counts the captures of every step it held."""
+
+    def __init__(self, limit: int):
+        self.limit = limit
+        self._steps: OrderedDict = OrderedDict()
+        self._retired = 0  # captures made by the steps no longer held
+
+    def get(self, key, make):
+        step = self._steps.pop(key, None)
+        if step is None:
+            while len(self._steps) >= self.limit:
+                self._drop(next(iter(self._steps)))
+            step = make()
+        self._steps[key] = step  # the most recently used
+        return step
+
+    def _drop(self, key) -> None:
+        step = self._steps.pop(key)
+        self._retired += step.captures_made
+        step.release()
+
+    def drop(self, predicate) -> None:
+        """Drop the steps whose key satisfies ``predicate``."""
+        for key in [k for k in self._steps if predicate(k)]:
+            self._drop(key)
+
+    def clear(self) -> None:
+        self.drop(lambda key: True)
+
+    def purge(self) -> None:
+        """Release every held step's captures whose tensors are gone."""
+        for step in self._steps.values():
+            step.purge()
+
+    def keys(self) -> list:
+        return list(self._steps)
+
+    @property
+    def captures_made(self) -> int:
+        return self._retired + sum(step.captures_made for step in self._steps.values())
 
 
 class FCN8s:
@@ -323,11 +413,19 @@ class FCN8s:
         self._staged_opt_state = None
         self._ema = None  # the EMA average of train(ema_decay=...), a port tree
         self._ema_run = None  # its compute-dtype cast for predict/evaluate
+        self._ema_stale = False  # the EMA moved since _ema_run was cast
         self._observer_state = {}  # the observers' counters, written by save()
         self._observer_pending = {}  # restored counters for the next train() only
         self._summary_logger = None
         self._act_absmax = None  # calibrate_quantization's layer -> max|x|
         self._qparams = None  # the int8 tree, built lazily by _quantized_params
+        self._qparams_stale = False  # the masters moved since it was built
+        self._run_params = None  # the compute-dtype cast, _refresh_run_params
+        # the compiled steps (see _get_train_step and _get_eval_step)
+        self._train_steps = _StepCache(self._TRAIN_STEP_CACHE_MAX)
+        self._eval_steps = _StepCache(self._FORWARD_STEP_CACHE_MAX)
+        self._predict_steps = _StepCache(self._FORWARD_STEP_CACHE_MAX)
+        self._tta_steps = _StepCache(self._FORWARD_STEP_CACHE_MAX)
         self._train_spatial = False  # the last train()'s spatial_partition
         self._augment_fn = self._device_augment_cfg = None
         self._save_thread = None
@@ -337,6 +435,7 @@ class FCN8s:
             t.requires_grad_(True)
         self._refresh_run_params()
         self._class_weights = None
+        self._class_weights_cfg = None  # the tuple the compiled steps were built with
         self._grad_accum = 1
         self._train_stream = None
         self.variables_updated = False
@@ -349,13 +448,17 @@ class FCN8s:
         self.g_step = 0
 
     def _refresh_run_params(self) -> None:
-        """(Re)build the compute-dtype tree that predict and evaluate read,
-        from the current masters, and drop the int8 tree. Stale after any
+        """Cast the current masters into the compute-dtype tree that predict
+        and evaluate read, and mark the int8 tree stale. Stale after any
         optimizer step; every change of the masters (``train``,
         ``adopt_ema``, ``load_variables``, ``vgg16_dir`` and
-        ``variables_load_dir``) ends here."""
+        ``variables_load_dir``) ends here. The cast is written into the
+        tree's own tensors (``_refill``: ``bridge.cast_params``'s bytes),
+        so the compiled steps captured over them replay; a tree of another
+        layout (a relayout of the masters) is built anew."""
         with torch.no_grad():
-            self._run_params = bridge.cast_params(self.params, self.compute_dtype)
+            self._run_params = _refill(self._run_params,
+                                       bridge.cast_params(self.params, self.compute_dtype))
         self._invalidate_quantized()
 
     # ------------------------------------------------------------------
@@ -447,6 +550,95 @@ class FCN8s:
             return self._mesh_kwargs
         return {"mesh": self.mesh, "tensor_parallel": False, "spatial_partition": True}
 
+    # ------------------------------------------------------------------
+    # the compiled steps
+    # ------------------------------------------------------------------
+    # As the JAX facade's: the augment keying keeps alternating configs warm,
+    # and the cache is bounded, the least recently used evicted beyond it.
+    _TRAIN_STEP_CACHE_MAX = 4
+    # The JAX facade's forward caches are unbounded, but a captured graph
+    # keeps the memory of its activations in a private pool (GiBs at full
+    # width), where an XLA executable keeps none: eval, predict and TTA
+    # keep 8 steps each, and a caller that cycles through more shapes
+    # recaptures (time, never a wrong result).
+    _FORWARD_STEP_CACHE_MAX = 8
+
+    def _compiled(self, spatial_partition: bool = False) -> bool:
+        """Whether a step runs compiled: on one mesh position without
+        ``spatial_partition``. A mesh of more than one position and the
+        width split run the eager steps, which the compiled steps do not
+        take yet (``compile_*_step`` raise ``NotImplementedError`` there)."""
+        return self.mesh.size == 1 and not spatial_partition
+
+    @staticmethod
+    def _freeze_cfg(obj):
+        """Canonical hashable key for a (possibly nested) augment config."""
+        if isinstance(obj, dict):
+            return tuple(sorted((k, FCN8s._freeze_cfg(v)) for k, v in obj.items()))
+        if isinstance(obj, (list, tuple)):
+            return tuple(FCN8s._freeze_cfg(v) for v in obj)
+        return obj
+
+    def _get_train_step(self, batch_shape):
+        """The compiled train step of this batch shape and device-augment
+        config, with the settings of the last ``train`` baked in (class
+        weights and gradient accumulation clear the cache when they
+        change)."""
+        key = (tuple(batch_shape), self._freeze_cfg(self._device_augment_cfg))
+        return self._train_steps.get(key, lambda: compile_train_step(
+            self.mesh, self.optimizer, self.num_classes, tensor_parallel=self.tensor_parallel,
+            compute_dtype=self.compute_dtype, augment_fn=self._augment_fn, remat=self.remat,
+            grad_accum=self._grad_accum, ignore_label=self.ignore_label,
+            class_weights=self._class_weights, device=self.device))
+
+    def _get_eval_step(self, batch_shape):
+        return self._eval_steps.get((tuple(batch_shape),), lambda: compile_eval_step(
+            self.mesh, self.num_classes, tensor_parallel=self.tensor_parallel,
+            compute_dtype=self.compute_dtype, ignore_label=self.ignore_label,
+            class_weights=self._class_weights, device=self.device))
+
+    def _get_predict_step(self, batch_shape, argmax, overlay_lut, quantized, compact):
+        """The compiled predict step of this batch shape and head: ids
+        (uint8 when ``compact``), softmax or the overlay of ``overlay_lut``
+        (keyed by its bytes), bf16 or int8."""
+        lut_key = None if overlay_lut is None else overlay_lut.tobytes()
+        key = (tuple(batch_shape), argmax, lut_key, quantized, compact)
+        return self._predict_steps.get(key, lambda: compile_predict_step(
+            self.mesh, argmax=argmax, tensor_parallel=self.tensor_parallel,
+            compute_dtype=self.compute_dtype, id_dtype=torch.uint8 if compact else torch.int32,
+            overlay_lut=overlay_lut, quantized=quantized, device=self.device))
+
+    def _get_tta_step(self, batch_shape, scale_hw, flip, quantized):
+        key = (tuple(batch_shape), scale_hw, flip, quantized)
+        return self._tta_steps.get(key, lambda: compile_tta_step(
+            self.mesh, scale_hw=scale_hw, flip=flip, tensor_parallel=self.tensor_parallel,
+            compute_dtype=self.compute_dtype, quantized=quantized, device=self.device))
+
+    def _step_caches(self) -> dict:
+        return {"train": self._train_steps, "eval": self._eval_steps,
+                "predict": self._predict_steps, "tta": self._tta_steps}
+
+    def capture_counts(self) -> dict:
+        """The captures the compiled steps have made, by kind ('train',
+        'eval', 'predict', 'tta'), those of evicted steps included. Each
+        capture first runs its step ``parallel.graphs.WARMUP`` times."""
+        return {kind: cache.captures_made for kind, cache in self._step_caches().items()}
+
+    def _train_call(self, state, batch, learning_rate, l2_rate, keep_prob,
+                    spatial_partition=False):
+        """One train step on the device batch (images, label ids, mask), with
+        the settings of the last ``train``: the compiled step where
+        ``_compiled``, else ``train_step``."""
+        if self._compiled(spatial_partition):
+            return self._get_train_step(batch[0].shape)(
+                state, *batch, self._train_seed, learning_rate, l2_rate, keep_prob)
+        return train_step(state, *batch, self._train_seed, learning_rate, l2_rate, keep_prob,
+                          optimizer=self.optimizer, num_classes=self.num_classes,
+                          compute_dtype=self.compute_dtype, remat=self.remat,
+                          grad_accum=self._grad_accum, ignore_label=self.ignore_label,
+                          class_weights=self._class_weights, augment_fn=self._augment_fn,
+                          **self._step_layout(spatial_partition))
+
     def summary(self, input_hw=(1024, 512), batch: int = 1) -> str:
         """Per-layer report: kernel (HWIO, as the JAX package gives them) and
         output shapes, params, forward MACs, activation bytes, with model
@@ -459,13 +651,15 @@ class FCN8s:
     # ------------------------------------------------------------------
     def _quantized_params(self) -> dict:
         """The int8 inference tree (``ops/quantize.py``), built lazily from
-        the fp32 masters and cached until they change
-        (``_invalidate_quantized``), with the calibrated static activation
-        scales once ``calibrate_quantization`` has run."""
-        if self._qparams is None:
+        the fp32 masters and requantized when they have moved
+        (``_invalidate_quantized``), into its own tensors while the
+        calibration state is the same (``_refill``), with the calibrated
+        static activation scales once ``calibrate_quantization`` has run."""
+        if self._qparams is None or self._qparams_stale:
             # replicated on a mesh, as JAX keeps it: quantized from the whole tree
-            self._qparams = quantize_fcn8s_params(self._gather(self.params), self._act_absmax,
-                                                  compute_dtype=self.compute_dtype)
+            self._qparams = _refill(self._qparams, quantize_fcn8s_params(
+                self._gather(self.params), self._act_absmax, compute_dtype=self.compute_dtype))
+            self._qparams_stale = False
         return self._qparams
 
     @torch.inference_mode()
@@ -494,13 +688,16 @@ class FCN8s:
             absmax = batch_max if absmax is None else {
                 k: torch.maximum(absmax[k], batch_max[k]) for k in absmax}
         self._act_absmax = absmax
-        self._invalidate_quantized()
+        # the scales change the int8 tree's structure: a new tree, and the
+        # quantized predict and TTA steps dropped, as the JAX facade drops them
+        self._qparams = None
+        self._predict_steps.drop(lambda key: key[3])
+        self._tta_steps.drop(lambda key: key[3])
         return absmax
 
     def _invalidate_quantized(self) -> None:
-        """The masters or the scales moved: requantize at the next
-        quantized predict."""
-        self._qparams = None
+        """The masters moved: requantize at the next quantized predict."""
+        self._qparams_stale = True
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -511,7 +708,7 @@ class FCN8s:
         with ``alpha = 1 - d``; ``d`` and ``1 - d`` are rounded to fp32, as
         JAX's traced scalars are. The first call seeds ``ema`` with a copy
         of the params."""
-        self._ema_run = None
+        self._ema_stale = True
         if self._ema is None:
             self._ema = _map_tree(lambda t: t.detach().clone(), self.params)
             return
@@ -552,9 +749,10 @@ class FCN8s:
                 "activation scales are calibrated for the live params. "
                 "adopt_ema() first, then recalibrate and quantize.")
         ema = self.ema_params
-        if self._ema_run is None:
-            with torch.no_grad():
-                self._ema_run = bridge.cast_params(ema, self.compute_dtype)
+        if self._ema_run is None or self._ema_stale:
+            with torch.no_grad():  # into the cast's own tensors (_refill)
+                self._ema_run = _refill(self._ema_run, bridge.cast_params(ema, self.compute_dtype))
+            self._ema_stale = False
         return self._ema_run
 
     # ------------------------------------------------------------------
@@ -589,9 +787,11 @@ class FCN8s:
                            for a in arrays)
         return (*arrays, mask)
 
-    def _prepare_images(self, images):
-        """Pad H and W to multiples of 32 with zeros, and the batch to the
-        mesh's 'data' axis. Returns (padded, (n, h, w))."""
+    def _prepare_images(self, images, pad_batch_to=None):
+        """Pad H and W to multiples of 32 with zeros, the batch to
+        ``pad_batch_to`` with copies of the last image (so that a short
+        tail replays the full chunks' step) and then to the mesh's 'data'
+        axis. Returns (padded, (n, h, w))."""
         images = np.asarray(images)
         if images.ndim == 3:
             images = images[None]
@@ -599,6 +799,9 @@ class FCN8s:
         ph, pw = (-h) % 32, (-w) % 32
         if ph or pw:
             images = np.pad(images, ((0, 0), (0, ph), (0, pw), (0, 0)), mode="constant")
+        if pad_batch_to is not None and n < pad_batch_to:
+            images = np.concatenate([images, np.repeat(images[-1:], pad_batch_to - n, axis=0)],
+                                    axis=0)
         images, _ = self._pad_batch_dim(images)
         return images, (n, h, w)
 
@@ -623,6 +826,10 @@ class FCN8s:
         compact = argmax and overlay_lut is None and self.num_classes <= 255
         padded, _ = self._pad_batch_dim(padded)
         run = self._inference_params(params, quantized)
+        if self._compiled(spatial_partition):
+            images = self._put_batch(padded)
+            step = self._get_predict_step(images.shape, argmax, overlay_lut, quantized, compact)
+            return step(run, images)
         if spatial_partition and not quantized:  # replicated (the int8 tree already is)
             run = self._gather(run)
         return predict_step(run, self._put_batch(padded), argmax=argmax,
@@ -717,9 +924,14 @@ class FCN8s:
         for s in scales:
             sh = max(32, int(round(ph * float(s) / 32)) * 32)
             sw = max(32, int(round(pw * float(s) / 32)) * 32)
-            p = tta_step(call_params, im_d, scale_hw=None if (sh, sw) == (ph, pw) else (sh, sw),
-                         flip=bool(flip), compute_dtype=self.compute_dtype, quantized=quantized,
-                         **self._mesh_kwargs)
+            scale_hw = None if (sh, sw) == (ph, pw) else (sh, sw)
+            if self._compiled():
+                p = self._get_tta_step(im_d.shape, scale_hw, bool(flip), quantized)(call_params,
+                                                                                   im_d)
+            else:
+                p = tta_step(call_params, im_d, scale_hw=scale_hw, flip=bool(flip),
+                             compute_dtype=self.compute_dtype, quantized=quantized,
+                             **self._mesh_kwargs)
             acc = p if acc is None else acc.add_(p)
             del p
         probs = acc if len(scales) == 1 else acc.div_(float(len(scales)))
@@ -760,11 +972,11 @@ class FCN8s:
     def _predict_tiled(self, images, argmax, lut, quantized, tile, overlap, params=None,
                        blend=False):
         """``predict(tile=...)``: see ``predict``. Tiles go in chunks of 8 per
-        'data' position, the JAX facade's; dynamic int8 scales are per
-        dispatch, so the chunk is part of the result. Unlike the JAX facade,
-        the last chunk is padded only to the 'data' axis, not to the whole
-        chunk with copies of its last: eager PyTorch compiles nothing per
-        batch size, and the results do not change."""
+        'data' position, the JAX facade's, the last one padded to the whole
+        chunk with copies of its last tile (one compiled step per run; the
+        copies leave every result as it is, the dynamic int8 scales'
+        per-chunk maxima too); dynamic int8 scales are per dispatch, so the
+        chunk is part of the result."""
         th, tw = tile
         if th % 32 or tw % 32:
             raise ValueError(f"tile dims must be multiples of 32, got {tile}")
@@ -802,7 +1014,7 @@ class FCN8s:
 
         def consume(dev, start):
             part = self._host_output(dev, argmax and not blend, lut)  # D2H sync point
-            part = part[:min(chunk, batch.shape[0] - start)]  # drop the 'data' padding
+            part = part[:min(chunk, batch.shape[0] - start)]  # drop the tail's padding
             if not blend:
                 outs.append(part)
                 return
@@ -816,9 +1028,9 @@ class FCN8s:
         chunk = _TILE_CHUNK * self.mesh.shape[DATA_AXIS]
         pending = deque()
         for start in range(0, batch.shape[0], chunk):
-            pending.append((self._dispatch_predict(
-                batch[start:start + chunk], argmax and not blend, lut, quantized,
-                params=params), start))
+            part, _ = self._prepare_images(batch[start:start + chunk], pad_batch_to=chunk)
+            pending.append((self._dispatch_predict(part, argmax and not blend, lut, quantized,
+                                                   params=params), start))
             if len(pending) >= 2:
                 consume(*pending.popleft())
         while pending:
@@ -972,8 +1184,8 @@ class FCN8s:
             chunk_paths, out, images_host = pending.popleft()
             t0 = time.perf_counter()
             if isinstance(out, torch.Tensor):
-                h, w = images_host.shape[1:3]
-                out = out.cpu().numpy()[:, :h, :w]  # D2H: waits for the card
+                n, h, w = images_host.shape[:3]
+                out = out.cpu().numpy()[:n, :h, :w]  # D2H: waits for the card
             timings["d2h"] += time.perf_counter() - t0
             for j, path in enumerate(chunk_paths if self._writer else ()):
                 write_futures.append(writer.submit(timed, "encode", write_png, path, out[j],
@@ -1002,7 +1214,8 @@ class FCN8s:
                         out = self._predict_tiled(images_host, True, lut, quantized, tile,
                                                   tile_overlap, params=ema, blend=tile_blend)
                     else:
-                        padded, _ = self._prepare_images(images_host)
+                        # a short last chunk padded to batch_size: one step a size
+                        padded, _ = self._prepare_images(images_host, pad_batch_to=batch_size)
                         out = self._dispatch_predict(padded, argmax=True, overlay_lut=lut,
                                                      quantized=quantized, params=ema)
                     timings["decode_wait"] += t1 - t0
@@ -1242,11 +1455,18 @@ class FCN8s:
                                  f"{self.num_classes}, got {len(cw)}")
             if any(w < 0 for w in cw):
                 raise ValueError("class_weights must be non-negative")
-            self._class_weights = torch.tensor(cw, dtype=torch.float32, device=self.device)
         else:
-            self._class_weights = None
+            cw = None
         if gradient_accumulation < 1:
             raise ValueError(f"gradient_accumulation must be >= 1, got {gradient_accumulation}")
+        if cw != self._class_weights_cfg:  # baked into the compiled steps, as in JAX
+            self._train_steps.clear()
+            self._eval_steps.clear()
+            self._class_weights = (None if cw is None else
+                                   torch.tensor(cw, dtype=torch.float32, device=self.device))
+        self._class_weights_cfg = cw
+        if gradient_accumulation != self._grad_accum:
+            self._train_steps.clear()
         self._grad_accum = gradient_accumulation
         self._train_spatial = bool(spatial_partition)
         if device_augment is not None:
@@ -1286,14 +1506,9 @@ class FCN8s:
             try:
                 for epoch in range(1, epochs + 1):
                     for step_i in range(steps_per_epoch):
-                        im_d, lb_d, mask_d = next(train_stream)
-                        self.state, loss = train_step(
-                            self.state, im_d, lb_d, mask_d, self._train_seed, learning_rate,
-                            l2_regularization, keep_prob, optimizer=self.optimizer,
-                            num_classes=self.num_classes, compute_dtype=self.compute_dtype,
-                            remat=self.remat, grad_accum=self._grad_accum,
-                            ignore_label=self.ignore_label, class_weights=self._class_weights,
-                            augment_fn=self._augment_fn, **self._step_layout(spatial_partition))
+                        self.state, loss = self._train_call(
+                            self.state, next(train_stream), learning_rate, l2_regularization,
+                            keep_prob, spatial_partition)
                         g_step += 1
                         self.variables_updated = True
                         if ema_decay is not None:
@@ -1466,14 +1681,8 @@ class FCN8s:
             try:
                 for i in range(steps):
                     lr = min_lr * (max_lr / min_lr) ** (i / (steps - 1))
-                    im_d, lb_d, mask_d = next(stream)
-                    _, loss = train_step(
-                        state, im_d, lb_d, mask_d, self._train_seed, lr, l2_regularization,
-                        keep_prob, optimizer=self.optimizer, num_classes=self.num_classes,
-                        compute_dtype=self.compute_dtype, remat=self.remat,
-                        grad_accum=self._grad_accum, ignore_label=self.ignore_label,
-                        class_weights=self._class_weights, augment_fn=self._augment_fn,
-                        **self._step_layout(self._train_spatial))
+                    _, loss = self._train_call(state, next(stream), lr, l2_regularization,
+                                               keep_prob, self._train_spatial)
                     loss = float(loss)
                     lrs.append(lr)
                     losses.append(loss)
@@ -1503,6 +1712,7 @@ class FCN8s:
                 del saved_opt
                 self.variables_updated = was_dirty
                 self._refresh_run_params()
+                self._train_steps.purge()  # a transient state's captures go with it
         # steepest descent of the smoothed curve over log-spaced LRs (equal
         # log spacing: the index of the most negative finite difference)
         diffs = [b - a for a, b in zip(smoothed, smoothed[1:])
@@ -1577,10 +1787,14 @@ class FCN8s:
                 # padded to the 'data' axis with masked samples (none off a mesh)
                 im_d, lb_d, mask_d = self._put_batch(
                     *self._pad_batch_dim(np.asarray(images), label_ids))
-            state = eval_step(run, state, im_d, lb_d, mask_d,
-                              num_classes=self.num_classes, compute_dtype=self.compute_dtype,
-                              ignore_label=self.ignore_label, class_weights=self._class_weights,
-                              **self._step_layout(spatial_partition))
+            if self._compiled(spatial_partition):
+                state = self._get_eval_step(im_d.shape)(run, state, im_d, lb_d, mask_d)
+            else:
+                state = eval_step(run, state, im_d, lb_d, mask_d,
+                                  num_classes=self.num_classes, compute_dtype=self.compute_dtype,
+                                  ignore_label=self.ignore_label,
+                                  class_weights=self._class_weights,
+                                  **self._step_layout(spatial_partition))
         self.metrics_state = state
         values = {k: float(v) for k, v in finalize_metrics(state).items()}
         self.metric_values = [values[name] for name in self.metric_names]
@@ -1767,6 +1981,8 @@ class FCN8s:
             if self._summary_logger is not None:
                 self._summary_logger.close()
                 self._summary_logger = None
+            for cache in self._step_caches().values():
+                cache.clear()
             self.params = self._run_params = self.state = None
-            self._ema = self._ema_run = None
+            self._ema = self._ema_run = self._qparams = None
         print("The session has been closed.")

@@ -26,8 +26,16 @@ addresses and the kernel arguments it recorded, which shapes this module:
   when it is replayed: ``Captured.run`` adds the recorded counts once per
   replay, so the counters keep counting launches;
 * ``binding`` names the tensors a capture reads and writes in place (the
-  params, the optimizer's moments) by address: a caller whose tensors
-  changed gets a new capture instead of a replay over stale buffers.
+  params, the optimizer's moments) by address, and is part of the key of
+  a step's ``CaptureCache``: one step keeps captures over several trees
+  side by side (the live params, the EMA, the int8 tree), a caller whose
+  tensors changed gets a new capture instead of a replay over stale
+  buffers, and a capture whose tensors are gone is released. The graph
+  records addresses, so nothing here holds the tree: the body takes it as
+  arguments on each call;
+* the capture runs in CUDA's thread-local capture mode: a thread that
+  pins host memory meanwhile (the input prefetcher) is not refused, while
+  an unsafe call made by the capturing thread itself still raises.
 
 On the CPU, which the caller must ask for, nothing is captured: ``capture``
 warms up and restores the same way and ``run`` calls the body, so the CPU
@@ -37,11 +45,19 @@ step.
 
 from __future__ import annotations
 
+import weakref
+from collections import OrderedDict
+
 import torch
 
 from ..ops import conv1_core, kernels, pool, quantize
 
 WARMUP = 2  # calls of a body before its capture
+# captures one compiled step keeps (least recently used evicted first): a
+# capture holds its activations' memory in a private pool (5.17 GiB for the
+# full-width train step at batch 8), so a step keeps a few trees and
+# keep_prob regimes side by side, not one per tree it ever saw
+MAX_CAPTURES = 4
 
 # every counted launch: the hand kernels, and the int8 conv's library route
 KERNEL_WRAPPERS = (pool.maxpool2x2_nhwc, pool.maxpool2x2_code_nhwc, pool.maxpool2x2_bwd_nhwc,
@@ -129,21 +145,90 @@ class FixedGenerators:
 
 
 class Captured:
-    """One captured call of a step body: ``run()`` replays the graph (on
-    the CPU, calls the body) and returns its outputs, which on the card
-    are the static tensors the capture returned: the next ``run`` writes
-    them again."""
+    """One captured call of a step body: ``run(*args)`` replays the graph
+    (on the CPU, calls the body on ``args``) and returns its outputs, which
+    on the card are the static tensors the capture returned: the next
+    ``run`` writes them again. A replay reads the tensors the capture was
+    made over by address: the caller passes the same ones again."""
 
     def __init__(self, body, graph, outputs, launches):
         self.body, self.graph, self.outputs, self.launches = body, graph, outputs, launches
 
-    def run(self):
+    def run(self, *args):
         if self.graph is None:
-            return self.body()
+            return self.body(*args)
         self.graph.replay()
         for fn, n in zip(KERNEL_WRAPPERS, self.launches):
             fn.launches += n
         return self.outputs
+
+    def release(self) -> None:
+        """Drop the graph (its private pool goes once nothing else holds
+        it), the body and the outputs."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.body = self.graph = self.outputs = None
+
+
+class CaptureEntry:
+    """A capture with its static input buffers (``statics``), the eval
+    step's accumulators (``acc``) and weak references to the tensors it
+    was made over (``bound``): ``alive()`` is False once one of them is
+    gone, and then no caller can pass them again."""
+
+    def __init__(self, captured: Captured, statics: list, bound, acc: dict | None = None):
+        self.captured, self.statics, self.acc = captured, statics, acc
+        self._refs = [weakref.ref(t) for t in bound]
+
+    def alive(self) -> bool:
+        return all(r() is not None for r in self._refs)
+
+    def release(self) -> None:
+        self.captured.release()
+        self.statics = self.acc = None
+        self._refs = []
+
+
+class CaptureCache:
+    """A compiled step's captures by key (the bound tensors' ``binding``,
+    the inputs' ``signature`` and what else the body bakes in), the least
+    recently used evicted beyond ``limit``. An evicted entry, and one
+    whose bound tensors are gone (``purge``, run at every ``lookup``), is
+    released: its graph, its static buffers and its accumulators go with
+    it. ``made`` counts the captures made."""
+
+    def __init__(self, limit: int = MAX_CAPTURES):
+        self.limit = limit
+        self.made = 0
+        self._entries: OrderedDict = OrderedDict()
+
+    def lookup(self, key) -> CaptureEntry | None:
+        self.purge()
+        entry = self._entries.pop(key, None)
+        if entry is not None:
+            self._entries[key] = entry  # the most recently used
+        return entry
+
+    def add(self, key, entry: CaptureEntry) -> CaptureEntry:
+        while len(self._entries) >= self.limit:
+            self._entries.popitem(last=False)[1].release()
+        self._entries[key] = entry
+        self.made += 1
+        return entry
+
+    def purge(self) -> None:
+        for key in [k for k, e in self._entries.items() if not e.alive()]:
+            self._entries.pop(key).release()
+
+    def clear(self) -> None:
+        while self._entries:
+            self._entries.popitem()[1].release()
+
+    def values(self) -> list:
+        return list(self._entries.values())
+
+    def __len__(self) -> int:
+        return len(self._entries)
 
 
 @torch.no_grad()
@@ -152,20 +237,20 @@ def _put_back(tensors, saved) -> None:
         t.copy_(s)
 
 
-def capture(body, device: torch.device, *, restore=(),
+def capture(body, device: torch.device, *, args=(), restore=(),
             generators: FixedGenerators | None = None) -> Captured:
-    """Warm ``body()`` up ``WARMUP`` times (on a side stream on the card),
-    put the tensors of ``restore`` (those the body writes in place) back as
-    they were before it, then capture one call into a CUDA graph with the
-    generators of ``generators`` registered (first met in the warm-up).
-    The capture records the body's kernel launches without running them:
-    the counters are set back, and ``Captured.run`` adds them per replay.
-    On the CPU the warm-up and the restore run the same way and nothing is
-    captured."""
+    """Warm ``body(*args)`` up ``WARMUP`` times (on a side stream on the
+    card), put the tensors of ``restore`` (those the body writes in place)
+    back as they were before it, then capture one call into a CUDA graph,
+    in thread-local capture mode, with the generators of ``generators``
+    registered (first met in the warm-up). The capture records the body's
+    kernel launches without running them: the counters are set back, and
+    ``Captured.run`` adds them per replay. On the CPU the warm-up and the
+    restore run the same way and nothing is captured."""
     saved = [t.detach().clone() for t in restore]
     if device.type != "cuda":
         for _ in range(WARMUP):
-            body()
+            body(*args)
         _put_back(restore, saved)
         return Captured(body, None, None, [0] * len(KERNEL_WRAPPERS))
     current = torch.cuda.current_stream(device)
@@ -173,7 +258,7 @@ def capture(body, device: torch.device, *, restore=(),
     side.wait_stream(current)
     with torch.cuda.stream(side):
         for _ in range(WARMUP):
-            body()
+            body(*args)
     current.wait_stream(side)
     _put_back(restore, saved)
     del saved
@@ -186,8 +271,9 @@ def capture(body, device: torch.device, *, restore=(),
             graph.register_generator_state(gen)
     before = _launch_counts()
     try:
-        with torch.cuda.device(device), torch.cuda.graph(graph):
-            outputs = body()
+        with torch.cuda.device(device), torch.cuda.graph(graph,
+                                                         capture_error_mode="thread_local"):
+            outputs = body(*args)
     finally:
         recorded = [a - b for a, b in zip(_launch_counts(), before)]
         for fn, n in zip(KERNEL_WRAPPERS, before):

@@ -60,8 +60,8 @@ from ..ops.metrics import update_metrics_state
 from ..ops.nn import resize_bilinear
 from ..ops.quantize import apply_fcn8s_int8
 from .collectives import all_gather_cat, all_reduce, all_reduce_flat, gather_width
-from .graphs import (FixedGenerators, binding, capture, fill_scalars, signature, static_like,
-                     tensors_of)
+from .graphs import (CaptureCache, CaptureEntry, FixedGenerators, binding, capture, fill_scalars,
+                     signature, static_like, tensors_of)
 from .mesh import ALL_AXES, DATA_AXIS, MODEL_AXIS, sharded_leaves, width_split
 
 OPTIMIZERS = ("adam", "adamw", "momentum", "sgd")
@@ -662,10 +662,29 @@ def _site_seed(seed: int, step: int, site) -> int:
     return transform_seed(augment_key(seed, step + k), index)
 
 
-class _CompiledTrain:
+class _CompiledStep:
+    """What the compiled steps share: their captures (``graphs.CaptureCache``,
+    keyed by the bound tensors, the inputs' signature and the regime),
+    ``captures_made``, ``purge`` (release the captures whose tensors are
+    gone) and ``release`` (all of them)."""
+
+    captures: CaptureCache
+
+    @property
+    def captures_made(self) -> int:
+        return self.captures.made
+
+    def purge(self) -> None:
+        self.captures.purge()
+
+    def release(self) -> None:
+        self.captures.clear()
+
+
+class _CompiledTrain(_CompiledStep):
     """``compile_train_step``'s and ``compile_multi_train_step``'s callable:
-    ``steps`` train steps (S) captured in one graph per input signature and
-    keep_prob regime, over one state's tensors."""
+    ``steps`` train steps (S) captured in one graph per state, input
+    signature and keep_prob regime."""
 
     def __init__(self, optimizer: Optimizer, *, multi: bool, steps: int, device,
                  compute_dtype, augment_fn, remat: bool, grad_accum: int, ignore_label,
@@ -678,8 +697,7 @@ class _CompiledTrain:
         self.generators = FixedGenerators(device)
         # learning rate, L2 rate, keep_prob, then Adam's lr_scale of each step
         self.scalars = torch.zeros(3 + steps, dtype=torch.float32, device=device)
-        self.captures: dict = {}
-        self._bound = None
+        self.captures = CaptureCache()
 
     @staticmethod
     def state_tensors(state: TrainState) -> list:
@@ -693,40 +711,36 @@ class _CompiledTrain:
         inputs = (images, label_ids, sample_mask)
         held = self.state_tensors(state)
         _require_on(self.device, held, "the train state")
-        bound = binding(held)
-        if bound != self._bound:  # another state: its own captures
-            self.captures.clear()
-            self._bound = bound
         drops = not keep_prob >= 1.0
-        key = (signature(inputs), drops)
+        key = (binding(held), signature(inputs), drops)
         inner = state.opt_state.inner
         adam = isinstance(inner, ScaleByAdamTF1State)
         scales = [self.optimizer.lr_scale(inner.count + k + 1) if adam else 0.0
                   for k in range(self.steps)]
         fill_scalars(self.scalars, [learning_rate, l2_rate, keep_prob] + scales)
         self.generators.reseed(partial(_site_seed, seed, state.step))
-        entry = self.captures.get(key)
+        args = (state.params, state.opt_state)
+        entry = self.captures.lookup(key)
         if entry is None:
             statics = [static_like(x, self.device) for x in inputs]
             for buf, x in zip(statics, inputs):
                 buf.copy_(x)
-            body = partial(self._body, state.params, state.opt_state, statics, drops)
-            entry = self.captures[key] = (capture(body, self.device, restore=held,
-                                                  generators=self.generators), statics)
+            captured = capture(partial(self._body, statics, drops), self.device, args=args,
+                               restore=held, generators=self.generators)
+            entry = self.captures.add(key, CaptureEntry(captured, statics, held))
             self.generators.reseed(partial(_site_seed, seed, state.step))
-        captured, statics = entry
-        for buf, x in zip(statics, inputs):
+        for buf, x in zip(entry.statics, inputs):
             buf.copy_(x)
         for _ in range(self.steps):
             self.optimizer.advance(state.opt_state, learning_rate)
-        losses = captured.run().clone()
+        losses = entry.captured.run(*args).clone()
         state.step += self.steps
         return state, losses
 
     def _draw(self, kind: str, k: int, index=None) -> torch.Generator:
         return self.generators.get((kind, k, index))
 
-    def _body(self, params: dict, opt_state: OptimizerState, statics: list, drops: bool):
+    def _body(self, statics: list, drops: bool, params: dict, opt_state: OptimizerState):
         """The device work of ``steps`` train steps on the static inputs,
         every host scalar read from ``scalars``: the eager step's augment,
         ``loss_and_grads`` and ``Optimizer.update``, each draw from a fixed
@@ -773,7 +787,10 @@ def compile_train_step(mesh, optimizer: Optimizer, num_classes: int, *,
     compiled step gives the eager step's results bit for bit. ``state.step``
     and the optimizer's counters advance on the host once per call, as the
     eager step advances them. A state whose tensors are others (a loaded
-    checkpoint, a new ``TrainState``) is captured anew.
+    checkpoint, a new ``TrainState``) is captured anew, beside the captures
+    it already has: the step keeps ``graphs.MAX_CAPTURES`` of them, the
+    least recently used evicted, and releases one whose state is gone.
+    ``step.captures_made`` counts the captures made.
 
     ``device`` (default the card; without one it raises and names
     ``device="cpu"``): on the CPU the same body runs without a capture.
@@ -821,43 +838,37 @@ def compile_multi_train_step(mesh, optimizer: Optimizer, num_classes: int, *,
                           ignore_label=ignore_label, class_weights=class_weights)
 
 
-class _CompiledForward:
+class _CompiledForward(_CompiledStep):
     """A forward-only step ``fn(params, *inputs)`` under ``no_grad``,
-    captured per input signature over one params tree's tensors. With
-    ``metrics`` (the eval step) the step also takes a metrics state, which
-    is copied into the capture's accumulators before each replay and back
-    after it, so the caller's tensors are updated in place."""
+    captured per params tree and input signature. With ``metrics`` (the
+    eval step) the step also takes a metrics state, which is copied into
+    the capture's accumulators before each replay and back after it, so
+    the caller's tensors are updated in place."""
 
     def __init__(self, fn, device: torch.device, metrics: bool = False):
         self.fn, self.device, self.metrics = fn, device, metrics
-        self.captures: dict = {}
-        self._bound = None
+        self.captures = CaptureCache()
 
     def __call__(self, params: dict, *args):
         state, inputs = (args[0], args[1:]) if self.metrics else (None, args)
         held = tensors_of(params)
         _require_on(self.device, held, "the params")
-        bound = binding(held)
-        if bound != self._bound:
-            self.captures.clear()
-            self._bound = bound
         names = sorted(state) if self.metrics else []
-        key = signature(inputs) + signature([state[k] for k in names])
-        entry = self.captures.get(key)
+        key = (binding(held), signature(inputs) + signature([state[k] for k in names]))
+        entry = self.captures.lookup(key)
         if entry is None:
             statics = [static_like(x, self.device) for x in inputs]
             acc = {k: static_like(state[k], self.device) for k in names}
             self._copy_in(statics, inputs, acc, state)
-            body = partial(self._body, params, acc if self.metrics else None, statics)
-            entry = self.captures[key] = (capture(body, self.device, restore=list(acc.values())),
-                                          statics, acc)
-        captured, statics, acc = entry
-        self._copy_in(statics, inputs, acc, state)
-        out = captured.run()
+            body = partial(self._body, acc if self.metrics else None, statics)
+            captured = capture(body, self.device, args=(params,), restore=list(acc.values()))
+            entry = self.captures.add(key, CaptureEntry(captured, statics, held, acc))
+        self._copy_in(entry.statics, inputs, entry.acc, state)
+        out = entry.captured.run(params)
         if not self.metrics:
             return out.clone()
         for k in names:
-            state[k].copy_(acc[k])
+            state[k].copy_(entry.acc[k])
         return state
 
     @staticmethod
@@ -867,7 +878,7 @@ class _CompiledForward:
         for k, buf in acc.items():
             buf.copy_(state[k])
 
-    def _body(self, params, acc, statics):
+    def _body(self, acc, statics, params):
         with torch.no_grad():
             if acc is None:
                 return self.fn(params, *statics)
@@ -882,9 +893,11 @@ def compile_eval_step(mesh, num_classes: int, *, tensor_parallel: bool = True,
     metrics_state, images, label_ids, sample_mask) -> metrics_state``, the
     metrics state updated in place (JAX donates it) with ``eval_step``'s
     results bit for bit: K4f, K1 (K3 with ``ignore_label`` /
-    ``class_weights``) and K5 inside the graph. A capture is made per input
-    signature over one params tree's tensors (a tree of other tensors is
-    captured anew). ``mesh``, ``spatial_partition``, ``device`` and JAX's
+    ``class_weights``) and K5 inside the graph. A capture is made per params
+    tree and input signature, so one step serves the live, the EMA and the
+    int8 trees side by side (``graphs.MAX_CAPTURES`` captures, the least
+    recently used evicted; a capture whose tree is gone is released).
+    ``mesh``, ``spatial_partition``, ``device`` and JAX's
     ``tensor_parallel``/``example_params`` as in ``compile_train_step``."""
     del example_params
     _check_compilable("compile_eval_step", mesh, spatial_partition, tensor_parallel)

@@ -568,13 +568,19 @@ def test_train_augments_with_draws_of_seed_and_step(rng, tmp_path):
     """``train(device_augment=...)`` hands the step the key (seed, step):
     a run resumed at step 2 augments steps 2 and 3 as the uninterrupted
     run did, and the batch the step trained on is the augment fn's output
-    for that key."""
+    for that key. On the facade's eager steps the fn sees the keys; on its
+    compiled steps (the default) it sees the draw sites of generators
+    seeded from them, after ``WARMUP`` warm-up calls per capture (the
+    first draws what the first step draws), and gives the eager steps'
+    batches."""
+    from fcn8s_tensorflow_tpu_torch.parallel.graphs import WARMUP
+
     images = rng.integers(0, 256, (2, 32, 32, 3), dtype=np.uint8)
     labels = rng.integers(0, 3, (2, 32, 32), dtype=np.uint8)
     cfg = {"flip": 0.5, "translate": (4, 4, 0.8), "brightness": (0.7, 1.3, 0.8)}
     seen = {}
 
-    def recorder(model):
+    def recorder(model, eager):
         fn = aug.make_augment_fn(**cfg)
 
         def record(key, im, lb):
@@ -583,26 +589,37 @@ def test_train_augments_with_draws_of_seed_and_step(rng, tmp_path):
             return out
 
         model._augment_fn, model._device_augment_cfg = record, cfg  # reused: same config
+        if eager:
+            model._compiled = lambda spatial_partition=False: False
 
     def run(model, steps):
         model.train(iter([(images, labels)] * steps), 1, steps, lambda s: 1e-3, keep_prob=0.5,
                     record_summaries=False, device_augment=cfg, prefetch=0)
 
-    whole = FCN8s(num_classes=3, width_mult=1 / 32, fc_channels=32,
-                  compute_dtype=torch.float32, device="cpu", seed=7)
-    recorder(whole)
-    run(whole, 4)
-    first = FCN8s(num_classes=3, width_mult=1 / 32, fc_channels=32,
-                  compute_dtype=torch.float32, device="cpu", seed=7)
-    recorder(first)
-    run(first, 2)
-    first.save(str(tmp_path))
-    resumed = FCN8s.resume(str(tmp_path), device="cpu", seed=7)
-    recorder(resumed)
-    run(resumed, 2)
-    a, b = seen[id(whole)], seen[id(first)] + seen[id(resumed)]
+    def runs(eager):
+        whole = FCN8s(num_classes=3, width_mult=1 / 32, fc_channels=32,
+                      compute_dtype=torch.float32, device="cpu", seed=7)
+        recorder(whole, eager)
+        run(whole, 4)
+        first = FCN8s(num_classes=3, width_mult=1 / 32, fc_channels=32,
+                      compute_dtype=torch.float32, device="cpu", seed=7)
+        recorder(first, eager)
+        run(first, 2)
+        first.save(str(tmp_path / str(eager)))
+        resumed = FCN8s.resume(str(tmp_path / str(eager)), device="cpu", seed=7)
+        recorder(resumed, eager)
+        run(resumed, 2)
+        return [seen[id(m)] for m in (whole, first, resumed)]
+
+    whole, first, resumed = runs(eager=True)
+    a, b = whole, first + resumed
     assert [(list(k.entropy), k.spawn_key) for k, _ in a] == [([7, t], (1,)) for t in range(4)]
     assert [(list(k.entropy), k.spawn_key) for k, _ in b] == [([7, t], (1,)) for t in range(4)]
     for (_, (ia, la)), (_, (ib, lb)) in zip(a, b):
         assert torch.equal(ia, ib) and torch.equal(la, lb)
+    compiled = runs(eager=False)
+    assert [len(c) for c in compiled] == [WARMUP + 4, WARMUP + 2, WARMUP + 2]
+    for calls, want in zip(compiled, (a, b[:2], b[2:])):
+        for (_, (ig, lg)), (_, (iw, lw)) in zip(calls[:1] + calls[WARMUP:], want[:1] + want):
+            assert torch.equal(ig, iw) and torch.equal(lg, lw)
     assert any(not torch.equal(o[0], torch.from_numpy(images)) for _, o in a)

@@ -370,21 +370,26 @@ def test_keep_prob_regimes_are_captured_apart():
 
 
 def test_a_swapped_state_is_captured_anew():
+    """A second state gets its own capture beside the first one's, which
+    it leaves untouched; the first state then replays its own again."""
     opt = tsteps.make_optimizer("adam")
     first, second, eager = _state(opt), _state(opt), _state(opt)
     step = tsteps.compile_train_step(None, opt, C, **F32, **CPU)
     step(first, *_batch("b4"), SEED, LR, L2, 0.5)
-    (old, _), = step.captures.values()
+    old, = step.captures.values()
     kept = [t.clone() for t in bridge.param_leaves(first.params)]
     _, got = step(second, *_batch("b4b"), SEED, LR, L2, 0.5)
-    (new, _), = step.captures.values()
-    assert new is not old
+    assert len(step.captures) == 2 and step.captures_made == 2
+    new = step.captures.values()[-1]
+    assert new is not old and new.captured is not old.captured
     for a, b in zip(bridge.param_leaves(first.params), kept):
         assert torch.equal(a, b)
     _, want = tsteps.train_step(eager, *_batch("b4b"), SEED, LR, L2, 0.5, optimizer=opt,
                                 num_classes=C, **F32)
     assert torch.equal(got, want)
     _same_state(second, eager)
+    step(first, *_batch("b4"), SEED, LR, L2, 0.5)
+    assert step.captures_made == 2 and step.captures.values()[-1] is old
 
 
 def test_eval_step_equals_the_eager_step():
@@ -558,7 +563,8 @@ def _captured_train(multi: bool):
         step = tsteps.compile_train_step(None, opt, C, **kw, **CPU)
     step(state, *batch, SEED, SAFE_LR, SAFE_L2, SAFE_KP)
     scales = [opt.lr_scale(t) for t in range(1, 6)]
-    return step, [SAFE_LR, SAFE_L2, SAFE_KP, 1.0 / SAFE_KP] + scales
+    return step, (state.params, state.opt_state), [SAFE_LR, SAFE_L2, SAFE_KP,
+                                                   1.0 / SAFE_KP] + scales
 
 
 def _captured_forward(kind: str):
@@ -574,23 +580,23 @@ def _captured_forward(kind: str):
         step(run, batch[0])
     elif kind == "int8":
         step = tsteps.compile_predict_step(None, quantized=True, **F32, **CPU)
-        step(Q.quantize_fcn8s_params(bridge.to_port(_tree()), compute_dtype=torch.float32),
-             batch[0])
+        run = Q.quantize_fcn8s_params(bridge.to_port(_tree()), compute_dtype=torch.float32)
+        step(run, batch[0])
     else:
         step = tsteps.compile_tta_step(None, scale_hw=TTA_HW, **F32, **CPU)
         step(run, batch[0])
-    return step, []
+    return step, (run,), []
 
 
 @pytest.mark.parametrize("kind", ["train", "multi", "eval", "predict", "int8", "tta"])
 def test_captured_bodies_are_capture_safe(kind, monkeypatch):
-    step, values = (_captured_train(kind == "multi") if kind in ("train", "multi")
-                    else _captured_forward(kind))
-    (captured, *_), = step.captures.values()
+    step, args, values = (_captured_train(kind == "multi") if kind in ("train", "multi")
+                          else _captured_forward(kind))
+    entry, = step.captures.values()
     guard = _HostValueGuard(values)
     _mute_twins(monkeypatch, guard)
     with guard:
-        captured.run()
+        entry.captured.run(*args)
     assert not guard.found, guard.found
 
 

@@ -660,6 +660,9 @@ def test_tta_and_tiled_predict_on_the_card_equal_the_cpu(dev, no_tf32, monkeypat
         routed = {name: call(card, argmax=False) for name, call in calls.items()}
         monkeypatch.setattr(Q, "int8_conv_acc", lambda xq, qlayer, halo=False:
                             Q.conv2d_int8_reference(xq, qlayer["kernel_q"], halo))
+        # the facade's eager steps: a replay would run the route its graph recorded
+        monkeypatch.setattr(card, "_compiled", lambda spatial_partition=False: False,
+                            raising=False)
         for name, call in calls.items():
             np.testing.assert_array_equal(routed[name], call(card, argmax=False), err_msg=name)
 
@@ -986,12 +989,13 @@ def test_compiled_train_step_recaptures_a_swapped_state_on_the_card(dev, determi
     step = S.compile_train_step(None, opt, 5, device=dev)
     step(first, ims[0], lbs[0], mask, 9, 1e-3, 0.0, 0.5)
     kept = [t.clone() for t in bridge.param_leaves(first.params)]
-    (old, _), = step.captures.values()
+    old, = step.captures.values()
     _, got = step(second, ims[1], lbs[1], mask, 9, 1e-3, 0.0, 0.5)
-    (new, _), = step.captures.values()
+    new = step.captures.values()[-1]
     _, want = S.train_step(eager, ims[1], lbs[1], mask, 9, 1e-3, 0.0, 0.5, optimizer=opt,
                            num_classes=5)
     assert new is not old and torch.equal(got, want) and _states_equal(second, eager)
+    assert step.captures_made == 2 and len(step.captures) == 2
     assert all(torch.equal(a, b) for a, b in zip(bridge.param_leaves(first.params), kept))
 
 
@@ -1032,6 +1036,51 @@ def test_compiled_forward_steps_equal_eager_on_the_card(dev, deterministic):
     for step, params, kw, eager in cases:
         for i in range(2):
             assert torch.equal(step(params, ims[i]), eager(params, ims[i], **kw))
+
+
+def test_compiled_facade_equals_its_eager_steps_on_the_card(dev, deterministic):
+    """The facade on its compiled steps against the same facade on its
+    eager steps, from one seed: ``train`` (keep_prob 0.5, device augment,
+    EMA, ``prefetch=2``: the prefetcher pins memory while the train step
+    is captured, an evaluation on 'train' each epoch), then ``predict``
+    (ids, int8, ``use_ema``), tiled and ``predict_tta``, bit for bit; one
+    train and one eval capture, and none more while the trees
+    alternate."""
+    import itertools
+
+    import numpy as np
+
+    from fcn8s_tensorflow_tpu_torch import bridge
+    from fcn8s_tensorflow_tpu_torch.engine.model import FCN8s
+
+    rng = np.random.default_rng(16)
+    batches = [(rng.integers(0, 256, (3, 128, 96, 3), dtype=np.uint8),
+                rng.integers(0, 5, (3, 128, 96), dtype=np.uint8)) for _ in range(8)]
+    images = rng.integers(0, 256, (2, 100, 150, 3), dtype=np.uint8)
+    kw = dict(epochs=2, steps_per_epoch=2, learning_rate_schedule=lambda s: 1e-3 * (1 + s),
+              keep_prob=0.5, metrics={"loss", "mean_iou"}, eval_frequency=1,
+              record_summaries=False, ema_decay=0.9, prefetch=2,
+              device_augment=dict(flip=0.5, brightness=(0.8, 1.2, 0.5), translate=(8, 4, 0.5)))
+    models = [FCN8s(num_classes=5, width_mult=1 / 16, fc_channels=64, device=dev, seed=16)
+              for _ in range(2)]
+    models[1]._compiled = lambda spatial_partition=False: False
+    for m in models:
+        m.train(itertools.cycle(batches), **kw)
+    compiled, eager = models
+    for a, b in ((compiled.params, eager.params), (compiled.ema_params, eager.ema_params)):
+        assert all(torch.equal(x, y) for x, y in zip(bridge.param_leaves(a),
+                                                     bridge.param_leaves(b)))
+    assert compiled.metric_values == eager.metric_values
+    assert compiled.capture_counts() == {"train": 1, "eval": 1, "predict": 0, "tta": 0}
+    calls = [dict(), dict(quantized=True), dict(use_ema=True)]
+    for call in calls + calls:
+        np.testing.assert_array_equal(compiled.predict(images, **call),
+                                      eager.predict(images, **call))
+    tiled = dict(tile=(64, 64), tile_overlap=32)
+    np.testing.assert_array_equal(compiled.predict(images, **tiled), eager.predict(images, **tiled))
+    np.testing.assert_array_equal(compiled.predict_tta(images, scales=(0.75, 1.0)),
+                                  eager.predict_tta(images, scales=(0.75, 1.0)))
+    assert compiled.capture_counts() == {"train": 1, "eval": 1, "predict": 4, "tta": 2}
 
 
 def test_a_capture_that_syncs_raises_on_the_card(dev):
