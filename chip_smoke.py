@@ -3,8 +3,8 @@
 checkpoint, training-feature, int8/TTA/tiled predict, offline-benchmark,
 host data pipeline, serving-artifact, video, viewer, annotation, mesh,
 spatial-partition and training-survival paths, the measurement scripts,
-the tutorial notebook, the compiled steps and the facade on them once on
-one CUDA card.
+the tutorial notebook, the compiled steps, the facade on them and the
+compiled steps over a mesh of two ranks once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -198,7 +198,25 @@ Phases, in order; any failure raises and the script exits non-zero:
     first call added and the peak; with the switches back, (c) images/s of
     ``train`` on resident batches compiled against eager in turns, the
     busy share of each, and the seconds spent capturing; a
-    ``{"facade_compiled": ...}`` line.
+    ``{"facade_compiled": ...}`` line;
+27. the compiled steps over a mesh of two gloo ranks sharing the card
+    (NCCL refuses two ranks on one device), this script run twice as
+    ``chip_smoke.py --mesh-compiled-rank R 2 STORE WORK``, at full VGG-16
+    width, bf16, TF1 Adam, under ``tools.make_deterministic``: on (2, 1)
+    data-parallel and (1, 2) tensor-parallel at bench.py's 8 x 1024x512,
+    and on (1, 2) ``spatial_partition`` at 2 x 1024x2048 (1024 + 1024
+    columns), 3 train steps at keep_prob 1 and 3 at 0.5, then (off the
+    spatial mesh) ``compile_multi_train_step`` at S=2, eval, predict (ids,
+    overlay, static int8) and (off the spatial mesh) TTA, each compiled
+    step against the eager mesh step on the same rank from the same state,
+    bit for bit (sha256 of params, moments and losses; the eval state; the
+    outputs); then ``FCN8s(mesh=...).train`` on (2, 1) compiled against its
+    eager steps. Each case prints its captures, the graphs, collectives,
+    replays and halo bytes of each capture (``graphs.Segments``), the hand
+    kernels' launches inside the replays (checked exactly: each capture's
+    recorded counts times its replays plus ``graphs.WARMUP`` calls), the
+    halo bytes a step, ms a step compiled and eager, and each rank's
+    private pool bytes (two ranks sharing one card: no scaling figure).
 
 The facade's steps are CUDA-graph replays (``FCN8s._get_*_step``): the
 exact launch checks of phases 5, 6, 10, 12, 16 and 17 count each kernel's
@@ -233,7 +251,8 @@ fault-injection rank's straight run, the quickstart; ``launches_benchmarks``
 in phase 24: (b) the scripts, (c) the notebook; ``launches_compiled`` in
 phase 25 (a)-(d): the warm-ups' launches and each replay's recorded ones;
 ``launches_facade_compiled`` in phase 26 (a)-(b), the eager comparisons
-left out).
+left out; ``launches_mesh_compiled`` in phase 27, per case, each rank's
+launches of the compiled calls, the eager references left out).
 A ``{"viz_prep":
 {...}}`` line gives phase 20's numbers.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -1674,12 +1693,12 @@ def _twin_route(model: FCN8s, fn):
     route = Q.int8_conv_acc
     Q.int8_conv_acc = lambda xq, qlayer, halo=False: Q.conv2d_int8_reference(
         xq, qlayer["kernel_q"], halo)
-    model._compiled = lambda spatial_partition=False: False
+    model._eager_steps = True
     try:
         return fn()
     finally:
         Q.int8_conv_acc = route
-        del model._compiled
+        del model._eager_steps
 
 
 def phase_int8_predict(model: FCN8s, images: np.ndarray, rng, smi: str) -> dict:
@@ -3055,6 +3074,9 @@ def phase_mesh_world1(dev, tree: dict, root: str, smi: str) -> dict:
                    "tiled": model.predict(frame, tile=TILE, tile_overlap=TILE_OVERLAP)}
             if name == "mesh":
                 counts = read_counts()
+                captures = model.capture_counts()
+                check(all(captures[k] >= 1 for k in ("train", "eval", "predict")),
+                      f"phase 21 (a): the mesh model's steps made the captures {captures}")
             path = model.save(os.path.join(root, name))
             out["bytes"] = _file_bytes_of(path)
             if name == "mesh":
@@ -3084,7 +3106,8 @@ def phase_mesh_world1(dev, tree: dict, root: str, smi: str) -> dict:
     print(f"phase 21 (a) a {backend} group of one rank, FCN8s(mesh=create_mesh(), "
           f"tensor_parallel=True) vs the mesh-less facade at full width on {smi}: {MESH_STEPS} "
           f"train steps of ({BATCH}, {TH}, {TW}, 3) at keep_prob 1, evaluate, predict, tiled "
-          f"predict ({FRAME[0]}x{FRAME[1]} in {TILE}), save and load bit for bit equal; step "
+          f"predict ({FRAME[0]}x{FRAME[1]} in {TILE}), save and load bit for bit equal, on "
+          f"the compiled steps (captures {captures}); step "
           f"(host clock over steps 2-{MESH_STEPS}) mesh {step_ms['mesh']:.2f} ms, mesh-less "
           f"{step_ms['plain']:.2f} ms; launches {counts}")
     return {"counts": counts, "step_ms": step_ms}
@@ -3432,6 +3455,9 @@ def phase_spatial_world1(dev, tree: dict, root: str, smi: str) -> dict:
                    "params": model.params}
             if spatial:
                 counts = read_counts()
+                captures = model.capture_counts()
+                check(captures == {"train": 1, "eval": 1, "predict": 1, "tta": 0},
+                      f"phase 22 (a): the spatial model's steps made the captures {captures}")
             results.append(out)
             model.close()
             del model
@@ -3450,7 +3476,8 @@ def phase_spatial_world1(dev, tree: dict, root: str, smi: str) -> dict:
     print(f"phase 22 (a) an nccl group of one rank, FCN8s(mesh=create_mesh()) with "
           f"spatial_partition=True vs the mesh-less facade at full width on {smi}: a train "
           f"step of ({SPATIAL_BATCH}, {FRAME[0]}, {FRAME[1]}, 3) at keep_prob 1, evaluate and "
-          f"predict bit for bit equal ({time.perf_counter() - t0:.1f} s); launches {counts}")
+          f"predict bit for bit equal on the compiled steps (captures {captures}; "
+          f"{time.perf_counter() - t0:.1f} s); launches {counts}")
     return counts
 
 
@@ -4340,11 +4367,11 @@ def _facade_reference(dev, params: dict, batches: list, dtype) -> dict:
 def _eager_facade(model: FCN8s, fn):
     """``fn()`` on the facade's eager steps, its launches not counted."""
     saved = read_counts()
-    model._compiled = lambda spatial_partition=False: False
+    model._eager_steps = True
     try:
         return fn()
     finally:
-        del model._compiled
+        del model._eager_steps
         for name, wrapper in WRAPPERS.items():
             wrapper.launches = saved[name]
 
@@ -4591,6 +4618,375 @@ def phase_facade_compiled(dev, smi: str) -> tuple[dict, dict]:
     return counts, result
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the compiled steps over a mesh of two ranks, cut at the collectives
+# ---------------------------------------------------------------------------
+
+MESH_COMPILED_SEED = 27
+# (mesh, layout): 'dp' data-parallel, 'tp' tensor-parallel, 'sp' spatial_partition
+MESH_COMPILED_CASES = (((2, 1), "dp"), ((1, 2), "tp"), ((1, 2), "sp"))
+MESH_COMPILED_STEPS = (1.0, 1.0, 1.0, 0.5, 0.5, 0.5)  # keep_prob of each train step
+MESH_COMPILED_SCALARS = (1e-4, 5e-4)  # learning rate, L2 rate
+MESH_COMPILED_FACADE_STEPS = 3
+MESH_COMPILED_TIMEOUT_S = 600  # the two ranks, launch to join
+MESH_COMPILED_MODEL = {}  # init_fcn8s' widths: VGG-16's, fc 4096
+
+
+def _mc_captures(steps) -> list:
+    """Every capture the compiled steps ``steps`` hold."""
+    return [entry.captured for step in steps for entry in step.captures.values()]
+
+
+def _mc_replay_launches(captures) -> dict:
+    """Each wrapper's launches that ``captures`` account for: the recorded
+    per-replay counts times the replays, plus ``graphs.WARMUP`` calls of the
+    body per capture."""
+    return {name: sum(c.launches[G.KERNEL_WRAPPERS.index(fn)] * (c.replays + G.WARMUP)
+                      for c in captures) for name, fn in WRAPPERS.items()}
+
+
+def _mc_plans(captures) -> list:
+    """(segments, collectives, replays, halo bytes) a replay of each capture."""
+    return [(c.segments, len(c.issued), c.replays, c.halo_bytes) for c in captures]
+
+
+def _mc_held(dev) -> tuple[int, int]:
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    stats = torch.cuda.memory_stats(dev)
+    return stats["reserved_bytes.all.current"], stats["allocated_bytes.all.current"]
+
+
+def _mc_timed(dev, fn):
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _mc_case(dev, mesh, layout: str, tree: dict, config: dict) -> dict:
+    """One mesh of phase 27 on this rank: the eager mesh steps, then the
+    compiled ones from the same state and inputs, bit for bit (sha256 of
+    params, moments and losses; eval state; predict outputs), with the
+    hand kernels' launches inside the replays checked exactly."""
+    import torch.distributed as dist
+
+    from fcn8s_tensorflow_tpu_torch.parallel.collectives import all_reduce, halo_exchange
+    from fcn8s_tensorflow_tpu_torch.parallel.mesh import batch_rows, gather_params
+
+    tp, sp = layout == "tp", layout == "sp"
+    tag = f"{mesh.shape['data']}x{mesh.shape['model']}/{layout}"
+    ckw = dict(tensor_parallel=tp, **({"spatial_partition": True} if sp else {}))
+    kw = dict(ckw, mesh=mesh)
+    n, h, w = (config["spatial_batch"], *config["frame"]) if sp else (config["batch"],
+                                                                      *config["train_hw"])
+    g = torch.Generator(device=dev).manual_seed(MESH_COMPILED_SEED)
+    steps = len(MESH_COMPILED_STEPS)
+    ims = torch.randint(0, 256, (steps, n, h, w, 3), generator=g, device=dev, dtype=torch.uint8)
+    lbs = torch.randint(0, C, (steps, n, h, w), generator=g, device=dev, dtype=torch.uint8)
+    rows = batch_rows(n, mesh)
+    if rows is not None:
+        rows = torch.as_tensor(rows, device=dev)
+        ims, lbs = ims[:, rows].contiguous(), lbs[:, rows].contiguous()
+    mask = torch.ones(ims.shape[1], device=dev)
+    lr, l2 = MESH_COMPILED_SCALARS
+    opt = S.make_optimizer()
+    whole = bridge.to_port(tree, device=dev)
+    params = bridge.to_port_shards(tree, mesh, tensor_parallel=True) if tp else whole
+    state = S.create_train_state(params, opt)
+    report = {}
+
+    # the eager mesh steps: train, then eval, predict (ids, overlay, static int8) and TTA
+    eager = _copy_state(state)
+    eager_losses, eager_ms = [], []
+    halo0 = halo_exchange.bytes
+    for i, kp in enumerate(MESH_COMPILED_STEPS):
+        (_, loss), ms = _mc_timed(dev, lambda: S.train_step(
+            eager, ims[i], lbs[i], mask, MESH_COMPILED_SEED, lr, l2, kp, optimizer=opt,
+            num_classes=C, **kw))
+        eager_losses.append(loss)
+        eager_ms.append(ms)
+    halo_eager = (halo_exchange.bytes - halo0) // steps
+    want = _state_digest(eager)
+    with torch.no_grad():
+        run = bridge.cast_params(eager.params, torch.bfloat16)
+        master = gather_params(eager.params, mesh, True) if tp else eager.params
+        act = Q.collect_activation_absmax(bridge.cast_params(master, torch.bfloat16), ims[0])
+        act = {k: all_reduce(v, mesh, op=dist.ReduceOp.MAX) for k, v in act.items()}
+        qtree = Q.quantize_fcn8s_params(master, act)
+        del master
+    metrics = empty_metrics_state(C, dev)
+    for i in range(2):
+        S.eval_step(run, metrics, ims[i], lbs[i], mask, num_classes=C, **kw)
+    with torch.no_grad():
+        ref = {"ids": S.predict_step(run, ims[0], id_dtype=torch.uint8, **kw),
+               "overlay": S.predict_step(run, ims[0], overlay_lut=SPATIAL_LUT, **kw),
+               "int8": S.predict_step(qtree, ims[0], id_dtype=torch.uint8, quantized=True,
+                                      **kw)}
+        if not sp:
+            ref["tta"] = S.tta_step(run, ims[0], scale_hw=config["tta_hw"], **kw)
+    del eager
+
+    # the compiled steps from the same state
+    zero_counts()
+    reserved, allocated = _mc_held(dev)
+    comp = _copy_state(state)
+    step = S.compile_train_step(mesh, opt, C, device=dev, **ckw)
+    losses, comp_ms, before_multi, after_five = [], [], None, None
+    for i, kp in enumerate(MESH_COMPILED_STEPS):
+        if i == 3:
+            before_multi = _copy_state(comp)
+        if i == 4:  # the replays of the keep_prob 0.5 capture
+            halo0 = halo_exchange.bytes
+        (_, loss), ms = _mc_timed(dev, lambda: step(comp, ims[i], lbs[i], mask,
+                                                    MESH_COMPILED_SEED, lr, l2, kp))
+        losses.append(loss)
+        comp_ms.append(ms)
+        if i == 4:
+            after_five = _state_digest(comp)
+    halo_replay = (halo_exchange.bytes - halo0) // (steps - 4)
+    reserved_after, allocated_after = _mc_held(dev)
+    live = allocated_after - allocated
+    report["train_pool_bytes"] = reserved_after - reserved - live
+    got = _state_digest(comp)
+    check(got == want and _digest(losses) == _digest(eager_losses),
+          f"phase 27 {tag}: {steps} compiled train steps differ from the eager mesh steps: "
+          f"{got} against {want}")
+    check(step.captures_made == 2, f"phase 27 {tag}: the train step made "
+                                   f"{step.captures_made} captures, not one per keep_prob regime")
+    report["digest"] = want["params"][:16]
+    report["losses"] = [float(x) for x in losses]
+    compiled = [step]
+    if not sp:  # compile_multi_train_step at S=2 over steps 4-5 against the single steps
+        multi = S.compile_multi_train_step(mesh, opt, C, steps_per_dispatch=2, device=dev,
+                                           tensor_parallel=tp)
+        _, multi_losses = multi(before_multi, ims[3:5], lbs[3:5],
+                                mask.expand(2, -1).contiguous(), MESH_COMPILED_SEED, lr, l2, 0.5)
+        check(_state_digest(before_multi) == after_five
+              and torch.equal(multi_losses, torch.stack(losses[3:5])),
+              f"phase 27 {tag}: compile_multi_train_step(S=2) differs from two compiled steps")
+        compiled.append(multi)
+        report["multi_losses"] = multi_losses.tolist()
+    del comp, before_multi
+
+    ev = S.compile_eval_step(mesh, C, device=dev, **ckw)
+    got_metrics = empty_metrics_state(C, dev)
+    for i in range(2):
+        ev(run, got_metrics, ims[i], lbs[i], mask)
+    check(all(torch.equal(got_metrics[k], metrics[k]) for k in metrics),
+          f"phase 27 {tag}: the compiled eval differs from the eager mesh eval")
+    forward = {"ids": S.compile_predict_step(mesh, id_dtype=torch.uint8, device=dev, **ckw),
+               "overlay": S.compile_predict_step(mesh, overlay_lut=SPATIAL_LUT, device=dev,
+                                                 **ckw),
+               "int8": S.compile_predict_step(mesh, id_dtype=torch.uint8, quantized=True,
+                                              device=dev, **ckw)}
+    if not sp:
+        forward["tta"] = S.compile_tta_step(mesh, scale_hw=config["tta_hw"], device=dev,
+                                            tensor_parallel=tp)
+    with torch.no_grad():
+        for name, fn in forward.items():
+            out = fn(qtree if name == "int8" else run, ims[0])
+            check(torch.equal(out, ref[name]),
+                  f"phase 27 {tag}: the compiled {name} differs from the eager mesh step's")
+    compiled += [ev, *forward.values()]
+    torch.cuda.synchronize(dev)
+    counts = read_counts()
+    captures = _mc_captures(compiled)
+    expected = _mc_replay_launches(captures)
+    check(counts == expected, f"phase 27 {tag}: launches {counts} against the replays' "
+                              f"recorded counts x replays + {G.WARMUP} x captures {expected}")
+    train_caps = _mc_captures([step])
+    check(halo_replay == halo_eager and (halo_eager > 0) == sp,
+          f"phase 27 {tag}: a replay's halo bytes {halo_replay} against the eager step's "
+          f"{halo_eager}")
+    report.update({
+        "captures": len(captures), "launches": counts,
+        "plans": {"train": _mc_plans(train_caps),
+                  **({"multi": _mc_plans(_mc_captures([compiled[1]]))} if not sp else {}),
+                  "eval": _mc_plans(_mc_captures([ev])),
+                  **{k: _mc_plans(_mc_captures([v])) for k, v in forward.items()}},
+        "recorded_train_replay": {name: train_caps[-1].launches[G.KERNEL_WRAPPERS.index(fn)]
+                                  for name, fn in WRAPPERS.items()},
+        "halo_bytes_per_step": halo_eager,
+        "step_ms": {"compiled": comp_ms[4:], "eager": eager_ms[4:]},
+        "step_ms_each": {"compiled": comp_ms, "eager": eager_ms}})
+    for fn in compiled:
+        fn.release()
+    del step, compiled, forward, ev, run, qtree, state, params, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def _mc_facade(dev, mesh, tree: dict, config: dict) -> dict:
+    """Phase 27's facade: ``FCN8s(mesh=...)`` on the (2, 1) mesh, ``train``
+    for MESH_COMPILED_FACADE_STEPS steps at keep_prob 0.5 compiled and on its
+    eager steps from the same weights, bit for bit (sha256 of the state and
+    the loss), with one train capture and its launches exact."""
+    rng = np.random.default_rng(MESH_COMPILED_SEED)
+    n, (h, w) = config["batch"], config["train_hw"]
+    batches = [(rng.integers(0, 256, (n, h, w, 3), dtype=np.uint8),
+                rng.integers(0, C, (n, h, w), dtype=np.uint8))
+               for _ in range(MESH_COMPILED_FACADE_STEPS)]
+    out = {}
+    for name in ("eager", "compiled"):
+        model = FCN8s.from_params(tree, mesh=mesh, device=dev, seed=MESH_COMPILED_SEED,
+                                  **config["model"])
+        model._eager_steps = name == "eager"
+        if name == "compiled":
+            zero_counts()
+        (_, ms) = _mc_timed(dev, lambda: model.train(
+            iter(batches), epochs=1, steps_per_epoch=MESH_COMPILED_FACADE_STEPS,
+            learning_rate_schedule=lambda s: 1e-4, keep_prob=0.5, metrics=set(),
+            record_summaries=False, prefetch=0))
+        out[name] = {"state": _state_digest(model.state), "loss": model.training_loss,
+                     "captures": model.capture_counts(), "train_s": ms / 1e3}
+        if name == "compiled":
+            torch.cuda.synchronize(dev)
+            counts = read_counts()
+            captures = _mc_captures(model._train_steps._steps.values())
+            expected = _mc_replay_launches(captures)
+            check(counts == expected, f"phase 27 facade: launches {counts} against {expected}")
+            out["launches"] = counts
+            out["plans"] = _mc_plans(captures)
+        model.close()
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(out["compiled"]["state"] == out["eager"]["state"]
+          and out["compiled"]["loss"] == out["eager"]["loss"],
+          f"phase 27 facade: compiled train {out['compiled']} differs from eager {out['eager']}")
+    check(out["compiled"]["captures"] == {"train": 1, "eval": 0, "predict": 0, "tta": 0},
+          f"phase 27 facade: captures {out['compiled']['captures']}")
+    return out
+
+
+def mesh_compiled_rank_main(rank: int, world: int, store: str, work: str) -> None:
+    """One rank of phase 27 (``chip_smoke.py --mesh-compiled-rank R W STORE
+    WORK``): a gloo group on the one card, ``tools.make_deterministic``, and
+    for each mesh of ``MESH_COMPILED_CASES`` the compiled steps against the
+    eager mesh steps (``_mc_case``), then the facade's ``train`` on (2, 1)
+    (``_mc_facade``). Writes ``rank<R>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from fcn8s_tensorflow_tpu_torch.models.fcn8s import init_fcn8s
+    from fcn8s_tensorflow_tpu_torch.parallel.mesh import create_mesh
+    from fcn8s_tensorflow_tpu_torch.tools import make_deterministic
+
+    make_deterministic()
+    with open(os.path.join(work, "config.json")) as f:
+        config = json.load(f)
+    dev = torch.device(config["device"])
+    check(dev.type != "cuda" or torch.cuda.is_available(),
+          "no CUDA device: this script runs only on the card")
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=MESH_COMPILED_TIMEOUT_S))
+    report = {"rank": rank}
+    try:
+        if dev.type == "cuda":
+            build.library()
+        tree = init_fcn8s(torch.Generator().manual_seed(MESH_COMPILED_SEED), C,
+                          **config["model"])
+        meshes = {}
+        t0 = time.perf_counter()
+        for shape, layout in MESH_COMPILED_CASES:
+            if shape not in meshes:
+                meshes[shape] = create_mesh(*shape, devices=[dev] * world)
+            t1 = time.perf_counter()
+            case = _mc_case(dev, meshes[shape], layout, tree, config)
+            case["case_s"] = time.perf_counter() - t1
+            report[f"{shape[0]}x{shape[1]}/{layout}"] = case
+        t1 = time.perf_counter()
+        report["facade"] = _mc_facade(dev, meshes[(2, 1)], bridge.to_numpy(bridge.to_port(tree)),
+                                      config)
+        report["facade"]["case_s"] = time.perf_counter() - t1
+        report["path_s"] = time.perf_counter() - t0
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+            json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh_compiled(dev, smi: str) -> dict:
+    """Phase 27: the compiled steps over a mesh of two gloo ranks sharing the
+    one card (NCCL refuses two ranks on one device), this script run twice
+    with ``--mesh-compiled-rank``, in a temporary directory removed at the
+    end. Returns each case's launch counts per rank."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="fcn8s_mesh_compiled_")
+    try:
+        with open(os.path.join(root, "config.json"), "w") as f:
+            json.dump({"device": str(dev), "batch": BATCH, "train_hw": [TH, TW],
+                       "spatial_batch": SPATIAL_BATCH, "frame": list(FRAME),
+                       "tta_hw": list(COMPILED_TTA_HW), "model": MESH_COMPILED_MODEL}, f)
+        store = os.path.join(root, "store")
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("LOCAL_RANK", "RANK", "WORLD_SIZE")}
+        env["PYTHONPATH"] = os.pathsep.join([os.path.dirname(os.path.abspath(__file__))] + [
+            p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])
+        logs = [open(os.path.join(root, f"rank{r}.log"), "w+") for r in range(2)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--mesh-compiled-rank", str(r), "2", store, root], env=env,
+                                  stdout=logs[r], stderr=subprocess.STDOUT) for r in range(2)]
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, MESH_COMPILED_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, log in enumerate(logs):
+            log.seek(0)
+            text = log.read()
+            log.close()
+            if procs[r].returncode != 0:
+                print(text[-6000:])
+            check(procs[r].returncode == 0, f"phase 27 rank {r} exited {procs[r].returncode}")
+        reports = []
+        for r in range(2):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                reports.append(json.load(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    counts = {}
+    for shape, layout in MESH_COMPILED_CASES:
+        key = f"{shape[0]}x{shape[1]}/{layout}"
+        cases = [rep[key] for rep in reports]
+        counts[key] = [c["launches"] for c in cases]
+        for name in COMPILED_KERNELS:
+            check(all(c["launches"][name] > 0 for c in cases),
+                  f"phase 27 {key}: {name} was never launched inside the replays")
+        for r, c in enumerate(cases):
+            print(f"phase 27 {key} rank {r} on {smi}: compiled = eager mesh steps (sha256 "
+                  f"params {c['digest']}, losses {c['losses']}); captures {c['captures']}; "
+                  f"(segments, collectives, replays, halo bytes) per capture {c['plans']}; "
+                  f"recorded per train replay {c['recorded_train_replay']}; launches inside the "
+                  f"replays {c['launches']} = recorded x replays + {G.WARMUP} x captures; halo "
+                  f"bytes a step {c['halo_bytes_per_step']}; {c['case_s']:.1f} s")
+            print(f"phase 27 {key} rank {r} step ms (two gloo ranks sharing one card, not a "
+                  f"scaling figure) on {smi}: compiled {c['step_ms']['compiled']}, eager "
+                  f"{c['step_ms']['eager']}; all steps {c['step_ms_each']}")
+            print(f"phase 27 {key} rank {r} private pool bytes of the train captures on {smi}: "
+                  f"{c['train_pool_bytes']}")
+    facade = [rep["facade"] for rep in reports]
+    counts["facade 2x1/dp"] = [f["launches"] for f in facade]
+    for r, f in enumerate(facade):
+        print(f"phase 27 facade 2x1/dp rank {r} on {smi}: FCN8s(mesh=...).train "
+              f"{MESH_COMPILED_FACADE_STEPS} steps at keep_prob 0.5 compiled = eager (sha256 "
+              f"params {f['compiled']['state']['params'][:16]}, loss {f['compiled']['loss']}); "
+              f"captures {f['compiled']['captures']}; plans {f['plans']}; launches "
+              f"{f['launches']}; train s compiled {f['compiled']['train_s']:.2f}, eager "
+              f"{f['eager']['train_s']:.2f} ({f['case_s']:.1f} s)")
+    print(f"phase 27: {time.perf_counter() - t0:.1f} s ({smi}; ranks {[r['path_s'] for r in reports]})")
+    return counts
+
+
 def main() -> None:
     smi = phase_card()
     dev = torch.device("cuda", 0)
@@ -4648,6 +5044,8 @@ def main() -> None:
     compiled_counts, _ = phase_compiled(dev, smi)
     torch.cuda.empty_cache()
     facade_compiled_counts, _ = phase_facade_compiled(dev, smi)
+    torch.cuda.empty_cache()
+    mesh_compiled_counts = phase_mesh_compiled(dev, smi)
     paths = {"serve+eval": serve_counts, "train": train_counts, "train weighted": weighted_counts,
              "conv1 calibration": conv1_counts}
     source_path = {"maxpool2x2_nhwc": "serve+eval", "ce_sum_per_sample": "serve+eval",
@@ -4676,6 +5074,8 @@ def main() -> None:
                                  "notebook": bench_counts["notebook"][name]},
          "launches_compiled": compiled_counts[name],
          "launches_facade_compiled": facade_compiled_counts[name],
+         "launches_mesh_compiled": {key: [c[name] for c in ranks]
+                                    for key, ranks in mesh_compiled_counts.items()},
          **measured[name]}
         for name in WRAPPERS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -4688,5 +5088,7 @@ if __name__ == "__main__":
         mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
     elif len(sys.argv) > 1 and sys.argv[1] == "--spatial-rank":
         spatial_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+    elif len(sys.argv) > 1 and sys.argv[1] == "--mesh-compiled-rank":
+        mesh_compiled_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
     else:
         main()

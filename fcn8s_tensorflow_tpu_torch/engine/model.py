@@ -48,8 +48,12 @@ keeps a bounded number of steps, the least recently used evicted
 (``_StepCache``), and the trees the steps read (the compute-dtype params,
 the EMA's cast, the int8 tree) are refreshed in place, so a refresh keeps
 their captures valid. On a mesh of more than one position, and with
-``spatial_partition``, the eager steps run (``_compiled``): the compiled
-steps do not take them yet.
+``spatial_partition``, the same caches hold compiled steps of that layout
+(keyed by it), whose graphs are cut at the step's collectives
+(``parallel/graphs.py`` ``Segments``); every rank makes the same calls, so
+every rank captures and replays alike. A spatial evaluate or predict on a
+tensor-parallel model runs on its params gathered into one tree refreshed
+in place (``_replicated``), so its captures replay too.
 """
 
 from __future__ import annotations
@@ -421,6 +425,7 @@ class FCN8s:
         self._qparams = None  # the int8 tree, built lazily by _quantized_params
         self._qparams_stale = False  # the masters moved since it was built
         self._run_params = None  # the compute-dtype cast, _refresh_run_params
+        self._replicated_run = None  # a spatial call's whole tree under TP (_replicated)
         # the compiled steps (see _get_train_step and _get_eval_step)
         self._train_steps = _StepCache(self._TRAIN_STEP_CACHE_MAX)
         self._eval_steps = _StepCache(self._FORWARD_STEP_CACHE_MAX)
@@ -472,6 +477,16 @@ class FCN8s:
         """The whole tree from this rank's blocks (a collective under
         tensor parallelism: every rank calls it)."""
         return gather_params(tree, self.mesh, True) if self._tp else tree
+
+    def _replicated(self, run: dict) -> dict:
+        """A spatial call's params: ``run`` (a compute-dtype tree of this
+        rank's blocks) whole, gathered under tensor parallelism into one
+        tree refreshed in place (``_refill``), so the spatial steps'
+        captures over it replay instead of capturing at every call."""
+        if not self._tp:
+            return run
+        self._replicated_run = _refill(self._replicated_run, self._gather(run))
+        return self._replicated_run
 
     def _relayout(self, move, fresh) -> None:
         """``move`` (``_gather`` or ``_shard``) over the masters, the
@@ -562,13 +577,14 @@ class FCN8s:
     # keep 8 steps each, and a caller that cycles through more shapes
     # recaptures (time, never a wrong result).
     _FORWARD_STEP_CACHE_MAX = 8
+    # Run the eager steps instead of the compiled ones: the reference that
+    # the compiled facade is held against, bit for bit.
+    _eager_steps = False
 
-    def _compiled(self, spatial_partition: bool = False) -> bool:
-        """Whether a step runs compiled: on one mesh position without
-        ``spatial_partition``. A mesh of more than one position and the
-        width split run the eager steps, which the compiled steps do not
-        take yet (``compile_*_step`` raise ``NotImplementedError`` there)."""
-        return self.mesh.size == 1 and not spatial_partition
+    def _layout_key(self, spatial_partition: bool) -> tuple:
+        """The layout a step bakes in, for the caches' keys."""
+        layout = self._step_layout(spatial_partition)
+        return (bool(layout.get("spatial_partition", False)), bool(layout["tensor_parallel"]))
 
     @staticmethod
     def _freeze_cfg(obj):
@@ -579,40 +595,47 @@ class FCN8s:
             return tuple(FCN8s._freeze_cfg(v) for v in obj)
         return obj
 
-    def _get_train_step(self, batch_shape):
-        """The compiled train step of this batch shape and device-augment
-        config, with the settings of the last ``train`` baked in (class
-        weights and gradient accumulation clear the cache when they
-        change)."""
-        key = (tuple(batch_shape), self._freeze_cfg(self._device_augment_cfg))
+    def _get_train_step(self, batch_shape, spatial_partition=False):
+        """The compiled train step of this batch shape, device-augment
+        config and layout (``_step_layout``), with the settings of the last
+        ``train`` baked in (class weights and gradient accumulation clear
+        the cache when they change)."""
+        key = (tuple(batch_shape), self._freeze_cfg(self._device_augment_cfg),
+               self._layout_key(spatial_partition))
+        layout = self._step_layout(spatial_partition)
         return self._train_steps.get(key, lambda: compile_train_step(
-            self.mesh, self.optimizer, self.num_classes, tensor_parallel=self.tensor_parallel,
+            optimizer=self.optimizer, num_classes=self.num_classes,
             compute_dtype=self.compute_dtype, augment_fn=self._augment_fn, remat=self.remat,
             grad_accum=self._grad_accum, ignore_label=self.ignore_label,
-            class_weights=self._class_weights, device=self.device))
+            class_weights=self._class_weights, device=self.device, **layout))
 
-    def _get_eval_step(self, batch_shape):
-        return self._eval_steps.get((tuple(batch_shape),), lambda: compile_eval_step(
-            self.mesh, self.num_classes, tensor_parallel=self.tensor_parallel,
-            compute_dtype=self.compute_dtype, ignore_label=self.ignore_label,
-            class_weights=self._class_weights, device=self.device))
+    def _get_eval_step(self, batch_shape, spatial_partition=False):
+        key = (tuple(batch_shape), self._layout_key(spatial_partition))
+        layout = self._step_layout(spatial_partition)
+        return self._eval_steps.get(key, lambda: compile_eval_step(
+            num_classes=self.num_classes, compute_dtype=self.compute_dtype,
+            ignore_label=self.ignore_label, class_weights=self._class_weights,
+            device=self.device, **layout))
 
-    def _get_predict_step(self, batch_shape, argmax, overlay_lut, quantized, compact):
-        """The compiled predict step of this batch shape and head: ids
-        (uint8 when ``compact``), softmax or the overlay of ``overlay_lut``
-        (keyed by its bytes), bf16 or int8."""
+    def _get_predict_step(self, batch_shape, argmax, overlay_lut, quantized, compact,
+                          spatial_partition=False):
+        """The compiled predict step of this batch shape, head and layout:
+        ids (uint8 when ``compact``), softmax or the overlay of
+        ``overlay_lut`` (keyed by its bytes), bf16 or int8."""
         lut_key = None if overlay_lut is None else overlay_lut.tobytes()
-        key = (tuple(batch_shape), argmax, lut_key, quantized, compact)
+        key = (tuple(batch_shape), argmax, lut_key, quantized, compact,
+               self._layout_key(spatial_partition))
+        layout = self._step_layout(spatial_partition)
         return self._predict_steps.get(key, lambda: compile_predict_step(
-            self.mesh, argmax=argmax, tensor_parallel=self.tensor_parallel,
-            compute_dtype=self.compute_dtype, id_dtype=torch.uint8 if compact else torch.int32,
-            overlay_lut=overlay_lut, quantized=quantized, device=self.device))
+            argmax=argmax, compute_dtype=self.compute_dtype,
+            id_dtype=torch.uint8 if compact else torch.int32, overlay_lut=overlay_lut,
+            quantized=quantized, device=self.device, **layout))
 
     def _get_tta_step(self, batch_shape, scale_hw, flip, quantized):
-        key = (tuple(batch_shape), scale_hw, flip, quantized)
+        key = (tuple(batch_shape), scale_hw, flip, quantized, self._layout_key(False))
         return self._tta_steps.get(key, lambda: compile_tta_step(
-            self.mesh, scale_hw=scale_hw, flip=flip, tensor_parallel=self.tensor_parallel,
-            compute_dtype=self.compute_dtype, quantized=quantized, device=self.device))
+            scale_hw=scale_hw, flip=flip, compute_dtype=self.compute_dtype,
+            quantized=quantized, device=self.device, **self._mesh_kwargs))
 
     def _step_caches(self) -> dict:
         return {"train": self._train_steps, "eval": self._eval_steps,
@@ -627,10 +650,10 @@ class FCN8s:
     def _train_call(self, state, batch, learning_rate, l2_rate, keep_prob,
                     spatial_partition=False):
         """One train step on the device batch (images, label ids, mask), with
-        the settings of the last ``train``: the compiled step where
-        ``_compiled``, else ``train_step``."""
-        if self._compiled(spatial_partition):
-            return self._get_train_step(batch[0].shape)(
+        the settings of the last ``train``: the compiled step (``train_step``
+        itself on ``_eager_steps``)."""
+        if not self._eager_steps:
+            return self._get_train_step(batch[0].shape, spatial_partition)(
                 state, *batch, self._train_seed, learning_rate, l2_rate, keep_prob)
         return train_step(state, *batch, self._train_seed, learning_rate, l2_rate, keep_prob,
                           optimizer=self.optimizer, num_classes=self.num_classes,
@@ -826,13 +849,14 @@ class FCN8s:
         compact = argmax and overlay_lut is None and self.num_classes <= 255
         padded, _ = self._pad_batch_dim(padded)
         run = self._inference_params(params, quantized)
-        if self._compiled(spatial_partition):
-            images = self._put_batch(padded)
-            step = self._get_predict_step(images.shape, argmax, overlay_lut, quantized, compact)
-            return step(run, images)
         if spatial_partition and not quantized:  # replicated (the int8 tree already is)
-            run = self._gather(run)
-        return predict_step(run, self._put_batch(padded), argmax=argmax,
+            run = self._replicated(run)
+        images = self._put_batch(padded)
+        if not self._eager_steps:
+            step = self._get_predict_step(images.shape, argmax, overlay_lut, quantized, compact,
+                                          spatial_partition)
+            return step(run, images)
+        return predict_step(run, images, argmax=argmax,
                             compute_dtype=self.compute_dtype,
                             id_dtype=torch.uint8 if compact else torch.int32,
                             overlay_lut=overlay_lut, quantized=quantized,
@@ -925,7 +949,7 @@ class FCN8s:
             sh = max(32, int(round(ph * float(s) / 32)) * 32)
             sw = max(32, int(round(pw * float(s) / 32)) * 32)
             scale_hw = None if (sh, sw) == (ph, pw) else (sh, sw)
-            if self._compiled():
+            if not self._eager_steps:
                 p = self._get_tta_step(im_d.shape, scale_hw, bool(flip), quantized)(call_params,
                                                                                    im_d)
             else:
@@ -1776,7 +1800,7 @@ class FCN8s:
         the width split over 'model', on replicated params."""
         run = self._run_params if params is None else params
         if spatial_partition:  # replicated
-            run = self._gather(run)
+            run = self._replicated(run)
         state = empty_metrics_state(self.num_classes, device=self.device)
         for _ in range(num_batches):
             if device_stream:
@@ -1787,8 +1811,9 @@ class FCN8s:
                 # padded to the 'data' axis with masked samples (none off a mesh)
                 im_d, lb_d, mask_d = self._put_batch(
                     *self._pad_batch_dim(np.asarray(images), label_ids))
-            if self._compiled(spatial_partition):
-                state = self._get_eval_step(im_d.shape)(run, state, im_d, lb_d, mask_d)
+            if not self._eager_steps:
+                state = self._get_eval_step(im_d.shape, spatial_partition)(run, state, im_d,
+                                                                            lb_d, mask_d)
             else:
                 state = eval_step(run, state, im_d, lb_d, mask_d,
                                   num_classes=self.num_classes, compute_dtype=self.compute_dtype,

@@ -20,6 +20,18 @@ On an axis of one position every function returns its input and launches
 nothing, so a (1, 1) mesh runs the single-card code exactly. The calls are
 the ones the gloo backend takes on CUDA tensors as well as on CPU tensors
 (``all_reduce``, ``all_gather``, ``broadcast_object_list``, ``barrier``).
+
+The cut points of a segmented capture (``parallel/graphs.py``): every
+``all_reduce`` and ``all_gather`` of a step goes through ``_issue`` as a
+``Collective`` on the buffers it reads and writes. Outside a capture it runs
+at once. While a compiled step is captured over a mesh, ``segmenter`` is
+set and takes it instead: the work before it ends up in one CUDA graph, the
+collective joins the step's plan on those same buffers, and the work after
+it goes into the next graph. A step computes its gradients through ``grad``,
+so a collective that autograd reaches in a backward (``_CopyToModel``,
+``_HaloExchange``, a recomputed block) is cut the same way.
+``broadcast_object`` and ``barrier`` run outside every step and are never
+cut.
 """
 
 from __future__ import annotations
@@ -30,12 +42,64 @@ import torch.distributed as dist
 from .mesh import DATA_AXIS, MODEL_AXIS, Mesh, WidthSplit
 
 
+class Collective:
+    """One ``all_reduce`` (``tensor`` reduced in place with ``op``) or
+    ``all_gather`` (every position's ``tensor`` into ``parts``) over
+    ``group``, held with its buffers, so that a captured step can issue it
+    again between two graphs on the same addresses."""
+
+    def __init__(self, kind: str, tensor: torch.Tensor, group, op=None, parts=None):
+        self.kind, self.tensor, self.group, self.op, self.parts = kind, tensor, group, op, parts
+
+    def run(self) -> None:
+        if self.kind == "all_reduce":
+            dist.all_reduce(self.tensor, op=self.op, group=self.group)
+        else:
+            dist.all_gather(self.parts, self.tensor, group=self.group)
+
+    def describe(self) -> tuple:
+        """(kind, reduce op, shape, dtype, the group's ranks): what the call
+        does, for comparing the collectives of two runs."""
+        return describe_call(self.kind, self.tensor, self.group, self.op)
+
+
+def describe_call(kind: str, tensor: torch.Tensor, group, op=None) -> tuple:
+    """``Collective.describe`` of a ``dist.all_reduce`` (``op``) or
+    ``dist.all_gather`` call on ``tensor`` over ``group``."""
+    op = None if kind != "all_reduce" else str(dist.ReduceOp.SUM if op is None else op)
+    return (kind, op, tuple(tensor.shape), str(tensor.dtype),
+            tuple(dist.get_process_group_ranks(group)))
+
+
+# the segmented capture in progress (``parallel/graphs.py``), or None
+segmenter = None
+
+
+def _issue(collective: Collective) -> None:
+    """Run ``collective``, or hand it to the segmented capture in progress."""
+    cut = segmenter
+    if cut is None:
+        collective.run()
+    else:
+        cut.cut(collective)
+
+
+def grad(outputs, inputs) -> tuple:
+    """``torch.autograd.grad(outputs, inputs)``; inside a segmented capture,
+    on a thread of its own, so that the capturing thread stays free to cut
+    at the collectives that the backward reaches."""
+    cut = segmenter
+    if cut is None:
+        return torch.autograd.grad(outputs, inputs)
+    return cut.grad(outputs, inputs)
+
+
 def all_reduce(t: torch.Tensor, mesh: Mesh | None, axis: str = DATA_AXIS,
                op=dist.ReduceOp.SUM) -> torch.Tensor:
     """Reduce ``t`` over ``axis`` in place (SUM by default) and return it."""
     group = None if mesh is None else mesh.group(axis)
     if group is not None:
-        dist.all_reduce(t, op=op, group=group)
+        _issue(Collective("all_reduce", t, group, op=op))
     return t
 
 
@@ -59,7 +123,7 @@ def all_gather_cat(t: torch.Tensor, mesh: Mesh | None, axis: str = DATA_AXIS,
         return t
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(mesh.shape[axis])]
-    dist.all_gather(parts, t, group=group)
+    _issue(Collective("all_gather", t, group, parts=parts))
     return torch.cat(parts, dim=dim)
 
 
@@ -86,7 +150,7 @@ def _all_gather_raw(t: torch.Tensor, mesh: Mesh, axis: str) -> list:
     and int8 included) whatever the backend's own type list."""
     raw = t.contiguous().view(torch.uint8)
     parts = [torch.empty_like(raw) for _ in range(mesh.shape[axis])]
-    dist.all_gather(parts, raw, group=mesh.group(axis))
+    _issue(Collective("all_gather", raw, mesh.group(axis), parts=parts))
     return [p.view(t.dtype) for p in parts]
 
 

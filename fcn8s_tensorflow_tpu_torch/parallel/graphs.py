@@ -37,20 +37,43 @@ addresses and the kernel arguments it recorded, which shapes this module:
   pins host memory meanwhile (the input prefetcher) is not refused, while
   an unsafe call made by the capturing thread itself still raises.
 
+On a mesh of more than one position a step's body issues collectives
+(``parallel/collectives.py``: the gradient and metric sums, the gathers of
+predict, the Megatron pair, the halo exchange), and a collective over gloo
+stages through the host and cannot sit inside a graph. A capture on the
+card is a ``Segments``, an ordered plan of graphs that share one private
+pool (one graph off a mesh), and ``capture(..., segmented=True)`` cuts the
+body at the collectives: each sits between two graphs on the buffers the
+capture recorded, and a replay runs graph, collective, graph. A backward's collectives run on autograd's
+thread, while a capture must begin and end on the thread that began it: the
+body computes its gradients through ``collectives.grad``, which runs the
+backward on a thread of its own and leaves the capturing thread to cut at
+each collective that the backward hands it (``_Segmenter``). The warm-up,
+the restore and the generators hold for every segment, a segment that fails
+to capture raises, and ``halo_exchange.bytes`` (a host counter bumped as
+the exchange is recorded) is added per replay like the launch counts.
+
 On the CPU, which the caller must ask for, nothing is captured: ``capture``
 warms up and restores the same way and ``run`` calls the body, so the CPU
 tests hold the captured body itself against the JAX package and the eager
-step.
+step. A segmented body runs there under the same ``_Segmenter`` with no
+graph: its collectives run in the plan's order at the same cut points, the
+backward's handed over from its own thread, so the CPU tests exercise the
+cuts and the hand-over themselves.
 """
 
 from __future__ import annotations
 
+import contextlib
+import queue
+import threading
 import weakref
 from collections import OrderedDict
 
 import torch
 
 from ..ops import conv1_core, kernels, pool, quantize
+from . import collectives
 
 WARMUP = 2  # calls of a body before its capture
 # captures one compiled step keeps (least recently used evicted first): a
@@ -144,22 +167,169 @@ class FixedGenerators:
         return list(self._gens.values())
 
 
+class Segments:
+    """A body captured as CUDA graphs cut at its collectives: ``graphs[0]``,
+    then ``collectives[0]``, then ``graphs[1]``, and so on, one graph more
+    than collectives. The graphs share one private pool, so a tensor made
+    in one segment and read in a later one keeps its address, and each
+    ``collectives.Collective`` holds the buffers it reads and writes."""
+
+    def __init__(self):
+        self.graphs, self.collectives = [], []
+
+    def replay(self) -> None:
+        for i, graph in enumerate(self.graphs):
+            graph.replay()
+            if i < len(self.collectives):
+                self.collectives[i].run()
+
+    def reset(self) -> None:
+        for graph in self.graphs:
+            graph.reset()
+        self.graphs, self.collectives = [], []
+
+
+class _Segmenter:
+    """The cuts of one segmented call (``collectives.segmenter`` while it
+    runs). With ``plan`` (a capture on the card) a collective ends the graph
+    being captured, joins the plan and begins the next graph; with no plan
+    (the CPU) it runs where it stands. Either way ``issued`` lists each
+    collective's ``describe()`` in order. Only the thread that runs the body
+    (``owner``) cuts: ``grad`` runs the backward on a thread of its own, and
+    a collective reached there (on autograd's thread) is handed to the owner,
+    which cuts and lets the backward go on."""
+
+    def __init__(self, plan: Segments | None = None, generators=(), pool=None):
+        self.plan, self.generators, self.pool = plan, list(generators), pool
+        self.issued: list = []
+        self.owner = threading.get_ident()
+        self.current = None  # the graph being captured
+        self._requests = None  # a queue while a backward runs
+
+    def begin(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        for gen in self.generators:
+            graph.register_generator_state(gen)
+        graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+        self.current = graph
+
+    def end(self) -> None:
+        graph, self.current = self.current, None
+        graph.capture_end()
+        self.plan.graphs.append(graph)
+
+    def cut(self, collective) -> None:
+        if threading.get_ident() != self.owner:
+            self._hand_over(collective)
+            return
+        self.issued.append(collective.describe())
+        if self.plan is None:
+            collective.run()
+            return
+        self.end()
+        self.plan.collectives.append(collective)
+        self.begin()
+
+    def _hand_over(self, collective) -> None:
+        if self._requests is None:
+            raise RuntimeError("a collective reached from another thread outside a backward "
+                               "of the segmented step")
+        done, reply = threading.Event(), {}
+        self._requests.put((collective, done, reply))
+        done.wait()
+        if "error" in reply:
+            raise RuntimeError("the capturing thread failed to cut at a collective of the "
+                               "backward") from reply["error"]
+
+    def grad(self, outputs, inputs) -> tuple:
+        """``torch.autograd.grad`` on a thread of its own (on the capture's
+        stream, with this thread's intra-op thread count), this thread
+        cutting at each collective that the backward hands over."""
+        threads = torch.get_num_threads()
+        stream = torch.cuda.current_stream() if self.plan is not None else None
+        self._requests = requests = queue.Queue()
+        box = {}
+
+        def work():
+            try:
+                torch.set_num_threads(threads)
+                with torch.cuda.stream(stream) if stream is not None else \
+                        contextlib.nullcontext():
+                    box["grads"] = torch.autograd.grad(outputs, inputs)
+            except BaseException as exc:  # raised again on the owner
+                box["error"] = exc
+            finally:
+                requests.put(None)
+
+        worker = threading.Thread(target=work, name="segmented-backward", daemon=True)
+        worker.start()
+        try:
+            while (request := requests.get()) is not None:
+                collective, done, reply = request
+                try:
+                    self.cut(collective)
+                except BaseException as exc:
+                    reply["error"] = exc
+                    box.setdefault("cut_error", exc)
+                finally:
+                    done.set()
+        finally:
+            worker.join()
+            self._requests = None
+        if "cut_error" in box:
+            raise box["cut_error"]
+        if "error" in box:
+            raise box["error"]
+        return box["grads"]
+
+
+@contextlib.contextmanager
+def _segmenting(segmenter: _Segmenter):
+    collectives.segmenter = segmenter
+    try:
+        yield segmenter
+    finally:
+        collectives.segmenter = None
+
+
 class Captured:
     """One captured call of a step body: ``run(*args)`` replays the graph
     (on the CPU, calls the body on ``args``) and returns its outputs, which
     on the card are the static tensors the capture returned: the next
     ``run`` writes them again. A replay reads the tensors the capture was
-    made over by address: the caller passes the same ones again."""
+    made over by address: the caller passes the same ones again.
 
-    def __init__(self, body, graph, outputs, launches):
+    On the card ``graph`` is the capture's ``Segments``; ``issued`` lists the
+    collectives of its plan (``Collective.describe``), from the capture on
+    the card and from the last run on the CPU, where ``run`` calls the body
+    under a ``_Segmenter`` with no graph; ``halo_bytes`` is what one call
+    adds to ``halo_exchange.bytes``. ``replays`` counts the calls of
+    ``run``."""
+
+    def __init__(self, body, graph, outputs, launches, *, segmented: bool = False,
+                 halo_bytes: int = 0, issued=()):
         self.body, self.graph, self.outputs, self.launches = body, graph, outputs, launches
+        self.segmented, self.halo_bytes, self.issued = segmented, halo_bytes, list(issued)
+        self.replays = 0
+
+    @property
+    def segments(self) -> int:
+        """The graphs a replay runs: one more than its collectives."""
+        return len(self.issued) + 1
 
     def run(self, *args):
+        self.replays += 1
         if self.graph is None:
-            return self.body(*args)
+            if not self.segmented:
+                return self.body(*args)
+            with _segmenting(_Segmenter()) as cuts:
+                out = self.body(*args)
+            self.issued = cuts.issued
+            return out
         self.graph.replay()
         for fn, n in zip(KERNEL_WRAPPERS, self.launches):
             fn.launches += n
+        collectives.halo_exchange.bytes += self.halo_bytes
         return self.outputs
 
     def release(self) -> None:
@@ -238,21 +408,23 @@ def _put_back(tensors, saved) -> None:
 
 
 def capture(body, device: torch.device, *, args=(), restore=(),
-            generators: FixedGenerators | None = None) -> Captured:
+            generators: FixedGenerators | None = None, segmented: bool = False) -> Captured:
     """Warm ``body(*args)`` up ``WARMUP`` times (on a side stream on the
     card), put the tensors of ``restore`` (those the body writes in place)
     back as they were before it, then capture one call into a CUDA graph,
     in thread-local capture mode, with the generators of ``generators``
-    registered (first met in the warm-up). The capture records the body's
-    kernel launches without running them: the counters are set back, and
-    ``Captured.run`` adds them per replay. On the CPU the warm-up and the
-    restore run the same way and nothing is captured."""
+    registered (first met in the warm-up), as the one graph of a
+    ``Segments``. The capture records the body's kernel launches without
+    running them: the counters are set back, and ``Captured.run`` adds them
+    per replay. ``segmented``: the body issues collectives, and the capture
+    is cut at each. On the CPU the warm-up and the restore run the same way
+    and nothing is captured."""
     saved = [t.detach().clone() for t in restore]
     if device.type != "cuda":
         for _ in range(WARMUP):
             body(*args)
         _put_back(restore, saved)
-        return Captured(body, None, None, [0] * len(KERNEL_WRAPPERS))
+        return Captured(body, None, None, [0] * len(KERNEL_WRAPPERS), segmented=segmented)
     current = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
     side.wait_stream(current)
@@ -262,20 +434,52 @@ def capture(body, device: torch.device, *, args=(), restore=(),
     current.wait_stream(side)
     _put_back(restore, saved)
     del saved
-    graph = torch.cuda.CUDAGraph()
-    if generators is not None:
-        if not hasattr(graph, "register_generator_state"):
-            raise RuntimeError(f"torch {torch.__version__} cannot register a generator with a "
-                               "CUDA graph (CUDAGraph.register_generator_state)")
-        for gen in generators.all():
-            graph.register_generator_state(gen)
-    before = _launch_counts()
+    if generators is not None and not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+        raise RuntimeError(f"torch {torch.__version__} cannot register a generator with a "
+                           "CUDA graph (CUDAGraph.register_generator_state)")
+    gens = generators.all() if generators is not None else []
+    before, halo = _launch_counts(), collectives.halo_exchange.bytes
     try:
-        with torch.cuda.device(device), torch.cuda.graph(graph,
-                                                         capture_error_mode="thread_local"):
-            outputs = body(*args)
+        graph, outputs, issued = _capture_segments(body, args, device, gens, segmented)
     finally:
         recorded = [a - b for a, b in zip(_launch_counts(), before)]
         for fn, n in zip(KERNEL_WRAPPERS, before):
             fn.launches = n
-    return Captured(body, graph, outputs, recorded)
+        halo_bytes = collectives.halo_exchange.bytes - halo
+        collectives.halo_exchange.bytes = halo
+    return Captured(body, graph, outputs, recorded, segmented=segmented, halo_bytes=halo_bytes,
+                    issued=issued)
+
+
+def _capture_segments(body, args, device: torch.device, generators: list, cut: bool):
+    """``body(*args)`` captured as ``Segments`` on a side stream of
+    ``device``: the first graph begins here, and with ``cut`` each
+    collective the body issues (or its backward hands over) ends one and
+    begins the next (without, the plan is one graph); the last ends here.
+    Every graph registers ``generators`` and draws from one new private
+    pool. A failure ends the open capture, releases the graphs made so far
+    and raises."""
+    plan = Segments()
+    cuts = _Segmenter(plan, generators, torch.cuda.graph_pool_handle())
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    try:
+        with torch.cuda.device(device), torch.cuda.stream(stream), \
+                _segmenting(cuts) if cut else contextlib.nullcontext():
+            cuts.begin()
+            try:
+                outputs = body(*args)
+            except BaseException:
+                if cuts.current is not None:
+                    with contextlib.suppress(Exception):
+                        cuts.current.capture_end()
+                    cuts.current = None
+                raise
+            cuts.end()
+    except BaseException:
+        plan.reset()
+        raise
+    torch.cuda.current_stream(device).wait_stream(stream)
+    return plan, outputs, cuts.issued

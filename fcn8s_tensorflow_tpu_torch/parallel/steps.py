@@ -6,7 +6,9 @@ Each step is a plain function of (params, device tensors), run eagerly.
 ``compile_predict_step`` and ``compile_tta_step`` (JAX's compiled steps,
 at the end of this module) capture the same bodies in CUDA graphs
 (``parallel/graphs.py``) and replay them, one dispatch per step (or per S
-steps), with the eager steps' results bit for bit; on one position only.
+steps), with the eager steps' results bit for bit; on a mesh of more than
+one position, as graphs cut at the step's collectives, which the host
+issues between them.
 
 On a mesh (``parallel/mesh.py``: one process per position, ``mesh=`` and
 ``tensor_parallel=`` on every step) each rank passes its rows of the batch
@@ -59,7 +61,7 @@ from ..ops.losses import class_pixel_weights, valid_pixel_weights
 from ..ops.metrics import update_metrics_state
 from ..ops.nn import resize_bilinear
 from ..ops.quantize import apply_fcn8s_int8
-from .collectives import all_gather_cat, all_reduce, all_reduce_flat, gather_width
+from .collectives import all_gather_cat, all_reduce, all_reduce_flat, gather_width, grad
 from .graphs import (CaptureCache, CaptureEntry, FixedGenerators, binding, capture, fill_scalars,
                      signature, static_like, tensors_of)
 from .mesh import ALL_AXES, DATA_AXIS, MODEL_AXIS, sharded_leaves, width_split
@@ -358,7 +360,7 @@ def loss_and_grads(params: dict, images: torch.Tensor, label_ids: torch.Tensor,
     if grad_accum <= 1:
         denominator = global_counts(label_ids, sample_mask)[1][0] if spread else None
         loss = loss_for(images, label_ids, sample_mask, generators(), denominator)
-        grads = list(torch.autograd.grad(loss, leaves))
+        grads = list(grad(loss, leaves))
         if spread:
             loss, grads = all_reduce(loss.detach(), mesh, axes), all_reduce_flat(grads, mesh, axes)
         return loss.detach(), grads
@@ -381,7 +383,7 @@ def loss_and_grads(params: dict, images: torch.Tensor, label_ids: torch.Tensor,
         part = slice(i * b, (i + 1) * b)
         loss_i = loss_for(images[part], label_ids[part], sample_mask[part], generators(i),
                           denominators[i])
-        g_i = torch.autograd.grad(loss_i, leaves)
+        g_i = grad(loss_i, leaves)
         with torch.no_grad():
             for acc, g in zip(grads, g_i):
                 acc.add_(g.mul_(shares[i]))
@@ -426,12 +428,9 @@ def train_step(state: TrainState, images: torch.Tensor, label_ids: torch.Tensor,
     del num_classes
     split = _width_split(images, mesh, spatial_partition, tensor_parallel)
     if augment_fn is not None:
-        key = augment_key(seed, state.step)
-        if mesh is not None and mesh.shape[DATA_AXIS] > 1:
-            key = np.random.SeedSequence(key.entropy,
-                                         spawn_key=key.spawn_key + (mesh.coords[DATA_AXIS],))
         with torch.no_grad():
-            images, label_ids = augment_fn(key, images, label_ids)
+            images, label_ids = augment_fn(_rank_augment_key(seed, state.step, mesh), images,
+                                           label_ids)
     if split is not None:
         images, label_ids = split.columns(images, 2), split.columns(label_ids, 2)
     loss, grads = loss_and_grads(
@@ -445,12 +444,26 @@ def train_step(state: TrainState, images: torch.Tensor, label_ids: torch.Tensor,
     return state, loss
 
 
-def _width_split(images: torch.Tensor, mesh, spatial_partition: bool, tensor_parallel: bool):
-    """The width split of a step's NHWC ``images`` (None: the width is
-    whole), after JAX's check that the two uses of 'model' exclude each
-    other."""
+def _rank_augment_key(seed: int, step: int, mesh) -> np.random.SeedSequence:
+    """``augment_key(seed, step)``, over a >1 'data' axis with this rank's
+    data position appended: ranks that hold the same rows draw the same."""
+    key = augment_key(seed, step)
+    if mesh is not None and mesh.shape[DATA_AXIS] > 1:
+        key = np.random.SeedSequence(key.entropy,
+                                     spawn_key=key.spawn_key + (mesh.coords[DATA_AXIS],))
+    return key
+
+
+def _check_layout(spatial_partition: bool, tensor_parallel: bool) -> None:
+    """JAX's argument check: the two uses of 'model' exclude each other."""
     if spatial_partition and tensor_parallel:
         raise ValueError("spatial_partition and tensor_parallel are mutually exclusive")
+
+
+def _width_split(images: torch.Tensor, mesh, spatial_partition: bool, tensor_parallel: bool):
+    """The width split of a step's NHWC ``images`` (None: the width is
+    whole), after ``_check_layout``."""
+    _check_layout(spatial_partition, tensor_parallel)
     return width_split(images.shape[2], mesh) if spatial_partition else None
 
 
@@ -616,18 +629,10 @@ def tta_step(params: dict, images: torch.Tensor, *, scale_hw=None, flip: bool = 
 # ---------------------------------------------------------------------------
 
 
-def _check_compilable(name: str, mesh, spatial_partition: bool, tensor_parallel: bool) -> None:
-    """JAX's argument check, then what the compiled steps take: no mesh or
-    a mesh of one position, and the whole width."""
-    if spatial_partition and tensor_parallel:
-        raise ValueError("spatial_partition and tensor_parallel are mutually exclusive")
-    if spatial_partition:
-        raise NotImplementedError(f"{name}(spatial_partition=True) is not captured: run the "
-                                  "eager steps with mesh=..., spatial_partition=True")
-    if mesh is not None and mesh.size > 1:
-        raise NotImplementedError(
-            f"{name} on a mesh of {mesh.size} positions is not captured: run the eager "
-            "train_step/eval_step/predict_step/tta_step with mesh=...")
+def _segmented(mesh) -> bool:
+    """Whether a step on ``mesh`` issues collectives, so that its capture is
+    cut at them (``graphs.Segments``): a mesh of more than one position."""
+    return mesh is not None and mesh.size > 1
 
 
 def _require_on(device: torch.device, tensors, what: str) -> None:
@@ -652,14 +657,15 @@ def _class_weights(class_weights, device):
     return torch.as_tensor(class_weights, dtype=torch.float32).to(device)
 
 
-def _site_seed(seed: int, step: int, site) -> int:
+def _site_seed(seed: int, step: int, mesh, site) -> int:
     """The seed of one draw site of a compiled train dispatch that starts at
     ``step``: the eager step's dropout seed per microbatch, or its
-    augmentation slot's seed, for the dispatch's ``k``-th step."""
+    augmentation slot's seed (this rank's key on ``mesh``), for the
+    dispatch's ``k``-th step."""
     kind, k, index = site
     if kind == "dropout":
         return dropout_seed(seed, step + k, index)
-    return transform_seed(augment_key(seed, step + k), index)
+    return transform_seed(_rank_augment_key(seed, step + k, mesh), index)
 
 
 class _CompiledStep:
@@ -684,16 +690,19 @@ class _CompiledStep:
 class _CompiledTrain(_CompiledStep):
     """``compile_train_step``'s and ``compile_multi_train_step``'s callable:
     ``steps`` train steps (S) captured in one graph per state, input
-    signature and keep_prob regime."""
+    signature and keep_prob regime (on a mesh of more than one position,
+    in graphs cut at their collectives)."""
 
     def __init__(self, optimizer: Optimizer, *, multi: bool, steps: int, device,
                  compute_dtype, augment_fn, remat: bool, grad_accum: int, ignore_label,
-                 class_weights):
+                 class_weights, mesh, tensor_parallel: bool, spatial_partition: bool = False):
         self.optimizer, self.multi, self.steps, self.device = optimizer, multi, steps, device
         self.augment_fn = augment_fn
+        self.mesh, self.tensor_parallel, self.spatial = mesh, tensor_parallel, spatial_partition
         self.loss_kw = dict(compute_dtype=compute_dtype, remat=remat, grad_accum=grad_accum,
                             ignore_label=ignore_label,
-                            class_weights=_class_weights(class_weights, device))
+                            class_weights=_class_weights(class_weights, device),
+                            mesh=mesh, tensor_parallel=tensor_parallel)
         self.generators = FixedGenerators(device)
         # learning rate, L2 rate, keep_prob, then Adam's lr_scale of each step
         self.scalars = torch.zeros(3 + steps, dtype=torch.float32, device=device)
@@ -718,7 +727,8 @@ class _CompiledTrain(_CompiledStep):
         scales = [self.optimizer.lr_scale(inner.count + k + 1) if adam else 0.0
                   for k in range(self.steps)]
         fill_scalars(self.scalars, [learning_rate, l2_rate, keep_prob] + scales)
-        self.generators.reseed(partial(_site_seed, seed, state.step))
+        seeds = partial(_site_seed, seed, state.step, self.mesh)
+        self.generators.reseed(seeds)
         args = (state.params, state.opt_state)
         entry = self.captures.lookup(key)
         if entry is None:
@@ -726,9 +736,10 @@ class _CompiledTrain(_CompiledStep):
             for buf, x in zip(statics, inputs):
                 buf.copy_(x)
             captured = capture(partial(self._body, statics, drops), self.device, args=args,
-                               restore=held, generators=self.generators)
+                               restore=held, generators=self.generators,
+                               segmented=_segmented(self.mesh))
             entry = self.captures.add(key, CaptureEntry(captured, statics, held))
-            self.generators.reseed(partial(_site_seed, seed, state.step))
+            self.generators.reseed(seeds)
         for buf, x in zip(entry.statics, inputs):
             buf.copy_(x)
         for _ in range(self.steps):
@@ -743,22 +754,27 @@ class _CompiledTrain(_CompiledStep):
     def _body(self, statics: list, drops: bool, params: dict, opt_state: OptimizerState):
         """The device work of ``steps`` train steps on the static inputs,
         every host scalar read from ``scalars``: the eager step's augment,
-        ``loss_and_grads`` and ``Optimizer.update``, each draw from a fixed
-        generator of ``generators``."""
+        width split, ``loss_and_grads`` and ``Optimizer.update``, each draw
+        from a fixed generator of ``generators``; on a mesh, with the eager
+        step's collectives (the cuts of a segmented capture)."""
         lr, l2 = self.scalars[0], self.scalars[1]
         keep_prob = self.scalars[2] if drops else 1.0
         losses = []
         for k in range(self.steps):
             images, label_ids, sample_mask = (x[k] for x in statics) if self.multi else statics
+            split = _width_split(images, self.mesh, self.spatial, self.tensor_parallel)
             if self.augment_fn is not None:
                 with torch.no_grad():
                     images, label_ids = self.augment_fn(partial(self._draw, "augment", k),
                                                         images, label_ids)
+            if split is not None:
+                images, label_ids = split.columns(images, 2), split.columns(label_ids, 2)
             loss, grads = loss_and_grads(params, images, label_ids, sample_mask, seed=None,
                                          step=None, l2_rate=l2, keep_prob=keep_prob,
                                          generators=partial(self._draw, "dropout", k),
-                                         **self.loss_kw)
-            self.optimizer.update(params, grads, opt_state, lr, self.scalars[3 + k])
+                                         split=split, **self.loss_kw)
+            self.optimizer.update(params, grads, opt_state, lr, self.scalars[3 + k],
+                                  mesh=self.mesh, tensor_parallel=self.tensor_parallel)
             losses.append(loss)
         return torch.stack(losses) if self.multi else losses[0]
 
@@ -795,20 +811,28 @@ def compile_train_step(mesh, optimizer: Optimizer, num_classes: int, *,
     ``device`` (default the card; without one it raises and names
     ``device="cpu"``): on the CPU the same body runs without a capture.
     On the card nothing falls back: a failed warm-up or capture raises.
-    ``mesh`` is None or a mesh of one position; a larger mesh, or
-    ``spatial_partition``, raises ``NotImplementedError`` (the eager
-    ``train_step(mesh=...)`` runs them). ``tensor_parallel``,
-    ``example_state``, ``donate`` and ``use_pallas_ce`` are JAX's and
-    change nothing here: one position has no 'model' axis, a capture is
-    made at the first call, the state is always updated in place, and the
-    CE always runs through K1/K3. ``num_classes`` is kept for the
-    signature."""
+
+    ``mesh``, ``tensor_parallel`` and ``spatial_partition`` as in
+    ``train_step`` (the inputs are this rank's rows, the state its shards;
+    ``spatial_partition`` with ``tensor_parallel`` raises ``ValueError``, as
+    in JAX). On a mesh of more than one position the capture is cut at the
+    step's collectives (``graphs.Segments``): the sample-count sum, the
+    graph of the forward and backward (cut again at each collective of the
+    backward: the Megatron pair's, every halo exchange's), the loss and
+    gradient sums, the update (cut at the clip's 'model' sum under tensor
+    parallelism); the host issues each collective between two replayed
+    graphs, on the buffers the capture recorded. Every rank must call the
+    step alike. ``example_state``, ``donate`` and ``use_pallas_ce`` are
+    JAX's and change nothing here: a capture is made at the first call,
+    the state is always updated in place, and the CE always runs through
+    K1/K3. ``num_classes`` is kept for the signature."""
     del num_classes, example_state, donate, use_pallas_ce
-    _check_compilable("compile_train_step", mesh, spatial_partition, tensor_parallel)
+    _check_layout(spatial_partition, tensor_parallel)
     return _CompiledTrain(optimizer, multi=False, steps=1, device=_device(device),
                           compute_dtype=compute_dtype, augment_fn=augment_fn, remat=remat,
                           grad_accum=grad_accum, ignore_label=ignore_label,
-                          class_weights=class_weights)
+                          class_weights=class_weights, mesh=mesh,
+                          tensor_parallel=tensor_parallel, spatial_partition=spatial_partition)
 
 
 def compile_multi_train_step(mesh, optimizer: Optimizer, num_classes: int, *,
@@ -827,15 +851,16 @@ def compile_multi_train_step(mesh, optimizer: Optimizer, num_classes: int, *,
     and augmentation draws (those of its ``state.step``) and its own Adam
     ``t``, so S single compiled steps at the same scalars give the same
     state and losses. ``steps_per_dispatch < 1`` raises ``ValueError``;
-    the rest as ``compile_train_step``."""
+    the rest as ``compile_train_step`` (no ``spatial_partition``, as in
+    JAX; on a mesh of more than one position, S steps' cuts in turn)."""
     del num_classes, example_state, donate, use_pallas_ce
     if steps_per_dispatch < 1:
         raise ValueError("steps_per_dispatch must be >= 1")
-    _check_compilable("compile_multi_train_step", mesh, False, tensor_parallel)
     return _CompiledTrain(optimizer, multi=True, steps=steps_per_dispatch,
                           device=_device(device), compute_dtype=compute_dtype,
                           augment_fn=augment_fn, remat=remat, grad_accum=grad_accum,
-                          ignore_label=ignore_label, class_weights=class_weights)
+                          ignore_label=ignore_label, class_weights=class_weights, mesh=mesh,
+                          tensor_parallel=tensor_parallel)
 
 
 class _CompiledForward(_CompiledStep):
@@ -843,10 +868,13 @@ class _CompiledForward(_CompiledStep):
     captured per params tree and input signature. With ``metrics`` (the
     eval step) the step also takes a metrics state, which is copied into
     the capture's accumulators before each replay and back after it, so
-    the caller's tensors are updated in place."""
+    the caller's tensors are updated in place. ``segmented``: ``fn`` issues
+    collectives (a mesh of more than one position), and the capture is cut
+    at them."""
 
-    def __init__(self, fn, device: torch.device, metrics: bool = False):
-        self.fn, self.device, self.metrics = fn, device, metrics
+    def __init__(self, fn, device: torch.device, metrics: bool = False,
+                 segmented: bool = False):
+        self.fn, self.device, self.metrics, self.segmented = fn, device, metrics, segmented
         self.captures = CaptureCache()
 
     def __call__(self, params: dict, *args):
@@ -861,7 +889,8 @@ class _CompiledForward(_CompiledStep):
             acc = {k: static_like(state[k], self.device) for k in names}
             self._copy_in(statics, inputs, acc, state)
             body = partial(self._body, acc if self.metrics else None, statics)
-            captured = capture(body, self.device, args=(params,), restore=list(acc.values()))
+            captured = capture(body, self.device, args=(params,), restore=list(acc.values()),
+                               segmented=self.segmented)
             entry = self.captures.add(key, CaptureEntry(captured, statics, held, acc))
         self._copy_in(entry.statics, inputs, entry.acc, state)
         out = entry.captured.run(params)
@@ -897,14 +926,18 @@ def compile_eval_step(mesh, num_classes: int, *, tensor_parallel: bool = True,
     tree and input signature, so one step serves the live, the EMA and the
     int8 trees side by side (``graphs.MAX_CAPTURES`` captures, the least
     recently used evicted; a capture whose tree is gone is released).
-    ``mesh``, ``spatial_partition``, ``device`` and JAX's
-    ``tensor_parallel``/``example_params`` as in ``compile_train_step``."""
+    ``mesh``, ``tensor_parallel``, ``spatial_partition`` and ``device`` as
+    in ``compile_train_step``: on a mesh of more than one position the
+    graphs are cut at the loss normaliser's and the metric sums, at the
+    Megatron pair's 'model' sum and at every halo exchange; JAX's
+    ``example_params`` changes nothing."""
     del example_params
-    _check_compilable("compile_eval_step", mesh, spatial_partition, tensor_parallel)
+    _check_layout(spatial_partition, tensor_parallel)
     device = _device(device)
     fn = partial(eval_step, num_classes=num_classes, compute_dtype=compute_dtype,
-                 ignore_label=ignore_label, class_weights=_class_weights(class_weights, device))
-    return _CompiledForward(fn, device, metrics=True)
+                 ignore_label=ignore_label, class_weights=_class_weights(class_weights, device),
+                 mesh=mesh, tensor_parallel=tensor_parallel, spatial_partition=spatial_partition)
+    return _CompiledForward(fn, device, metrics=True, segmented=_segmented(mesh))
 
 
 def compile_predict_step(mesh, *, argmax: bool = True, tensor_parallel: bool = True,
@@ -914,12 +947,16 @@ def compile_predict_step(mesh, *, argmax: bool = True, tensor_parallel: bool = T
     """``predict_step`` captured in a CUDA graph: returns ``step(params,
     images)`` -> ids, softmax or overlay (a fresh tensor on the device),
     ``predict_step``'s result bit for bit. ``quantized``: ``params`` is the
-    int8 tree (``apply_fcn8s_int8``). The rest as ``compile_eval_step``."""
+    int8 tree (``apply_fcn8s_int8``; on a mesh, cut at dynamic int8's
+    per-layer absmax sums too). The output of the whole batch is gathered
+    over the mesh inside the step (cut at the gathers). The rest as
+    ``compile_eval_step``."""
     del example_params
-    _check_compilable("compile_predict_step", mesh, spatial_partition, tensor_parallel)
+    _check_layout(spatial_partition, tensor_parallel)
     fn = partial(predict_step, argmax=argmax, compute_dtype=compute_dtype, id_dtype=id_dtype,
-                 overlay_lut=overlay_lut, quantized=quantized)
-    return _CompiledForward(fn, _device(device))
+                 overlay_lut=overlay_lut, quantized=quantized, mesh=mesh,
+                 tensor_parallel=tensor_parallel, spatial_partition=spatial_partition)
+    return _CompiledForward(fn, _device(device), segmented=_segmented(mesh))
 
 
 def compile_tta_step(mesh, *, scale_hw=None, flip: bool = True, tensor_parallel: bool = True,
@@ -928,9 +965,8 @@ def compile_tta_step(mesh, *, scale_hw=None, flip: bool = True, tensor_parallel:
     """``tta_step`` for one scale captured in a CUDA graph: returns
     ``step(params, images)`` -> (N, H, W, C) fp32 mean probabilities (a
     fresh tensor), ``tta_step``'s result bit for bit. The rest as
-    ``compile_predict_step``."""
+    ``compile_predict_step`` (no ``spatial_partition``, as in JAX)."""
     del example_params
-    _check_compilable("compile_tta_step", mesh, False, tensor_parallel)
     fn = partial(tta_step, scale_hw=scale_hw, flip=flip, compute_dtype=compute_dtype,
-                 quantized=quantized)
-    return _CompiledForward(fn, _device(device))
+                 quantized=quantized, mesh=mesh, tensor_parallel=tensor_parallel)
+    return _CompiledForward(fn, _device(device), segmented=_segmented(mesh))

@@ -590,7 +590,7 @@ def test_train_augments_with_draws_of_seed_and_step(rng, tmp_path):
 
         model._augment_fn, model._device_augment_cfg = record, cfg  # reused: same config
         if eager:
-            model._compiled = lambda spatial_partition=False: False
+            model._eager_steps = True
 
     def run(model, steps):
         model.train(iter([(images, labels)] * steps), 1, steps, lambda s: 1e-3, keep_prob=0.5,

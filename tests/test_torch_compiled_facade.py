@@ -12,8 +12,8 @@ caches' bookkeeping:
   ``train_step`` plus the EMA update from a copy of the same weights
   (keep_prob 0.5, device augmentation, ``gradient_accumulation=2`` on an
   odd batch, class weights, a periodic evaluation on 'train'), the other
-  paths against the same facade with ``_compiled`` turned off (the
-  eager steps, the facade as it ran before);
+  paths against the same facade with ``_eager_steps`` set (the eager
+  steps, the facade as it ran before);
 * the capture counts (``capture_counts``): one train and one eval capture
   over a run with three periodic evaluations; none more when the live,
   EMA and int8 trees alternate, for a tiled or ``predict_and_save`` tail,
@@ -21,8 +21,9 @@ caches' bookkeeping:
   a new one after ``calibrate_quantization``; four train steps kept of
   five augment configs, the evicted one collected; a tree that is gone
   takes its capture with it;
-* the eager rule: ``spatial_partition=True`` and a mesh of two gloo ranks
-  make no capture.
+* ``spatial_partition=True`` and a mesh of two gloo ranks run compiled
+  too: they make captures, and give the eager facade's results bit for
+  bit.
 
 A narrow fp32 model (``width_mult=1/32, fc_channels=32``) on 64x96 inputs
 keeps each warm-up cheap. Run as a script, this file is a gloo rank of
@@ -65,7 +66,7 @@ def _model(seed=0, eager=False, **kw):
     """The narrow model; ``eager``: the same facade on the eager steps."""
     model = FCN8s(num_classes=C, seed=seed, **SMALL, **kw)
     if eager:
-        model._compiled = lambda spatial_partition=False: False
+        model._eager_steps = True
     return model
 
 
@@ -363,7 +364,7 @@ def test_five_augment_configs_keep_four_train_steps():
     assert len(model._train_steps.keys()) == 4 and model.capture_counts()["train"] == 5
     assert all(r() is None for r in refs)
     first = FCN8s._freeze_cfg(dict(flip=0.5, brightness=(0.8, 1.2, 0.5)))
-    assert first not in [cfg for _, cfg in model._train_steps.keys()]
+    assert first not in [cfg for _, cfg, _ in model._train_steps.keys()]
 
 
 def test_a_tree_that_is_gone_takes_its_capture_with_it():
@@ -437,45 +438,119 @@ def test_refill_writes_in_place_only_on_the_same_layout():
 
 
 # ---------------------------------------------------------------------------
-# the eager rule
+# the layouts: spatial_partition and a mesh of two ranks, compiled
 # ---------------------------------------------------------------------------
 
 
-def test_spatial_partition_runs_the_eager_steps():
-    model = _model()
-    model.train(_gen(40), epochs=1, steps_per_epoch=1, learning_rate_schedule=lambda s: 1e-3,
-                keep_prob=1.0, metrics={"loss"}, eval_frequency=1, record_summaries=False,
-                spatial_partition=True, prefetch=0)
-    model.evaluate(_gen(41), 1, spatial_partition=True)
-    model.predict(_images(42), spatial_partition=True)
-    model.find_learning_rate(_gen(43), steps=2)
-    assert model.capture_counts() == NONE
+def _layout_calls(model, gen, spatial):
+    """train (a periodic evaluation), evaluate, predict and the LR sweep,
+    each with ``spatial_partition=spatial`` where it takes one; returns
+    their results."""
+    model.train(gen(40), epochs=1, steps_per_epoch=2, learning_rate_schedule=lambda s: 1e-3,
+                keep_prob=0.5, metrics={"loss"}, eval_frequency=1, record_summaries=False,
+                spatial_partition=spatial, prefetch=0)
+    return {"loss": model.training_loss,
+            "params": [t.detach().clone() for t in bridge.param_leaves(model.params)],
+            "evaluate": model.evaluate(gen(41), 1, spatial_partition=spatial),
+            "predict": model.predict(_images(42), argmax=False, spatial_partition=spatial),
+            "lr": model.find_learning_rate(gen(43), steps=2)}
+
+
+def _same_results(a: dict, b: dict) -> bool:
+    return (a["loss"] == b["loss"] and a["evaluate"] == b["evaluate"]
+            and _same_tensors(a["params"], b["params"])
+            and np.array_equal(a["predict"], b["predict"]) and a["lr"] == b["lr"])
+
+
+def test_spatial_partition_runs_the_compiled_steps():
+    """``spatial_partition=True`` on the one-position mesh (the plain layout)
+    captures train, eval and predict steps of its own layout, and equals
+    the eager facade bit for bit."""
+    models = [_model(), _model(eager=True)]
+    got, want = (_layout_calls(m, _gen, spatial=True) for m in models)
+    assert _same_results(got, want)
+    counts = models[0].capture_counts()
+    # the LR sweep trains without the split: a train step of the plain layout beside it
+    assert counts == {"train": 2, "eval": 1, "predict": 1, "tta": 0}, counts
+    assert models[1].capture_counts() == NONE
 
 
 def _job_mesh(job, mesh, tree):
-    """A gloo rank: the facade on a mesh of two positions."""
-    model = FCN8s.from_params(tree, mesh=mesh, device="cpu", compute_dtype=F32,
-                              width_mult=1 / 16, fc_channels=64)
-    rng = np.random.default_rng(1)
-    images = rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
-    labels = rng.integers(0, C, (2, 64, 64), dtype=np.uint8)
-    model.train(iter([(images, labels)] * 3), epochs=1, steps_per_epoch=1,
-                learning_rate_schedule=lambda s: 1e-3, keep_prob=1.0, metrics={"loss"},
-                eval_frequency=1, record_summaries=False, prefetch=0)
-    model.predict(images)
-    model.predict_tta(images)
-    out = {"compiled": model._compiled(), "captures": model.capture_counts()}
-    model.close()
+    """A gloo rank: the facade on a mesh of two positions, compiled and on
+    its eager steps, from the same weights."""
+    out = {}
+    for name in ("compiled", "eager"):
+        model = FCN8s.from_params(tree, mesh=mesh, device="cpu", compute_dtype=F32,
+                                  width_mult=1 / 16, fc_channels=64)
+        model._eager_steps = name == "eager"
+        rng = np.random.default_rng(1)
+        images = rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+        labels = rng.integers(0, C, (2, 64, 64), dtype=np.uint8)
+        model.train(iter([(images, labels)] * 4), epochs=1, steps_per_epoch=2,
+                    learning_rate_schedule=lambda s: 1e-3, keep_prob=0.5, metrics={"loss"},
+                    eval_frequency=1, record_summaries=False, prefetch=0)
+        out[name] = {"loss": model.training_loss, "metrics": list(model.metric_values),
+                     "params": bridge.to_numpy(model._gather(model.params)),
+                     "predict": model.predict(images),
+                     "tta": model.predict_tta(images, argmax=False),
+                     "captures": model.capture_counts()}
+        model.close()
     return out
 
 
-def test_a_mesh_of_two_ranks_runs_the_eager_steps(tmp_path):
+def test_a_mesh_of_two_ranks_runs_the_compiled_steps(tmp_path):
     from tests.test_torch_mesh import launch
 
     ranks = launch(tmp_path, 2, {"m": dict(kind="mesh", mesh=(2, 1))},
                    script=os.path.abspath(__file__))
     for rank in ranks:
-        assert rank["m"]["compiled"] is False and rank["m"]["captures"] == NONE
+        got, want = rank["m"]["compiled"], rank["m"]["eager"]
+        assert got["captures"] == {"train": 1, "eval": 1, "predict": 1, "tta": 1}
+        assert want["captures"] == NONE
+        assert got["loss"] == want["loss"] and got["metrics"] == want["metrics"]
+        for key in ("predict", "tta"):
+            np.testing.assert_array_equal(got[key], want[key])
+        for part in want["params"]:
+            for layer in want["params"][part]:
+                for k in want["params"][part][layer]:
+                    np.testing.assert_array_equal(got["params"][part][layer][k],
+                                                  want["params"][part][layer][k])
+
+
+def _job_tp_spatial(job, mesh, tree):
+    """A gloo rank of a (1, 2) tensor-parallel facade: spatial predicts and
+    evaluates, compiled and on its eager steps, from the same weights."""
+    rng = np.random.default_rng(2)
+    images = rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+    labels = rng.integers(0, C, (2, 64, 64), dtype=np.uint8)
+    out = {}
+    for name in ("compiled", "eager"):
+        model = FCN8s.from_params(tree, mesh=mesh, tensor_parallel=True, device="cpu",
+                                  compute_dtype=F32, width_mult=1 / 16, fc_channels=64)
+        model._eager_steps = name == "eager"
+        out[name] = {"predict": [model.predict(images, argmax=False, spatial_partition=True)
+                                 for _ in range(2)],
+                     "evaluate": [model.evaluate(iter([(images, labels)]), 1,
+                                                 spatial_partition=True) for _ in range(2)],
+                     "captures": model.capture_counts()}
+        model.close()
+    return out
+
+
+def test_spatial_calls_on_a_tensor_parallel_mesh_replay_their_captures(tmp_path):
+    """A spatial predict or evaluate on a tensor-parallel facade runs on its
+    params gathered into one tree refreshed in place: a second call
+    replays, and both equal the eager steps bit for bit."""
+    from tests.test_torch_mesh import launch
+
+    ranks = launch(tmp_path, 2, {"t": dict(kind="tp_spatial", mesh=(1, 2))},
+                   script=os.path.abspath(__file__))
+    for rank in ranks:
+        got, want = rank["t"]["compiled"], rank["t"]["eager"]
+        assert got["captures"] == {"train": 0, "eval": 1, "predict": 1, "tta": 0}
+        assert got["evaluate"] == want["evaluate"]
+        for a, b in zip(got["predict"], want["predict"]):
+            np.testing.assert_array_equal(a, b)
 
 
 if __name__ == "__main__":
@@ -483,4 +558,4 @@ if __name__ == "__main__":
     from tests.test_torch_mesh import _rank_main
 
     _rank_main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5],
-               jobs={"mesh": _job_mesh})
+               jobs={"mesh": _job_mesh, "tp_spatial": _job_tp_spatial})

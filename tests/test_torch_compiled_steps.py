@@ -113,22 +113,27 @@ def test_signature_is_jax_plus_device(name):
 
 
 def test_errors():
+    """JAX's argument errors, and what is no error any more: a mesh of more
+    than one position and ``spatial_partition`` are taken (their capture is
+    cut at the collectives, ``tests/test_torch_compiled_mesh.py``)."""
     opt = tsteps.make_optimizer("sgd")
     two = types.SimpleNamespace(size=2)
-    with pytest.raises(NotImplementedError, match="eager"):
-        tsteps.compile_train_step(two, opt, C, **CPU)
-    with pytest.raises(NotImplementedError, match="eager"):
-        tsteps.compile_multi_train_step(two, opt, C, steps_per_dispatch=2, **CPU)
-    for fn in (tsteps.compile_predict_step, tsteps.compile_tta_step):
-        with pytest.raises(NotImplementedError, match="mesh of 2 positions"):
-            fn(two, **CPU)
-    with pytest.raises(NotImplementedError, match="mesh of 2 positions"):
-        tsteps.compile_eval_step(two, C, **CPU)
-    with pytest.raises(NotImplementedError, match="spatial_partition"):
-        tsteps.compile_train_step(None, opt, C, tensor_parallel=False, spatial_partition=True,
-                                  **CPU)
-    with pytest.raises(ValueError, match="mutually exclusive"):  # JAX's check first
-        tsteps.compile_eval_step(None, C, spatial_partition=True, **CPU)
+    steps = [tsteps.compile_train_step(two, opt, C, **CPU),
+             tsteps.compile_multi_train_step(two, opt, C, steps_per_dispatch=2, **CPU),
+             tsteps.compile_eval_step(two, C, **CPU), tsteps.compile_predict_step(two, **CPU),
+             tsteps.compile_tta_step(two, **CPU),
+             tsteps.compile_train_step(None, opt, C, tensor_parallel=False,
+                                       spatial_partition=True, **CPU)]
+    assert all(step.captures_made == 0 for step in steps)
+    for fn, args in ((tsteps.compile_train_step, (opt, C)), (tsteps.compile_eval_step, (C,)),
+                     (tsteps.compile_predict_step, ())):
+        with pytest.raises(ValueError, match="mutually exclusive"):  # JAX's check
+            fn(None, *args, spatial_partition=True, **CPU)  # tensor_parallel defaults to True
+    with pytest.raises(TypeError, match="spatial_partition"):  # JAX's have no such argument
+        tsteps.compile_multi_train_step(None, opt, C, steps_per_dispatch=2,
+                                        spatial_partition=True, **CPU)
+    with pytest.raises(TypeError, match="spatial_partition"):
+        tsteps.compile_tta_step(None, spatial_partition=True, **CPU)
     for s in (0, -1):
         with pytest.raises(ValueError, match="steps_per_dispatch must be >= 1"):
             tsteps.compile_multi_train_step(None, opt, C, steps_per_dispatch=s, **CPU)

@@ -661,8 +661,7 @@ def test_tta_and_tiled_predict_on_the_card_equal_the_cpu(dev, no_tf32, monkeypat
         monkeypatch.setattr(Q, "int8_conv_acc", lambda xq, qlayer, halo=False:
                             Q.conv2d_int8_reference(xq, qlayer["kernel_q"], halo))
         # the facade's eager steps: a replay would run the route its graph recorded
-        monkeypatch.setattr(card, "_compiled", lambda spatial_partition=False: False,
-                            raising=False)
+        monkeypatch.setattr(card, "_eager_steps", True, raising=False)
         for name, call in calls.items():
             np.testing.assert_array_equal(routed[name], call(card, argmax=False), err_msg=name)
 
@@ -1063,7 +1062,7 @@ def test_compiled_facade_equals_its_eager_steps_on_the_card(dev, deterministic):
               device_augment=dict(flip=0.5, brightness=(0.8, 1.2, 0.5), translate=(8, 4, 0.5)))
     models = [FCN8s(num_classes=5, width_mult=1 / 16, fc_channels=64, device=dev, seed=16)
               for _ in range(2)]
-    models[1]._compiled = lambda spatial_partition=False: False
+    models[1]._eager_steps = True
     for m in models:
         m.train(itertools.cycle(batches), **kw)
     compiled, eager = models
