@@ -3,8 +3,9 @@
 checkpoint, training-feature, int8/TTA/tiled predict, offline-benchmark,
 host data pipeline, serving-artifact, video, viewer, annotation, mesh,
 spatial-partition and training-survival paths, the measurement scripts,
-the tutorial notebook, the compiled steps, the facade on them and the
-compiled steps over a mesh of two ranks once on one CUDA card.
+the tutorial notebook, the compiled steps, the facade on them, the
+compiled steps over a mesh of two ranks and the service on such a mesh
+once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -216,7 +217,24 @@ Phases, in order; any failure raises and the script exits non-zero:
     kernels' launches inside the replays (checked exactly: each capture's
     recorded counts times its replays plus ``graphs.WARMUP`` calls), the
     halo bytes a step, ms a step compiled and eager, and each rank's
-    private pool bytes (two ranks sharing one card: no scaling figure).
+    private pool bytes (two ranks sharing one card: no scaling figure);
+28. ``InferenceService`` on a mesh of two gloo ranks sharing the card, this
+    script run twice as ``chip_smoke.py --serving-mesh-rank R 2 STORE
+    WORK``, on phase 21's full-width tree in bf16: on (2, 1) and then
+    (1, 2) tensor-parallel, rank 0 serves HTTP on port 0 with
+    ``batch_window_ms=50``, ``max_batch=8`` (/predict, /overlay, /healthz,
+    /stats, 16 concurrent 512x1024 requests, one 500x1000 and one
+    undecodable request) while rank 1 follows; the answers against the
+    single-rank service on the same tree (ids equal where the fp32 top-2
+    logit margin, as a share of the image's largest logit, exceeds bf16's
+    own error in the run, the largest such margin at which the single
+    rank's bf16 ids differ from its fp32 ids; equal on >= 0.99 of pixels;
+    overlays within 1 LSB where the ids agree), one ids and one
+    overlay capture a rank, cut at the same collectives on rank 0's
+    dispatcher thread as on rank 1, rank 1's predict calls = rank 0's
+    dispatches, K4f's launches checked exactly a rank as in phase 27; the
+    burst's requests/s, /stats p50/p95, the command broadcast's ms a batch
+    and each rank's predict pools (no scaling figure).
 
 The facade's steps are CUDA-graph replays (``FCN8s._get_*_step``): the
 exact launch checks of phases 5, 6, 10, 12, 16 and 17 count each kernel's
@@ -252,7 +270,9 @@ in phase 24: (b) the scripts, (c) the notebook; ``launches_compiled`` in
 phase 25 (a)-(d): the warm-ups' launches and each replay's recorded ones;
 ``launches_facade_compiled`` in phase 26 (a)-(b), the eager comparisons
 left out; ``launches_mesh_compiled`` in phase 27, per case, each rank's
-launches of the compiled calls, the eager references left out).
+launches of the compiled calls, the eager references left out;
+``launches_mesh_serving`` in phase 28, per mesh, each rank's launches
+while it served or followed).
 A ``{"viz_prep":
 {...}}`` line gives phase 20's numbers.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -4987,6 +5007,361 @@ def phase_mesh_compiled(dev, smi: str) -> dict:
     return counts
 
 
+SERVING_MESH_SHAPES = ((2, 1), (1, 2))  # (data, model): data-parallel, then tensor-parallel
+SERVING_MESH_CONCURRENT = 16  # concurrent 512x1024 /predict requests a mesh
+SERVING_MESH_WINDOW_MS = 50
+SERVING_MESH_ODD = (500, 1000)  # an odd-size request, padded to stride 32 and cropped back
+SERVING_MESH_TIMEOUT_S = 600  # the two ranks, launch to join
+# the bf16 form of phase 21's margin rule: a mesh's bf16 ids equal the single rank's
+# wherever the fp32 logits' top-2 margin, as a share of the image's largest logit, exceeds
+# bf16's own error in this run (the largest such margin at which the single rank's bf16 ids
+# differ from its fp32 ids, over every request), and on this share of all pixels (phase 21
+# (b) saw 0.995 of bf16 ids agree between two ranks and one process)
+SERVING_MESH_AGREE = 0.99
+
+
+def _sm_requests() -> list:
+    """Phase 28's requests as (name, route, image key); the image keys of
+    ``_sm_images``."""
+    return ([("ids", "/predict", "ids"), ("overlay", "/overlay", "overlay"),
+             ("overlay_ids", "/predict", "overlay"), ("odd", "/predict", "odd")]
+            + [(f"batch{i}", "/predict", f"batch{i}") for i in range(SERVING_MESH_CONCURRENT)])
+
+
+def _sm_images() -> dict:
+    rng = np.random.default_rng(MESH_SEED + 28)
+    images = {"ids": rng.integers(0, 256, (H, W, 3), dtype=np.uint8),
+              "overlay": rng.integers(0, 256, (H, W, 3), dtype=np.uint8),
+              "odd": rng.integers(0, 256, (*SERVING_MESH_ODD, 3), dtype=np.uint8)}
+    for i in range(SERVING_MESH_CONCURRENT):
+        images[f"batch{i}"] = rng.integers(0, 256, (H, W, 3), dtype=np.uint8)
+    return images
+
+
+def _sm_refs(dev, tree: dict, images: dict, bodies: dict) -> dict:
+    """The single-rank service's answers on the same tree (bf16, one
+    request at a time) and each image's fp32 logits' clear pixels (TF32
+    off), for the margin rule."""
+    model = FCN8s.from_params(tree, device=dev, seed=MESH_SEED)
+    service = InferenceService(model, color_map=TRAINIDS_TO_RGBA_DICT)
+    answers = {name: _decode(service.predict_png(bodies[key], overlay=route == "/overlay"))
+               for name, route, key in _sm_requests()}
+    model.close()
+    del model, service
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    rel, fp32_ids = {}, {}
+    try:
+        run = bridge.cast_params(bridge.to_port(tree, device=dev), torch.float32)
+        with torch.inference_mode():
+            for key, image in images.items():
+                h, w = image.shape[:2]
+                padded = np.pad(image, ((0, (-h) % 32), (0, (-w) % 32), (0, 0)))
+                logits = apply_fcn8s(run, torch.from_numpy(padded[None]).to(dev),
+                                     compute_dtype=torch.float32)[0, :h, :w].float()
+                top2 = torch.topk(logits, 2, dim=-1).values
+                rel[key] = ((top2[..., 0] - top2[..., 1]) / logits.abs().max()).cpu().numpy()
+                fp32_ids[key] = logits.argmax(-1).to(torch.uint8).cpu().numpy()
+        del run
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    return {"answers": answers, "rel": rel, "fp32_ids": fp32_ids}
+
+
+def _sm_held(dev) -> tuple[int, int]:
+    return _mc_held(dev) if dev.type == "cuda" else (0, 0)
+
+
+def _sm_serve(service, bodies: dict) -> dict:
+    """Rank 0: phase 28's requests through HTTP on port 0; the answers go
+    back to the caller, every status is checked here."""
+    srv = make_server(service, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = "http://127.0.0.1:%d" % srv.server_address[1]
+    answers, out = {}, {}
+    try:
+        requests = _sm_requests()
+        for name, route, key in requests[:4]:
+            status, body = _post(base + route, bodies[key])
+            check(status == 200, f"phase 28 {name}: {status} {body[:200]!r}")
+            answers[name] = _decode(body)
+        burst = [None] * SERVING_MESH_CONCURRENT
+
+        def worker(i):
+            burst[i] = _post(base + requests[4 + i][1], bodies[requests[4 + i][2]])
+
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(SERVING_MESH_CONCURRENT)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=SERVING_MESH_TIMEOUT_S)
+        out["burst_s"] = time.perf_counter() - t0
+        for (name, _, _), (status, body) in zip(requests[4:], burst):
+            check(status == 200, f"phase 28 {name}: {status} {body[:200]!r}")
+            answers[name] = _decode(body)
+        status, body = _post(base + "/predict", b"this is not an image")
+        check(status == 400 and "error" in json.loads(body), f"phase 28 undecodable: {status}")
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            out["healthz"] = json.loads(r.read())
+        with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+            out["stats"] = json.loads(r.read())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        service.close()
+        thread.join(timeout=60)
+    out["answers"] = answers
+    return out
+
+
+def _sm_rank(dev, mesh, tree: dict, bodies, config: dict) -> dict:
+    """One mesh of phase 28 on this rank: the service on the facade over
+    the mesh; rank 0 serves ``_sm_serve``'s requests, the other rank
+    follows. Checks each rank's launches exactly against its predict
+    captures."""
+    model = FCN8s.from_params(tree, mesh=mesh, tensor_parallel=mesh.shape["model"] > 1,
+                              device=dev, seed=MESH_SEED)
+    calls = [0]
+    predict = model.predict
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return predict(*args, **kwargs)
+
+    model.predict = counted
+    reserved, allocated = _sm_held(dev)
+    zero_counts()
+    service = InferenceService(model, color_map=TRAINIDS_TO_RGBA_DICT,
+                               batch_window_ms=config["window_ms"], max_batch=config["max_batch"])
+    out = {}
+    if service.is_controller:
+        command_ms, command = [], service._command
+
+        def timed(op, images=None, overlay=False):
+            t0 = time.perf_counter()
+            command(op, images, overlay)
+            if images is not None:
+                command_ms.append((time.perf_counter() - t0) * 1e3)
+
+        service._command = timed
+        out = _sm_serve(service, bodies)
+        out["command_ms"] = command_ms
+        out["dispatches"] = service.dispatches
+    else:
+        service.follow()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    counts = read_counts()
+    captures = _mc_captures(model._predict_steps._steps.values())
+    expected = _mc_replay_launches(captures)
+    tag = f"{mesh.shape['data']}x{mesh.shape['model']} rank {mesh.rank}"
+    check(counts == expected, f"phase 28 {tag}: launches {counts} against the replays' recorded "
+                              f"counts x replays + {G.WARMUP} x captures {expected}")
+    check(model.capture_counts()["predict"] == 2,
+          f"phase 28 {tag}: predict captures {model.capture_counts()}, not one for ids and one "
+          "for the overlay")
+    reserved_after, allocated_after = _sm_held(dev)
+    out.update(launches=counts, calls=calls[0], captures=model.capture_counts(),
+               plans=_mc_plans(captures),
+               issued=[[list(c[:4]) for c in cap.issued] for cap in captures],
+               recorded={name: captures[0].launches[G.KERNEL_WRAPPERS.index(fn)]
+                         for name, fn in WRAPPERS.items()},
+               pool_bytes=(reserved_after - reserved) - (allocated_after - allocated))
+    model.close()
+    del model, service, captures
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def serving_mesh_rank_main(rank: int, world: int, store: str, work: str) -> None:
+    """One rank of phase 28 (``chip_smoke.py --serving-mesh-rank R W STORE
+    WORK``): a gloo group on the one card; for each mesh of
+    ``SERVING_MESH_SHAPES`` the service (``_sm_rank``). Writes
+    ``rank<R>.json`` and, on rank 0, each mesh's answers as ``<mesh>.npz``."""
+    import datetime
+    import pickle
+
+    import torch.distributed as dist
+
+    from fcn8s_tensorflow_tpu_torch.parallel.mesh import create_mesh
+
+    with open(os.path.join(work, "config.json")) as f:
+        config = json.load(f)
+    dev = torch.device(config["device"])
+    check(dev.type != "cuda" or torch.cuda.is_available(),
+          "no CUDA device: this script runs only on the card")
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=SERVING_MESH_TIMEOUT_S))
+    report = {"rank": rank}
+    try:
+        if dev.type == "cuda":
+            build.library()
+        tree = load_tree(os.path.join(work, "tree.npz"))
+        bodies = None
+        if rank == 0:
+            with open(os.path.join(work, "bodies.pkl"), "rb") as f:
+                bodies = pickle.load(f)
+        t0 = time.perf_counter()
+        for shape in SERVING_MESH_SHAPES:
+            tag = f"{shape[0]}x{shape[1]}"
+            t1 = time.perf_counter()
+            out = _sm_rank(dev, create_mesh(*shape, devices=[dev] * world), tree, bodies, config)
+            if rank == 0:
+                np.savez(os.path.join(work, f"{tag}.npz"), **out.pop("answers"))
+            out["mesh_s"] = time.perf_counter() - t1
+            report[tag] = out
+        report["path_s"] = time.perf_counter() - t0
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+            json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _sm_check_answers(tag: str, got: dict, refs: dict) -> dict:
+    """A mesh's answers against the single-rank service's by the bf16 margin
+    rule (``SERVING_MESH_AGREE``); overlays within 1 LSB where the ids of
+    /predict on the same image agree. Prints, then checks, each request's
+    agreement, the pixels that differ where the margin is clear and the
+    largest relative fp32 margin among the differing pixels."""
+    ids = [(name, key) for name, route, key in _sm_requests() if route == "/predict"]
+    noise = max(float(refs["rel"][key][refs["answers"][name] != refs["fp32_ids"][key]].max())
+                for name, key in ids)
+    seen = {}
+    for name, _, key in _sm_requests():
+        want = refs["answers"][name]
+        check(got[name].shape == want.shape and got[name].dtype == np.uint8,
+              f"phase 28 {tag} {name}: {got[name].shape} {got[name].dtype} against {want.shape}")
+    for name, key in ids:
+        rel, differ = refs["rel"][key], got[name] != refs["answers"][name]
+        seen[name] = {"agree": float(1 - differ.mean()),
+                      "clear_differ": int((differ & (rel > noise)).sum()),
+                      "worst_rel_margin": float(rel[differ].max()) if differ.any() else 0.0,
+                      "clear_share": float((rel > noise).mean())}
+    same = got["overlay_ids"] == refs["answers"]["overlay_ids"]
+    overlay_diff = int(np.abs(got["overlay"].astype(np.int16) - refs["answers"]["overlay"])[same]
+                       .max())
+    print(f"phase 28 {tag} against the single-rank service: bf16's own error (the largest "
+          f"relative fp32 margin where the single rank's bf16 ids differ from fp32's) {noise:.5f}; "
+          f"overlay max |diff| where the ids agree {overlay_diff}; per request "
+          f"{json.dumps(seen)}")
+    for name, st in seen.items():
+        check(st["clear_differ"] == 0, f"phase 28 {tag} {name}: ids differ where the fp32 top-2 "
+                                       f"margin exceeds bf16's own error {noise}: {st}")
+        check(st["agree"] >= SERVING_MESH_AGREE, f"phase 28 {tag} {name}: {st}")
+    check(overlay_diff <= 1, f"phase 28 {tag}: the overlay differs by {overlay_diff} where the "
+                             "ids agree")
+    return {"worst_agree": min(st["agree"] for st in seen.values()),
+            "clear_share": min(st["clear_share"] for st in seen.values()), "noise": noise}
+
+
+def phase_serving_mesh(dev, smi: str) -> dict:
+    """Phase 28: ``InferenceService`` on a mesh of two gloo ranks sharing the
+    one card (this script run twice with ``--serving-mesh-rank``), on
+    phase 21's tree, against the single-rank service, in a temporary
+    directory removed at the end. Returns each mesh's launch counts per
+    rank."""
+    import pickle
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="fcn8s_serving_mesh_")
+    try:
+        tree = _mesh_tree(dev)
+        images = _sm_images()
+        bodies = {key: _png(image) for key, image in images.items()}
+        refs = _sm_refs(dev, tree, images, bodies)
+        save_tree(os.path.join(root, "tree.npz"), tree)
+        del tree
+        with open(os.path.join(root, "bodies.pkl"), "wb") as f:
+            pickle.dump(bodies, f)
+        with open(os.path.join(root, "config.json"), "w") as f:
+            json.dump({"device": str(dev), "max_batch": BATCH,
+                       "window_ms": SERVING_MESH_WINDOW_MS}, f)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        refs_s = time.perf_counter() - t0
+        store = os.path.join(root, "store")
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("LOCAL_RANK", "RANK", "WORLD_SIZE")}
+        env["PYTHONPATH"] = os.pathsep.join([os.path.dirname(os.path.abspath(__file__))] + [
+            p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])
+        logs = [open(os.path.join(root, f"rank{r}.log"), "w+") for r in range(2)]
+        t1 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--serving-mesh-rank", str(r), "2", store, root], env=env,
+                                  stdout=logs[r], stderr=subprocess.STDOUT) for r in range(2)]
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, SERVING_MESH_TIMEOUT_S - (time.perf_counter() - t1)))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks_s = time.perf_counter() - t1
+        for r, log in enumerate(logs):
+            log.seek(0)
+            text = log.read()
+            log.close()
+            if procs[r].returncode != 0:
+                print(text[-6000:])
+            check(procs[r].returncode == 0, f"phase 28 rank {r} exited {procs[r].returncode}")
+        reports = []
+        for r in range(2):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                reports.append(json.load(f))
+        counts = {}
+        for shape in SERVING_MESH_SHAPES:
+            tag = f"{shape[0]}x{shape[1]}"
+            with np.load(os.path.join(root, f"{tag}.npz")) as z:
+                got = {k: z[k] for k in z.files}
+            agree = _sm_check_answers(tag, got, refs)
+            lead, follower = reports[0][tag], reports[1][tag]
+            stats = lead["stats"]
+            check(stats["requests"] == 4 + SERVING_MESH_CONCURRENT and stats["errors"] == 1
+                  and stats["dispatches"] < stats["requests"], f"phase 28 {tag}: stats {stats}")
+            check(sorted(stats) == ["dispatches", "errors", "p50_ms", "p95_ms", "requests"]
+                  and lead["healthz"]["status"] == "ok", f"phase 28 {tag}: /stats, /healthz")
+            check(follower["calls"] == lead["calls"] == lead["dispatches"],
+                  f"phase 28 {tag}: rank 1 made {follower['calls']} predict calls, rank 0 "
+                  f"{lead['calls']} in {lead['dispatches']} dispatches")
+            check(follower["issued"] == lead["issued"],
+                  f"phase 28 {tag}: the dispatcher thread's captures cut at other collectives "
+                  "than the follower's")
+            for rep in (lead, follower):
+                check(rep["launches"]["maxpool2x2_nhwc"] > 0,
+                      f"phase 28 {tag}: maxpool2x2_nhwc was never launched inside the replays")
+            counts[tag] = [lead["launches"], follower["launches"]]
+            cmd = lead["command_ms"]
+            print(f"phase 28 {tag} on {smi} (two gloo ranks sharing one card, not a scaling "
+                  f"figure): {stats['requests']} requests in {stats['dispatches']} dispatches; "
+                  f"the {SERVING_MESH_CONCURRENT}-request burst "
+                  f"{SERVING_MESH_CONCURRENT / lead['burst_s']:.2f} requests/s; /stats p50 "
+                  f"{stats['p50_ms']:.1f} ms, p95 {stats['p95_ms']:.1f} ms; the command "
+                  f"broadcast (header + uint8 batch of {BATCH}x{H}x{W}x3 over gloo) median "
+                  f"{statistics.median(cmd):.2f} ms a batch, each {[round(x, 2) for x in cmd]}; "
+                  f"ids agree with the single-rank service on >= {agree['worst_agree']:.5f} "
+                  f"(equal where the fp32 margin exceeds {agree['noise']:.5f} of the largest "
+                  f"logit, a share >= {agree['clear_share']:.4f}); {lead['mesh_s']:.1f} s")
+            for r, rep in enumerate((lead, follower)):
+                print(f"phase 28 {tag} rank {r} on {smi}: predict calls {rep['calls']}; captures "
+                      f"{rep['captures']}; (segments, collectives, replays, halo bytes) per "
+                      f"capture {rep['plans']}; recorded per replay {rep['recorded']}; launches "
+                      f"{rep['launches']} = recorded x replays + {G.WARMUP} x captures; private "
+                      f"pool bytes of the predict captures {rep['pool_bytes']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 28: {time.perf_counter() - t0:.1f} s (references {refs_s:.1f} s, ranks "
+          f"{ranks_s:.1f} s; {smi})")
+    return counts
+
+
 def main() -> None:
     smi = phase_card()
     dev = torch.device("cuda", 0)
@@ -5046,6 +5421,8 @@ def main() -> None:
     facade_compiled_counts, _ = phase_facade_compiled(dev, smi)
     torch.cuda.empty_cache()
     mesh_compiled_counts = phase_mesh_compiled(dev, smi)
+    torch.cuda.empty_cache()
+    serving_mesh_counts = phase_serving_mesh(dev, smi)
     paths = {"serve+eval": serve_counts, "train": train_counts, "train weighted": weighted_counts,
              "conv1 calibration": conv1_counts}
     source_path = {"maxpool2x2_nhwc": "serve+eval", "ce_sum_per_sample": "serve+eval",
@@ -5076,6 +5453,8 @@ def main() -> None:
          "launches_facade_compiled": facade_compiled_counts[name],
          "launches_mesh_compiled": {key: [c[name] for c in ranks]
                                     for key, ranks in mesh_compiled_counts.items()},
+         "launches_mesh_serving": {key: [c[name] for c in ranks]
+                                   for key, ranks in serving_mesh_counts.items()},
          **measured[name]}
         for name in WRAPPERS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -5090,5 +5469,7 @@ if __name__ == "__main__":
         spatial_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
     elif len(sys.argv) > 1 and sys.argv[1] == "--mesh-compiled-rank":
         mesh_compiled_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+    elif len(sys.argv) > 1 and sys.argv[1] == "--serving-mesh-rank":
+        serving_mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
     else:
         main()

@@ -127,6 +127,17 @@ def _default_mesh(device) -> "Mesh":
     return create_mesh(devices=[device] * world)
 
 
+def check_tile(tile, tile_overlap: int) -> None:
+    """Raise ``ValueError`` for a ``tile``/``tile_overlap`` that
+    ``FCN8s.predict`` refuses: tile dims not multiples of 32, an odd or
+    negative overlap."""
+    th, tw = tile
+    if th % 32 or tw % 32:
+        raise ValueError(f"tile dims must be multiples of 32, got {tile}")
+    if tile_overlap % 2 or tile_overlap < 0:
+        raise ValueError(f"tile_overlap must be even and >= 0, got {tile_overlap}")
+
+
 def _map_tree(fn, tree: dict) -> dict:
     """``fn`` over every tensor of a port tree ({part: {layer: {key: t}}})."""
     return {part: {name: {k: fn(t) for k, t in layer.items()} for name, layer in layers.items()}
@@ -1001,11 +1012,8 @@ class FCN8s:
         copies leave every result as it is, the dynamic int8 scales'
         per-chunk maxima too); dynamic int8 scales are per dispatch, so the
         chunk is part of the result."""
+        check_tile(tile, overlap)
         th, tw = tile
-        if th % 32 or tw % 32:
-            raise ValueError(f"tile dims must be multiples of 32, got {tile}")
-        if overlap % 2 or overlap < 0:
-            raise ValueError(f"tile_overlap must be even and >= 0, got {overlap}")
         if blend and lut is not None:
             raise ValueError(
                 "tile_blend composites probabilities before any overlay; "

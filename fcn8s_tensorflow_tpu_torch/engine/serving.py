@@ -19,9 +19,24 @@ of large frames) and ``/healthz`` reports the first two.
 
 **Micro-batching** (``batch_window_ms > 0``): concurrent requests queue to
 a dispatcher thread that waits up to the window for more work, groups
-same-shaped images, and runs ONE device batch per group (at most
-``max_batch`` images), at the cost of up to one window of added latency on
-sparse traffic.
+same-shaped images, and runs ONE device batch per group, padded to
+``max_batch`` (unless tiled), at the cost of up to one window of added
+latency on sparse traffic.
+
+**A mesh of processes** (a model whose ``mesh`` has more than one
+position: JAX's facade serves data-parallel over every device, and
+``FCN8s(model_load_dir=ckpt)`` under ``torchrun`` builds that mesh): every
+rank builds the same ``InferenceService``. Rank 0, the mesh's position
+(0, 0), takes the requests: it serves HTTP, runs the micro-batcher, and
+before each ``predict`` broadcasts a command (the batch's N, H, W and the
+overlay flag, then the uint8 batch) while it holds the device lock, so
+every rank sees the calls in one order. Every other rank runs
+``InferenceService.follow()``: it makes the same ``predict`` call on the
+same images and returns at rank 0's ``close()``. Whatever can fail on the
+request alone (an undecodable body, overlay without a color map, a tile
+that ``predict`` refuses) fails on rank 0 before any command. ``predict``
+returns the whole batch on every rank (its step gathers the rows over the
+mesh), so rank 0 answers every request.
 
 Entry: ``FCN8s(...)`` -> ``InferenceService(model, ...)`` ->
 ``make_server(service, port=...)`` -> ``serve_forever()``; or from the
@@ -29,12 +44,18 @@ command line, a checkpoint directory of either package:
 
     python -m fcn8s_tensorflow_tpu_torch.engine.serving <checkpoint_dir> [port] \
         [--batch-window-ms N] [--device cuda]
+
+and on N cards of one host, one process each (rank 0 binds the port):
+
+    torchrun --nproc-per-node=N -m fcn8s_tensorflow_tpu_torch.engine.serving \
+        <checkpoint_dir> [port] [--batch-window-ms N]
 """
 
 from __future__ import annotations
 
 import io
 import json
+import os
 import queue
 import threading
 import time
@@ -42,7 +63,14 @@ from collections import deque
 from concurrent.futures import Future
 
 import numpy as np
+import torch
 from PIL import Image
+
+from ..parallel import collectives
+from .model import check_tile
+
+# the controller's commands to the followers (``InferenceService._command``)
+_STOP, _PREDICT, _IDLE = 0, 1, 2
 
 
 class ClientError(ValueError):
@@ -53,11 +81,19 @@ class ClientError(ValueError):
 class _MicroBatcher:
     """Server-side request batching (see module docstring): a single
     dispatcher thread drains the request queue, waits up to ``window`` s
-    for more work (up to ``max_batch`` requests), groups by (image shape,
-    overlay?), runs one device dispatch per group, and resolves the
-    requests' futures. Unlike the JAX service it does not pad a group to
-    ``max_batch``: eager PyTorch compiles nothing per batch size, so padding
-    would only spend device time on copies of the last image."""
+    for more work, groups by (image shape, overlay?), pads each group to
+    ``max_batch`` with copies of its last image, runs one device dispatch
+    per group, and resolves the requests' futures. The padding is the JAX
+    service's, for the same reason: the facade's predict step is a CUDA
+    graph captured per batch shape and kept in a bounded cache, so group
+    sizes 1 to ``max_batch`` (times ids and overlay) would each capture a
+    step of their own, with its warm-up and its private pool, and cycle
+    the cache; padded, every group of one image shape replays one capture.
+    The copies change no answer (the dynamic int8 scales' batch maxima
+    included). A tiled service's groups are not padded: a tiled predict
+    already dispatches whole chunks of 8 tiles, one capture whatever the
+    group size, and copies would multiply its tiles and regroup them, and
+    with them which tiles share a dynamic int8 scale."""
 
     #: bound on a request's wait for its batch result — the dispatcher
     #: normally answers within one window + one device dispatch; if it
@@ -130,12 +166,18 @@ class _MicroBatcher:
         for (shape, overlay), group in groups.items():
             try:
                 images = np.stack([im for im, _ in group])
+                n = images.shape[0]
+                if n < self.max_batch and self.service.tile is None:
+                    # pad with the last image: every request count replays
+                    # the ONE max_batch-shaped capture
+                    pad = np.repeat(images[-1:], self.max_batch - n, axis=0)
+                    images = np.concatenate([images, pad], axis=0)
                 outs = self.service._predict_batch(images, overlay)
             except Exception as exc:  # noqa: BLE001 — fail the requests, not the thread
                 for _, fut in group:
                     fut.set_exception(exc)
                 continue
-            for (_, fut), out in zip(group, outs):
+            for (_, fut), out in zip(group, outs[:n]):
                 fut.set_result(out)
 
 
@@ -143,21 +185,22 @@ class InferenceService:
     """Wraps an ``FCN8s`` model with the request-level logic (decode,
     predict, encode, stats) — separable from the HTTP layer for tests.
 
-    It needs one controller: a request reaches one process, while a mesh
-    of the port runs one process per position that must all make each
-    call. So a model on a mesh of more than one position raises; serve a
-    single-rank model (the (1, 1) mesh, ``FCN8s(model_load_dir=ckpt)`` in
-    one process)."""
+    On a mesh of processes (see the module docstring) every rank builds it
+    with the same arguments; rank 0 (``is_controller``) serves, and every
+    other rank calls ``follow()``. Rank 0 sends an idle command after
+    ``HEARTBEAT_S`` s without one, so that the followers' wait for the next
+    command outlasts an idle spell (the process group's timeout must exceed
+    ``HEARTBEAT_S``); its ``close()`` stops the followers."""
+
+    #: seconds of silence after which rank 0 sends the followers an idle command
+    HEARTBEAT_S = 30.0
 
     def __init__(self, model, color_map=None, *, quantized: bool = False,
                  tile=None, tile_overlap: int = 128,
                  batch_window_ms: float = 0.0, max_batch: int = 8):
         mesh = getattr(model, "mesh", None)
-        if mesh is not None and mesh.size > 1:
-            raise ValueError(
-                f"InferenceService needs one controller, and this model runs on a "
-                f"{mesh.shape['data']}x{mesh.shape['model']} mesh of processes: serve a "
-                "single-rank model (FCN8s(model_load_dir=...) in one process)")
+        self._mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.is_controller = self._mesh is None or self._mesh.rank == 0
         self.model = model
         self.color_map = color_map
         self.quantized = quantized
@@ -170,27 +213,106 @@ class InferenceService:
         self._latencies: deque[float] = deque(maxlen=1000)  # bounded memory
         self.requests = 0
         self.errors = 0
-        self.dispatches = 0  # device batches actually run
+        self.dispatches = 0  # device batches actually run (rank 0's)
         self._batcher = (_MicroBatcher(self, batch_window_ms / 1e3, max_batch)
-                         if batch_window_ms > 0 else None)
+                         if batch_window_ms > 0 and self.is_controller else None)
+        self._stopped = False  # rank 0 sent the stop command
+        self._last_command = time.monotonic()
+        self._quiet = threading.Event()  # set by close(): the heartbeat ends
+        self._heartbeat = None
+        if self._mesh is not None and self.is_controller:
+            self._heartbeat = threading.Thread(target=self._beat, daemon=True)
+            self._heartbeat.start()
 
     def close(self):
-        """Stop the micro-batcher thread (no-op without batching)."""
+        """Stop the micro-batcher thread (it answers what it holds first);
+        on a mesh, rank 0 then sends the stop command, and every follower's
+        ``follow()`` returns. A no-op on a follower and when called again."""
         if self._batcher is not None:
             self._batcher.close()
+        if self._heartbeat is None:
+            return
+        self._quiet.set()
+        with self._lock:
+            if not self._stopped:
+                self._stopped = True
+                self._command(_STOP)
+        self._heartbeat.join()
+
+    def follow(self) -> None:
+        """A rank other than rank 0 of a mesh of processes: make each
+        ``predict`` call of rank 0's service, on the same images and in the
+        same order, until rank 0's ``close()``. A failure raises (the rank
+        should exit non-zero): rank 0's call then fails at its next
+        collective, or at the group's timeout."""
+        if self.is_controller:
+            raise RuntimeError("rank 0 of the mesh takes the requests; follow() runs on the "
+                               "other ranks")
+        while True:
+            op, images, overlay = self._receive()
+            if op == _STOP:
+                return
+            if op == _PREDICT:
+                self._predict(images, overlay)
+
+    def _command(self, op: int, images=None, overlay: bool = False) -> None:
+        """Rank 0, holding ``_lock``: broadcast one command to the
+        followers; a predict command carries its uint8 batch."""
+        n, h, w = images.shape[:3] if images is not None else (0, 0, 0)
+        collectives.broadcast(torch.tensor([op, n, h, w, int(overlay)]), self._mesh)
+        if images is not None:
+            collectives.broadcast(torch.from_numpy(images), self._mesh)
+        self._last_command = time.monotonic()
+
+    def _receive(self):
+        """A follower: the next command, as (op, images or None, overlay)."""
+        op, n, h, w, overlay = collectives.broadcast(
+            torch.zeros(5, dtype=torch.int64), self._mesh).tolist()
+        if op != _PREDICT:
+            return op, None, False
+        images = collectives.broadcast(torch.empty((n, h, w, 3), dtype=torch.uint8), self._mesh)
+        return op, images.cpu().numpy(), bool(overlay)
+
+    def _beat(self):
+        """Rank 0's heartbeat thread (see the class docstring)."""
+        while not self._quiet.wait(self.HEARTBEAT_S / 4):
+            with self._lock:
+                if self._stopped:
+                    return
+                if time.monotonic() - self._last_command >= self.HEARTBEAT_S:
+                    self._command(_IDLE)
+
+    def _check_request(self, overlay: bool) -> None:
+        """What fails on the request alone, raised before any device work
+        (and on a mesh before any command)."""
+        if overlay and self.color_map is None:
+            raise ValueError("server built without a color_map")
+        if self.tile is not None:
+            check_tile(self.tile, self.tile_overlap)
+
+    def _predict(self, images, overlay: bool):
+        return self.model.predict(
+            images, overlay=self.color_map if overlay else None,
+            quantized=self.quantized, tile=self.tile,
+            tile_overlap=self.tile_overlap,
+        )
 
     def _predict_batch(self, images, overlay: bool):
         """One device dispatch for a stacked (N,H,W,3) batch; returns the
         per-image outputs (RGB overlays or id maps). Caller holds no lock —
-        this takes the device lock itself."""
-        if overlay and self.color_map is None:
-            raise ValueError("server built without a color_map")
+        this takes the device lock itself (and on a mesh sends the
+        followers the command under it)."""
+        if not self.is_controller:
+            raise RuntimeError(f"rank {self._mesh.rank} of the mesh follows rank 0 "
+                               "(InferenceService.follow); rank 0 takes the requests")
+        self._check_request(overlay)
         with self._lock:
-            out = self.model.predict(
-                images, overlay=self.color_map if overlay else None,
-                quantized=self.quantized, tile=self.tile,
-                tile_overlap=self.tile_overlap,
-            )
+            if self._stopped:
+                raise RuntimeError("inference service is closed")
+            if self._mesh is not None:
+                images = np.require(images, np.uint8, ("C", "W"))  # what every rank predicts
+                self._command(_PREDICT, images, overlay)
+            out = self._predict(images, overlay)
         with self._stats_lock:
             self.dispatches += 1
         return out
@@ -318,10 +440,18 @@ def main(argv=None, *, serve: bool = True):
     default ``cuda``; without a card that raises, and the CPU serves only
     when asked for with ``--device cpu``. With ``serve=False`` the built
     server is returned unstarted (the caller runs ``serve_forever`` and
-    closes it)."""
+    closes it and its ``service``).
+
+    Under ``torchrun`` (``WORLD_SIZE`` > 1) it first joins the process
+    group (NCCL on the card, gloo on the CPU; an initialised group is used
+    as it is), and the model is on the mesh of every rank over 'data'
+    (``FCN8s(model_load_dir=...)``'s default). Rank 0 serves as above;
+    every other rank follows it (``InferenceService.follow``), prints
+    nothing but errors, and returns 0 after rank 0's ``close()`` whatever
+    ``serve``. A group this call joined it leaves at the end."""
     import sys
 
-    import torch
+    import torch.distributed as dist
 
     argv = list(argv) if argv is not None else sys.argv[1:]
     try:
@@ -343,22 +473,34 @@ def main(argv=None, *, serve: bool = True):
     from ..labels import TRAINIDS_TO_RGBA_DICT
     from .model import FCN8s
 
-    model = FCN8s(model_load_dir=checkpoint_dir, device=device)
-    service = InferenceService(model, color_map=TRAINIDS_TO_RGBA_DICT,
-                               batch_window_ms=window_ms)
-    server = make_server(service, port=port)
-    server.service = service  # the caller of serve=False closes it
-    print(f"serving {checkpoint_dir} on {device} at "
-          f"http://127.0.0.1:{server.server_address[1]} "
-          f"(POST /predict, /overlay; GET /healthz, /stats)")
-    if not serve:
-        return server
+    joined = int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized()
+    if joined:
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
     try:
-        server.serve_forever()
+        model = FCN8s(model_load_dir=checkpoint_dir, device=device)
+        service = InferenceService(model, color_map=TRAINIDS_TO_RGBA_DICT,
+                                   batch_window_ms=window_ms)
+        if not service.is_controller:
+            service.follow()
+            model.close()
+            return 0
+        server = make_server(service, port=port)
+        server.service = service  # the caller of serve=False closes it
+        print(f"serving {checkpoint_dir} on {device} at "
+              f"http://127.0.0.1:{server.server_address[1]} "
+              f"(POST /predict, /overlay; GET /healthz, /stats)")
+        if not serve:
+            joined = False  # the caller's service still needs the group
+            return server
+        try:
+            server.serve_forever()
+        finally:
+            server.server_close()
+            service.close()
+        return 0
     finally:
-        server.server_close()
-        service.close()
-    return 0
+        if joined:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -8,8 +8,9 @@
 * Over 'data' (or ``ALL_AXES``, the whole mesh, under spatial
   partitioning): the in-place sums of gradients, loss normalisers and
   metrics (``all_reduce``), the concatenation of predict outputs
-  (``all_gather_cat``; along the width over 'model', ``gather_width``), and
-  the object broadcast of a rank-0 result.
+  (``all_gather_cat``; along the width over 'model', ``gather_width``), the
+  object broadcast of a rank-0 result, and the tensor broadcast that
+  carries the serving controller's commands (``broadcast``).
 * ``halo_exchange``, over 'model' under spatial partitioning: a
   width-sharded activation extended by its neighbours' edge columns before
   a convolution, and the halo's gradient sent back and added where those
@@ -19,7 +20,8 @@
 On an axis of one position every function returns its input and launches
 nothing, so a (1, 1) mesh runs the single-card code exactly. The calls are
 the ones the gloo backend takes on CUDA tensors as well as on CPU tensors
-(``all_reduce``, ``all_gather``, ``broadcast_object_list``, ``barrier``).
+(``all_reduce``, ``all_gather``, ``broadcast``, ``broadcast_object_list``,
+``barrier``).
 
 The cut points of a segmented capture (``parallel/graphs.py``): every
 ``all_reduce`` and ``all_gather`` of a step goes through ``_issue`` as a
@@ -30,8 +32,8 @@ collective joins the step's plan on those same buffers, and the work after
 it goes into the next graph. A step computes its gradients through ``grad``,
 so a collective that autograd reaches in a backward (``_CopyToModel``,
 ``_HaloExchange``, a recomputed block) is cut the same way.
-``broadcast_object`` and ``barrier`` run outside every step and are never
-cut.
+``broadcast``, ``broadcast_object`` and ``barrier`` run outside every step
+and are never cut.
 """
 
 from __future__ import annotations
@@ -249,14 +251,31 @@ def halo_exchange(x: torch.Tensor, h: int, split: WidthSplit) -> torch.Tensor:
 halo_exchange.bytes = 0
 
 
+def _transport(mesh: Mesh) -> torch.device:
+    """Where a broadcast's tensor travels: the card under NCCL, the host
+    under gloo."""
+    return mesh.device if dist.get_backend() == "nccl" else torch.device("cpu")
+
+
 def broadcast_object(obj, mesh: Mesh | None):
     """Rank 0's ``obj`` (picklable) on every rank of the mesh."""
     if mesh is None or mesh.size == 1:
         return obj
     box = [obj]
-    dist.broadcast_object_list(box, src=0,
-                               device=mesh.device if dist.get_backend() == "nccl" else None)
+    dist.broadcast_object_list(box, src=0, device=_transport(mesh))
     return box[0]
+
+
+def broadcast(tensor: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """Rank 0's ``tensor`` on every rank of the mesh: each rank passes a
+    tensor of the same shape and dtype (the others' contents are not read)
+    and gets rank 0's, on the group's transport device (``_transport``);
+    ``tensor`` itself on a mesh of one position."""
+    if mesh is None or mesh.size == 1:
+        return tensor
+    wire = tensor.to(_transport(mesh)).contiguous()
+    dist.broadcast(wire, src=0)
+    return wire
 
 
 def barrier(mesh: Mesh | None) -> None:

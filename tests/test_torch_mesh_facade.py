@@ -126,7 +126,7 @@ def port_side(tmp_path_factory, jax_side):
              ("save", str(root / "saved")),
              ("predict_and_save", str(root / "pngs"), str(root / "images")),
              ("export", str(root / "artifact")),
-             ("serve",),
+             ("serve", IMAGES[0]),
              ("summaries", str(root / "tb"), ["b4"]),
              ("observers", ["b4", "b4b", "b4", "b4b", "b4", "b4b"])]
     os.makedirs(root / "images")
@@ -248,9 +248,16 @@ def test_mesh_export_serving_runs_the_gathered_params(port_side):
     np.testing.assert_array_equal(artifact.predict(images), single.predict(images))
 
 
-def test_inference_service_refuses_a_mesh_of_processes(port_side):
-    for got in _every_rank(port_side):
-        assert "needs one controller" in got["serve"]
+def test_inference_service_on_the_mesh_answers_like_its_predict(port_side):
+    """``InferenceService`` on the (2, 2) tensor-parallel mesh: rank 0
+    answers a /predict body while the other ranks follow it, and its ids
+    are the facade's own ``predict`` of that image on the mesh, which every
+    rank returns alike."""
+    ranks = _every_rank(port_side)
+    for got in ranks:
+        np.testing.assert_array_equal(got["serve_predict"], ranks[0]["serve_predict"])
+    assert ranks[0]["served"].dtype == np.uint8
+    np.testing.assert_array_equal(ranks[0]["served"], ranks[0]["serve_predict"])
 
 
 def test_mesh_summaries_are_written_once(port_side):

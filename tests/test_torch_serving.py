@@ -150,6 +150,28 @@ def test_microbatching_coalesces_and_matches_unbatched(rng):
         service.close()
 
 
+def test_microbatching_pads_every_group_to_one_capture(rng):
+    """Groups of 1 to 8 same-shape requests each pad to ``max_batch`` with
+    copies of their last image: one predict step and one capture serve them
+    all (the compiled step's cache counts captures on the CPU too), and
+    every answer equals the unpadded batch's."""
+    model = _model()
+    service = InferenceService(model, color_map=CMAP, batch_window_ms=100, max_batch=8)
+    try:
+        images = [rng.integers(0, 256, (32, 64, 3), dtype=np.uint8) for _ in range(8)]
+        answers = []
+        for k in range(1, 9):
+            futures = [service._batcher.submit(im, False) for im in images[:k]]
+            answers.append([f.result(timeout=120) for f in futures])
+        assert model.capture_counts()["predict"] == 1
+        assert [key[0] for key in model._predict_steps.keys()] == [(8, 32, 64, 3)]
+        assert service.stats()["dispatches"] >= 8
+    finally:
+        service.close()
+    for k, got in enumerate(answers, start=1):
+        np.testing.assert_array_equal(np.stack(got), model.predict(np.stack(images[:k])))
+
+
 def test_microbatching_submit_after_close_fails_fast(rng):
     service = InferenceService(_model(), color_map=CMAP, batch_window_ms=50)
     service.close()
