@@ -3,10 +3,12 @@
 
 A background thread runs the host pipeline (decode, label ids, batch
 padding: whatever the wrapped iterator does) and wraps each batch in host
-tensors, pinned when the target is a CUDA device. The consumer copies them
-to the device with ``non_blocking=True`` on its current stream, so the copy
-of batch N+1 queues behind the compute of batch N instead of blocking the
-host, and the copy is ordered with the step that reads it.
+tensors, pinned when the target is a CUDA device (the span
+``fcn8s.prefetch.h2d`` on that thread, under a profiler that traces every
+thread). The consumer copies them to the device with ``non_blocking=True``
+on its current stream, so the copy of batch N+1 queues behind the compute
+of batch N instead of blocking the host, and the copy is ordered with the
+step that reads it.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import threading
 
 import numpy as np
 import torch
+
+from ..utils.profiling import annotate
 
 
 def host_tensors(batch: tuple, pin: bool) -> tuple:
@@ -51,7 +55,9 @@ class DevicePrefetcher:
             for batch in self._iterator:
                 if self._stop.is_set():
                     return
-                self._queue.put(host_tensors(batch, pin))
+                with annotate("fcn8s.prefetch.h2d"):  # the H2D's pinned staging
+                    item = host_tensors(batch, pin)
+                self._queue.put(item)
         except Exception as exc:  # surfaced in the consumer thread
             self._err = exc
         finally:

@@ -109,6 +109,7 @@ from ..parallel.steps import (
     train_step,
     tta_step,
 )
+from ..utils.profiling import annotate
 from .summaries import SummaryLogger
 
 _ALLOWED_METRICS = {"loss", "mean_iou", "accuracy"}
@@ -826,17 +827,18 @@ class FCN8s:
         ``pad_batch_to`` with copies of the last image (so that a short
         tail replays the full chunks' step) and then to the mesh's 'data'
         axis. Returns (padded, (n, h, w))."""
-        images = np.asarray(images)
-        if images.ndim == 3:
-            images = images[None]
-        n, h, w = images.shape[:3]
-        ph, pw = (-h) % 32, (-w) % 32
-        if ph or pw:
-            images = np.pad(images, ((0, 0), (0, ph), (0, pw), (0, 0)), mode="constant")
-        if pad_batch_to is not None and n < pad_batch_to:
-            images = np.concatenate([images, np.repeat(images[-1:], pad_batch_to - n, axis=0)],
-                                    axis=0)
-        images, _ = self._pad_batch_dim(images)
+        with annotate("fcn8s.predict.prepare"):
+            images = np.asarray(images)
+            if images.ndim == 3:
+                images = images[None]
+            n, h, w = images.shape[:3]
+            ph, pw = (-h) % 32, (-w) % 32
+            if ph or pw:
+                images = np.pad(images, ((0, 0), (0, ph), (0, pw), (0, 0)), mode="constant")
+            if pad_batch_to is not None and n < pad_batch_to:
+                images = np.concatenate(
+                    [images, np.repeat(images[-1:], pad_batch_to - n, axis=0)], axis=0)
+            images, _ = self._pad_batch_dim(images)
         return images, (n, h, w)
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
@@ -862,16 +864,18 @@ class FCN8s:
         run = self._inference_params(params, quantized)
         if spatial_partition and not quantized:  # replicated (the int8 tree already is)
             run = self._replicated(run)
-        images = self._put_batch(padded)
-        if not self._eager_steps:
-            step = self._get_predict_step(images.shape, argmax, overlay_lut, quantized, compact,
-                                          spatial_partition)
-            return step(run, images)
-        return predict_step(run, images, argmax=argmax,
-                            compute_dtype=self.compute_dtype,
-                            id_dtype=torch.uint8 if compact else torch.int32,
-                            overlay_lut=overlay_lut, quantized=quantized,
-                            **self._step_layout(spatial_partition))
+        with annotate("fcn8s.predict.h2d"):
+            images = self._put_batch(padded)
+        with annotate("fcn8s.predict.step"):
+            if not self._eager_steps:
+                step = self._get_predict_step(images.shape, argmax, overlay_lut, quantized,
+                                              compact, spatial_partition)
+                return step(run, images)
+            return predict_step(run, images, argmax=argmax,
+                                compute_dtype=self.compute_dtype,
+                                id_dtype=torch.uint8 if compact else torch.int32,
+                                overlay_lut=overlay_lut, quantized=quantized,
+                                **self._step_layout(spatial_partition))
 
     def _inference_params(self, ema, quantized: bool) -> dict:
         """The tree a predict runs: the EMA's (``_resolve_ema``) when given,
@@ -883,9 +887,11 @@ class FCN8s:
     @staticmethod
     def _host_output(out: torch.Tensor, argmax, overlay_lut) -> np.ndarray:
         """D2H of a predict output; compact ids are re-widened to the API's int32."""
-        out = out.cpu().numpy()
+        with annotate("fcn8s.predict.d2h"):
+            out = out.cpu().numpy()
         if argmax and overlay_lut is None and out.dtype == np.uint8:
-            out = out.astype(np.int32)
+            with annotate("fcn8s.predict.widen"):
+                out = out.astype(np.int32)
         return out
 
     @torch.inference_mode()
@@ -922,20 +928,26 @@ class FCN8s:
         ``spatial_partition=True`` splits the (padded) width over the mesh's
         'model' axis in units of 32 columns, at least one per position
         (``ValueError`` otherwise), with the halo exchanged at every conv
-        and deconv; it excludes ``tile``."""
-        lut = self._overlay_lut(overlay) if overlay is not None else None
-        ema = self._resolve_ema(use_ema, quantized)
-        if tile is not None:
-            if spatial_partition:
-                raise ValueError("tile and spatial_partition are mutually exclusive")
-            return self._predict_tiled(images, argmax, lut, quantized, tile, tile_overlap,
-                                       params=ema, blend=tile_blend)
-        if tile_blend:
-            raise ValueError("tile_blend requires tile=(th, tw)")
-        padded, (n, h, w) = self._prepare_images(images)
-        out = self._dispatch_predict(padded, argmax, lut, quantized, params=ema,
-                                     spatial_partition=spatial_partition)
-        return self._host_output(out, argmax, lut)[:n, :h, :w]
+        and deconv; it excludes ``tile``.
+
+        Under a profiler the call is the span ``fcn8s.predict``, with its
+        phases inside: ``.prepare`` (the pads), ``.h2d``, ``.step`` (the
+        compiled step's dispatch), ``.d2h`` and ``.widen``; the tiled path
+        names the same phases of each chunk."""
+        with annotate("fcn8s.predict"):
+            lut = self._overlay_lut(overlay) if overlay is not None else None
+            ema = self._resolve_ema(use_ema, quantized)
+            if tile is not None:
+                if spatial_partition:
+                    raise ValueError("tile and spatial_partition are mutually exclusive")
+                return self._predict_tiled(images, argmax, lut, quantized, tile, tile_overlap,
+                                           params=ema, blend=tile_blend)
+            if tile_blend:
+                raise ValueError("tile_blend requires tile=(th, tw)")
+            padded, (n, h, w) = self._prepare_images(images)
+            out = self._dispatch_predict(padded, argmax, lut, quantized, params=ema,
+                                         spatial_partition=spatial_partition)
+            return self._host_output(out, argmax, lut)[:n, :h, :w]
 
     @torch.inference_mode()
     def predict_tta(self, images, scales=(1.0,), flip=True, argmax=True, quantized=False,
@@ -948,31 +960,39 @@ class FCN8s:
         the argmax run on the card too. ``scales=(1.0,)`` with
         ``flip=False`` is ``predict``'s softmax. Returns (N, H, W) int32
         ids, or with ``argmax=False`` the (N, H, W, C) fp32 mean
-        probabilities. ``quantized`` and ``use_ema`` as in ``predict``."""
+        probabilities. ``quantized`` and ``use_ema`` as in ``predict``.
+        Under a profiler the call is the span ``fcn8s.predict_tta``, with
+        ``predict``'s phase names inside (``.step`` once per scale)."""
         if not scales:
             raise ValueError("predict_tta: scales must be non-empty")
-        padded, (n, h, w) = self._prepare_images(images)
-        call_params = self._inference_params(self._resolve_ema(use_ema, quantized), quantized)
-        im_d = self._put_batch(padded)
-        ph, pw = padded.shape[1:3]
-        acc = None
-        for s in scales:
-            sh = max(32, int(round(ph * float(s) / 32)) * 32)
-            sw = max(32, int(round(pw * float(s) / 32)) * 32)
-            scale_hw = None if (sh, sw) == (ph, pw) else (sh, sw)
-            if not self._eager_steps:
-                p = self._get_tta_step(im_d.shape, scale_hw, bool(flip), quantized)(call_params,
-                                                                                   im_d)
-            else:
-                p = tta_step(call_params, im_d, scale_hw=scale_hw, flip=bool(flip),
-                             compute_dtype=self.compute_dtype, quantized=quantized,
-                             **self._mesh_kwargs)
-            acc = p if acc is None else acc.add_(p)
-            del p
-        probs = acc if len(scales) == 1 else acc.div_(float(len(scales)))
-        if argmax:
-            return torch.argmax(probs[:n, :h, :w], dim=-1).to(torch.int32).cpu().numpy()
-        return probs[:n, :h, :w].cpu().numpy()
+        with annotate("fcn8s.predict_tta"):
+            padded, (n, h, w) = self._prepare_images(images)
+            call_params = self._inference_params(self._resolve_ema(use_ema, quantized),
+                                                 quantized)
+            with annotate("fcn8s.predict.h2d"):
+                im_d = self._put_batch(padded)
+            ph, pw = padded.shape[1:3]
+            acc = None
+            for s in scales:
+                sh = max(32, int(round(ph * float(s) / 32)) * 32)
+                sw = max(32, int(round(pw * float(s) / 32)) * 32)
+                scale_hw = None if (sh, sw) == (ph, pw) else (sh, sw)
+                with annotate("fcn8s.predict.step"):
+                    if not self._eager_steps:
+                        p = self._get_tta_step(im_d.shape, scale_hw, bool(flip),
+                                               quantized)(call_params, im_d)
+                    else:
+                        p = tta_step(call_params, im_d, scale_hw=scale_hw, flip=bool(flip),
+                                     compute_dtype=self.compute_dtype, quantized=quantized,
+                                     **self._mesh_kwargs)
+                acc = p if acc is None else acc.add_(p)
+                del p
+            probs = acc if len(scales) == 1 else acc.div_(float(len(scales)))
+            probs = probs[:n, :h, :w]
+            if argmax:
+                probs = torch.argmax(probs, dim=-1).to(torch.int32)
+            with annotate("fcn8s.predict.d2h"):
+                return probs.cpu().numpy()
 
     @staticmethod
     def _tile_grid(size: int, t: int, overlap: int):
@@ -1422,7 +1442,13 @@ class FCN8s:
         periodic evaluation runs the same way, and so does a later
         ``find_learning_rate``. A tensor-parallel model trains on its whole
         params, moments and EMA (gathered at the start of the call, laid
-        back into shards at its end)."""
+        back into shards at its end).
+
+        Under a profiler the call's work is the span ``fcn8s.train``, with
+        its phases inside: ``.start`` (the train state, the relayout and the
+        input stream), each step's ``.next_batch``, ``.step`` and
+        ``.readback`` (the losses to the host), and ``.end`` (the stream
+        closed, the params cast for predict)."""
         metrics = set(metrics)  # the reference's default `{}` is a dict literal
         if not metrics <= _ALLOWED_METRICS:
             raise ValueError(f"metrics must be a subset of {_ALLOWED_METRICS}, got {metrics}")
@@ -1519,28 +1545,35 @@ class FCN8s:
             if self._writer:
                 logger = self._summary_logger = SummaryLogger(summaries_dir, summaries_name)
 
-        with self._replicas(spatial_partition):
-            if self.state.opt_state is None:
-                if self._staged_opt_state is not None:  # restored from a checkpoint
-                    self.state.opt_state = self._shard_opt(self._staged_opt_state).to(self.device)
-                    self._staged_opt_state = None
-                else:
-                    self.state = create_train_state(self.params, self.optimizer)
-                    self.state.step = self.g_step
-            g_step = self.state.step
+        def _lr(step):
+            return float(learning_rate_schedule(step)) * lr_scale
 
-            def _lr(step):
-                return float(learning_rate_schedule(step)) * lr_scale
-
-            learning_rate = _lr(g_step)
-            loss_history = deque(maxlen=training_loss_display_averaging)
-            train_stream = self._make_train_stream(train_generator, prefetch)
+        # the call's spans: fcn8s.train, and inside it .start, then each
+        # step's .next_batch, .step and .readback, then .end
+        with annotate("fcn8s.train"), contextlib.ExitStack() as call:
+            with annotate("fcn8s.train.start"):
+                call.enter_context(self._replicas(spatial_partition))
+                if self.state.opt_state is None:
+                    if self._staged_opt_state is not None:  # restored from a checkpoint
+                        self.state.opt_state = self._shard_opt(
+                            self._staged_opt_state).to(self.device)
+                        self._staged_opt_state = None
+                    else:
+                        self.state = create_train_state(self.params, self.optimizer)
+                        self.state.step = self.g_step
+                g_step = self.state.step
+                learning_rate = _lr(g_step)
+                loss_history = deque(maxlen=training_loss_display_averaging)
+                train_stream = self._make_train_stream(train_generator, prefetch)
             try:
                 for epoch in range(1, epochs + 1):
                     for step_i in range(steps_per_epoch):
-                        self.state, loss = self._train_call(
-                            self.state, next(train_stream), learning_rate, l2_regularization,
-                            keep_prob, spatial_partition)
+                        with annotate("fcn8s.train.next_batch"):
+                            batch = next(train_stream)
+                        with annotate("fcn8s.train.step"):
+                            self.state, loss = self._train_call(
+                                self.state, batch, learning_rate, l2_regularization,
+                                keep_prob, spatial_partition)
                         g_step += 1
                         self.variables_updated = True
                         if ema_decay is not None:
@@ -1550,7 +1583,8 @@ class FCN8s:
                         # cadence and at the epoch's end, so the host runs ahead
                         # of the card between
                         if g_step % summaries_frequency == 0 or step_i == steps_per_epoch - 1:
-                            vals = torch.stack(list(loss_history)).cpu().numpy()
+                            with annotate("fcn8s.train.readback"):
+                                vals = torch.stack(list(loss_history)).cpu().numpy()
                             self.training_loss = float(vals.mean())
                             if logger is not None and g_step % summaries_frequency == 0:
                                 logger.log_training_step(g_step, float(vals[-1]), learning_rate)
@@ -1659,8 +1693,9 @@ class FCN8s:
                 if logger is not None:
                     logger.flush()
             finally:
-                self._close_train_stream()
-                self._refresh_run_params()
+                with annotate("fcn8s.train.end"):
+                    self._close_train_stream()
+                    self._refresh_run_params()
         self._join_pending_save()  # don't return with a checkpoint mid-write
 
     def find_learning_rate(self, train_generator, *, min_lr=1e-7, max_lr=1.0, steps=50,

@@ -41,6 +41,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ..utils.profiling import annotate
 from .mesh import DATA_AXIS, MODEL_AXIS, Mesh, WidthSplit
 
 
@@ -48,16 +49,19 @@ class Collective:
     """One ``all_reduce`` (``tensor`` reduced in place with ``op``) or
     ``all_gather`` (every position's ``tensor`` into ``parts``) over
     ``group``, held with its buffers, so that a captured step can issue it
-    again between two graphs on the same addresses."""
+    again between two graphs on the same addresses. Each ``run`` is the span
+    ``fcn8s.mesh.<kind>`` under a profiler."""
 
     def __init__(self, kind: str, tensor: torch.Tensor, group, op=None, parts=None):
         self.kind, self.tensor, self.group, self.op, self.parts = kind, tensor, group, op, parts
+        self.span = "fcn8s.mesh." + kind
 
     def run(self) -> None:
-        if self.kind == "all_reduce":
-            dist.all_reduce(self.tensor, op=self.op, group=self.group)
-        else:
-            dist.all_gather(self.parts, self.tensor, group=self.group)
+        with annotate(self.span):
+            if self.kind == "all_reduce":
+                dist.all_reduce(self.tensor, op=self.op, group=self.group)
+            else:
+                dist.all_gather(self.parts, self.tensor, group=self.group)
 
     def describe(self) -> tuple:
         """(kind, reduce op, shape, dtype, the group's ranks): what the call

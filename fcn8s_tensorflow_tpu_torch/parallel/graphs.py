@@ -73,6 +73,7 @@ from collections import OrderedDict
 import torch
 
 from ..ops import conv1_core, kernels, pool, quantize
+from ..utils.profiling import annotate
 from . import collectives
 
 WARMUP = 2  # calls of a body before its capture
@@ -304,7 +305,7 @@ class Captured:
     the card and from the last run on the CPU, where ``run`` calls the body
     under a ``_Segmenter`` with no graph; ``halo_bytes`` is what one call
     adds to ``halo_exchange.bytes``. ``replays`` counts the calls of
-    ``run``."""
+    ``run``, each the span ``fcn8s.step.replay`` under a profiler."""
 
     def __init__(self, body, graph, outputs, launches, *, segmented: bool = False,
                  halo_bytes: int = 0, issued=()):
@@ -319,14 +320,15 @@ class Captured:
 
     def run(self, *args):
         self.replays += 1
-        if self.graph is None:
-            if not self.segmented:
-                return self.body(*args)
-            with _segmenting(_Segmenter()) as cuts:
-                out = self.body(*args)
-            self.issued = cuts.issued
-            return out
-        self.graph.replay()
+        with annotate("fcn8s.step.replay"):
+            if self.graph is None:
+                if not self.segmented:
+                    return self.body(*args)
+                with _segmenting(_Segmenter()) as cuts:
+                    out = self.body(*args)
+                self.issued = cuts.issued
+                return out
+            self.graph.replay()
         for fn, n in zip(KERNEL_WRAPPERS, self.launches):
             fn.launches += n
         collectives.halo_exchange.bytes += self.halo_bytes

@@ -61,6 +61,7 @@ from ..ops.losses import class_pixel_weights, valid_pixel_weights
 from ..ops.metrics import update_metrics_state
 from ..ops.nn import resize_bilinear
 from ..ops.quantize import apply_fcn8s_int8
+from ..utils.profiling import annotate
 from .collectives import all_gather_cat, all_reduce, all_reduce_flat, gather_width, grad
 from .graphs import (CaptureCache, CaptureEntry, FixedGenerators, binding, capture, fill_scalars,
                      signature, static_like, tensors_of)
@@ -724,26 +725,30 @@ class _CompiledTrain(_CompiledStep):
         key = (binding(held), signature(inputs), drops)
         inner = state.opt_state.inner
         adam = isinstance(inner, ScaleByAdamTF1State)
-        scales = [self.optimizer.lr_scale(inner.count + k + 1) if adam else 0.0
-                  for k in range(self.steps)]
-        fill_scalars(self.scalars, [learning_rate, l2_rate, keep_prob] + scales)
+        scalars = [learning_rate, l2_rate, keep_prob] + [
+            self.optimizer.lr_scale(inner.count + k + 1) if adam else 0.0
+            for k in range(self.steps)]
         seeds = partial(_site_seed, seed, state.step, self.mesh)
-        self.generators.reseed(seeds)
         args = (state.params, state.opt_state)
         entry = self.captures.lookup(key)
         if entry is None:
-            statics = [static_like(x, self.device) for x in inputs]
-            for buf, x in zip(statics, inputs):
-                buf.copy_(x)
-            captured = capture(partial(self._body, statics, drops), self.device, args=args,
-                               restore=held, generators=self.generators,
-                               segmented=_segmented(self.mesh))
-            entry = self.captures.add(key, CaptureEntry(captured, statics, held))
+            with annotate("fcn8s.step.capture"):
+                fill_scalars(self.scalars, scalars)
+                self.generators.reseed(seeds)
+                statics = [static_like(x, self.device) for x in inputs]
+                for buf, x in zip(statics, inputs):
+                    buf.copy_(x)
+                captured = capture(partial(self._body, statics, drops), self.device, args=args,
+                                   restore=held, generators=self.generators,
+                                   segmented=_segmented(self.mesh))
+                entry = self.captures.add(key, CaptureEntry(captured, statics, held))
+        with annotate("fcn8s.step.copy_in"):
+            fill_scalars(self.scalars, scalars)
             self.generators.reseed(seeds)
-        for buf, x in zip(entry.statics, inputs):
-            buf.copy_(x)
-        for _ in range(self.steps):
-            self.optimizer.advance(state.opt_state, learning_rate)
+            for buf, x in zip(entry.statics, inputs):
+                buf.copy_(x)
+            for _ in range(self.steps):
+                self.optimizer.advance(state.opt_state, learning_rate)
         losses = entry.captured.run(*args).clone()
         state.step += self.steps
         return state, losses
@@ -885,14 +890,16 @@ class _CompiledForward(_CompiledStep):
         key = (binding(held), signature(inputs) + signature([state[k] for k in names]))
         entry = self.captures.lookup(key)
         if entry is None:
-            statics = [static_like(x, self.device) for x in inputs]
-            acc = {k: static_like(state[k], self.device) for k in names}
-            self._copy_in(statics, inputs, acc, state)
-            body = partial(self._body, acc if self.metrics else None, statics)
-            captured = capture(body, self.device, args=(params,), restore=list(acc.values()),
-                               segmented=self.segmented)
-            entry = self.captures.add(key, CaptureEntry(captured, statics, held, acc))
-        self._copy_in(entry.statics, inputs, entry.acc, state)
+            with annotate("fcn8s.step.capture"):
+                statics = [static_like(x, self.device) for x in inputs]
+                acc = {k: static_like(state[k], self.device) for k in names}
+                self._copy_in(statics, inputs, acc, state)
+                body = partial(self._body, acc if self.metrics else None, statics)
+                captured = capture(body, self.device, args=(params,),
+                                   restore=list(acc.values()), segmented=self.segmented)
+                entry = self.captures.add(key, CaptureEntry(captured, statics, held, acc))
+        with annotate("fcn8s.step.copy_in"):
+            self._copy_in(entry.statics, inputs, entry.acc, state)
         out = entry.captured.run(params)
         if not self.metrics:
             return out.clone()
