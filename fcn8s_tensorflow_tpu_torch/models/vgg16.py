@@ -6,6 +6,11 @@
 (pool3, pool4, fc7) at strides 8/16/32. ``remat`` wraps each conv block and
 the head in ``torch.utils.checkpoint``, as ``jax.checkpoint`` does.
 
+Every conv runs on cuDNN through ``ops.nn.conv2d`` but fc6's forward, which
+is one GEMM over its im2col (``ops.nn.conv2d_im2col``, cuDNN's backward):
+cuDNN runs fc6's forward on CUDA cores, and fc6's map is small enough for
+an explicit im2col, which the 3x3 convs' maps are not (``ops/nn.py``).
+
 On a mesh (``parallel/mesh.py``) with tensor parallelism, fc6 and fc7 run
 on this rank's shards in the Megatron pairing: fc6 column-parallel behind
 ``copy_to_model``, fc7 row-parallel, its partial sums reduced over 'model'
@@ -24,7 +29,8 @@ from functools import partial
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.nn import applies_dropout, conv2d, dropout, dropout_mask, nchw, nhwc
+from ..ops.nn import (applies_dropout, conv2d, conv2d_im2col, dropout, dropout_mask, nchw,
+                      nhwc)
 from ..ops.pool import maxpool2x2
 from ..parallel.collectives import copy_to_model, halo_exchange, reduce_from_model
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
@@ -87,12 +93,13 @@ def _blocks() -> list[list[str]]:
     return blocks[:-1]
 
 
-def _split_conv2d(x, weight, bias, split=None):
-    """``ops.nn.conv2d``, on this rank's columns extended by their halo when
-    the width is split (``split``; a 1x1 kernel needs none)."""
+def _split_conv2d(x, weight, bias, split=None, conv=conv2d):
+    """``conv`` (``ops.nn.conv2d``, or fc6's ``conv2d_im2col``), on this
+    rank's columns extended by their halo when the width is split
+    (``split``; a 1x1 kernel needs none)."""
     if split is None or weight.shape[3] == 1:
-        return conv2d(x, weight, bias)
-    return conv2d(halo_exchange(x, weight.shape[3] // 2, split), weight, bias, halo=True)
+        return conv(x, weight, bias)
+    return conv(halo_exchange(x, weight.shape[3] // 2, split), weight, bias, halo=True)
 
 
 def _run_block(names, split, x, *weights):
@@ -102,7 +109,7 @@ def _run_block(names, split, x, *weights):
 
 
 def _run_head(split, masks, keep_prob, x, w6, b6, w7, b7):
-    x = dropout(torch.relu_(_split_conv2d(x, w6, b6, split)), keep_prob, masks[0])
+    x = dropout(torch.relu_(_split_conv2d(x, w6, b6, split, conv2d_im2col)), keep_prob, masks[0])
     return dropout(torch.relu_(conv2d(x, w7, b7)), keep_prob, masks[1])
 
 
@@ -110,7 +117,7 @@ def _run_head_tp(mesh, masks, keep_prob, x, w6, b6, w7, b7):
     """The head on this rank's shards: fc6's output-channel block, then
     fc7's partial product over that block (a 1x1 conv is a matmul over
     channels), summed over 'model' in fp32, plus the bias, cast once."""
-    x = dropout(torch.relu_(conv2d(copy_to_model(x, mesh), w6, b6)), keep_prob, masks[0])
+    x = dropout(torch.relu_(conv2d_im2col(copy_to_model(x, mesh), w6, b6)), keep_prob, masks[0])
     n, c, h, w = x.shape
     part = nhwc(x).reshape(-1, c).float() @ w7.reshape(w7.shape[0], c).float().t()
     y = (reduce_from_model(part, mesh) + b7.float()).to(x.dtype)

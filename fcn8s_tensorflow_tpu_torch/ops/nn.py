@@ -8,6 +8,16 @@ package's NHWC byte layout: cuDNN takes it directly, and the pool kernel
 JAX's HWIO). ``nhwc``/``nchw`` switch between the two logical views of the
 same memory without a copy.
 
+Every convolution of the model runs on cuDNN (``conv2d``) but fc6's
+forward: ``conv2d_im2col`` runs it as one bf16 GEMM over its explicit NHWC
+im2col on the tensor cores, with cuDNN's dgrad and wgrad for its backward.
+At fc6's shapes (7x7, 512 -> 4096, a 16x32 or 32x64 map) cuDNN's heuristics
+pick a CUDA-core forward kernel, while its backward already runs on the
+tensor cores. Only fc6 takes the route: its im2col is 49 times an input of
+a few hundred pixels a frame (0.2 GB at batch 8 of 512x1024, 0.8 GB of
+1024x2048), where a 3x3 conv's at 0.5-2 MP a frame would be several GB, and
+cuDNN runs those on tensor-core kernels already.
+
 Every deconv of the model runs through ``ops/subpixel.py``.
 ``conv2d_transpose`` is JAX's input-dilated form, written out as one: the
 decoder's ``subpixel=False`` path and a reference for the subpixel rewrite.
@@ -40,9 +50,10 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = No
     Every kernel of the model is odd (3x3, 7x7) or 1x1, so TF-SAME padding is
     the symmetric ``k // 2``. The weight is cast to ``x.dtype`` as JAX's
     ``conv2d`` does; callers that hold weights already in the compute dtype
-    (``bridge.cast_params``) make that a no-op. The bias is added inside the
-    convolution's fp32 accumulator instead of after the rounding to the
-    compute dtype: exact in fp32, within one bf16 rounding otherwise.
+    (``bridge.cast_params``) make that a no-op. On the card PyTorch adds the
+    bias after cuDNN's convolution, as its own add in ``x``'s dtype, as
+    JAX's ``conv2d`` adds it after the convolution: a second rounding in
+    bf16 (``conv2d_im2col`` adds it in fp32, before its one rounding).
 
     ``halo=True``: ``x`` is a width block already extended by ``kw // 2``
     columns on each side (``parallel.collectives.halo_exchange``), so only
@@ -53,6 +64,107 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = No
     return F.conv2d(x, weight.to(x.dtype),
                     None if bias is None else bias.to(x.dtype),
                     padding=(kh // 2, 0 if halo else kw // 2))
+
+
+def im2col_nhwc(xq: torch.Tensor, kh: int, kw: int, k_cols: int,
+                halo: bool = False) -> torch.Tensor:
+    """The (N*H*W, k_cols) im2col of an NHWC tensor for a stride-1 SAME
+    kh x kw convolution: the input zero-padded by (kh//2, kw//2), its
+    kh*kw shifted views concatenated along channels in (ky, kx, c) order,
+    then zero columns up to ``k_cols``. A 1x1 kernel without padding is a
+    view. ``halo=True``: the input is a width block already extended by
+    ``kw // 2`` columns on each side (``ops.nn.conv2d``'s ``halo``), so
+    only the height is padded."""
+    n, h, w, c = xq.shape
+    if halo:
+        w -= 2 * (kw // 2)
+    k = kh * kw * c
+    if (kh, kw) == (1, 1) and k == k_cols:
+        return xq.reshape(n * h * w, c)
+    xp = F.pad(xq, (0, 0, 0 if halo else kw // 2, 0 if halo else kw // 2, kh // 2, kh // 2))
+    views = [xp[:, ky:ky + h, kx:kx + w, :] for ky in range(kh) for kx in range(kw)]
+    if k_cols > k:
+        views.append(xq.new_zeros((n, h, w, k_cols - k)))
+    cols = torch.cat(views, dim=3)
+    del xp, views
+    return cols.reshape(n * h * w, k_cols)
+
+
+def _conv2d_im2col_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+                           halo: bool) -> torch.Tensor:
+    """``conv2d_im2col``'s arithmetic: the im2col times the kernel's
+    ``(O, kh*kw*C)`` matrix in fp32, the bias added in fp32, one rounding
+    into a fresh channels_last ``(N, O, H, W)`` tensor of ``x``'s dtype."""
+    o, c, kh, kw = weight.shape
+    n, h, w = x.shape[0], x.shape[2], x.shape[3] - (2 * (kw // 2) if halo else 0)
+    cols = im2col_nhwc(nhwc(x), kh, kw, kh * kw * c, halo)
+    mat = nhwc(weight).reshape(o, -1).t()  # a view where the weight is channels_last (OHWI)
+    if x.is_cuda and x.dtype != torch.float32:
+        # an fp32 result: cuBLAS keeps any split-K's partial sums in fp32
+        acc = torch.mm(cols, mat, out_dtype=torch.float32)
+    else:
+        acc = torch.mm(cols.float(), mat.float())
+    del cols
+    if bias is not None:
+        acc += bias.float()
+    out = torch.empty((n, o, h, w), dtype=x.dtype, device=x.device,
+                      memory_format=torch.channels_last)
+    nhwc(out).copy_(acc.view(n, h, w, o))
+    return out
+
+
+class _Conv2dIm2col(torch.autograd.Function):
+    """``conv2d_im2col`` under autograd: the GEMM forward, and for the
+    backward ``aten.convolution_backward`` with the arguments autograd of
+    ``F.conv2d`` passes it, so the gradients are cuDNN's dgrad and wgrad
+    of ``conv2d``, bit for bit for a given output gradient."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, halo):
+        ctx.save_for_backward(x, weight)
+        ctx.has_bias, ctx.halo = bias is not None, halo
+        return _conv2d_im2col_forward(x, weight, bias, halo)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        kh, kw = weight.shape[2], weight.shape[3]
+        need = ctx.needs_input_grad
+        gx, gw, gb = torch.ops.aten.convolution_backward(
+            grad, x, weight, [weight.shape[0]] if ctx.has_bias else None, [1, 1],
+            [kh // 2, 0 if ctx.halo else kw // 2], [1, 1], False, [0, 0], 1,
+            [need[0], need[1], ctx.has_bias and need[2]])
+        return gx, gw, gb, None
+
+
+def conv2d_im2col(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None, *,
+                  halo: bool = False) -> torch.Tensor:
+    """``conv2d`` (same arguments, same result up to the order of the sums)
+    as one GEMM over the explicit NHWC im2col (``im2col_nhwc``): bf16
+    operands on the tensor cores, fp32 accumulation over the whole
+    ``kh*kw*C``, the bias added in fp32, one rounding to ``x``'s dtype.
+    Returns a channels_last ``(N, O, H, W)`` tensor, as ``conv2d`` does.
+
+    For fc6 (7x7, 512 -> 4096) at a few hundred pixels a frame, where cuDNN
+    picks a CUDA-core kernel for the forward; its ~1 GB im2col at
+    predict's map is affordable there, not at a 3x3 conv's 0.5-2 MP maps.
+    Under autograd the backward is cuDNN's (``_Conv2dIm2col``); without it
+    the GEMM runs alone. Runs on any device: on the CPU the product is an
+    fp32 ``mm`` of the upcast operands. Counts its calls in
+    ``conv2d_im2col.launches``."""
+    kh, kw = weight.shape[2], weight.shape[3]
+    if kh % 2 == 0 or kw % 2 == 0:
+        raise ValueError(f"conv2d_im2col: SAME padding here needs odd kernels, got {kh}x{kw}")
+    weight = weight.to(x.dtype)
+    bias = None if bias is None else bias.to(x.dtype)
+    conv2d_im2col.launches += 1
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (x, weight, bias)):
+        return _Conv2dIm2col.apply(x, weight, bias, halo)
+    return _conv2d_im2col_forward(x, weight, bias, halo)
+
+
+conv2d_im2col.launches = 0
 
 
 def _same_transpose_padding(k: int, s: int) -> tuple[int, int]:

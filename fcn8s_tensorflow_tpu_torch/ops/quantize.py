@@ -60,7 +60,7 @@ from ..models.fcn8s import apply_fcn8s_decoder
 from ..models.vgg16 import _BLOCK_ENDS, VGG16_CONV_LAYERS, vgg_mean_rgb
 from ..parallel.collectives import all_reduce, halo_exchange
 from ..parallel.mesh import ALL_AXES, DATA_AXIS
-from .nn import conv2d, nchw, nhwc
+from .nn import conv2d, im2col_nhwc, nchw, nhwc
 from .pool import maxpool2x2
 
 INT8_MAX = 127.0
@@ -142,30 +142,6 @@ def _kernel_hw(kernel_q: torch.Tensor) -> tuple[int, int]:
     if kh % 2 == 0 or kw % 2 == 0:
         raise ValueError(f"int8 conv: SAME padding here needs odd kernels, got {kh}x{kw}")
     return kh, kw
-
-
-def im2col_nhwc(xq: torch.Tensor, kh: int, kw: int, k_cols: int,
-                halo: bool = False) -> torch.Tensor:
-    """The (N*H*W, k_cols) im2col of an NHWC tensor for a stride-1 SAME
-    kh x kw convolution: the input zero-padded by (kh//2, kw//2), its
-    kh*kw shifted views concatenated along channels in (ky, kx, c) order,
-    then zero columns up to ``k_cols``. A 1x1 kernel without padding is a
-    view. ``halo=True``: the input is a width block already extended by
-    ``kw // 2`` columns on each side (``ops.nn.conv2d``'s ``halo``), so
-    only the height is padded."""
-    n, h, w, c = xq.shape
-    if halo:
-        w -= 2 * (kw // 2)
-    k = kh * kw * c
-    if (kh, kw) == (1, 1) and k == k_cols:
-        return xq.reshape(n * h * w, c)
-    xp = F.pad(xq, (0, 0, 0 if halo else kw // 2, 0 if halo else kw // 2, kh // 2, kh // 2))
-    views = [xp[:, ky:ky + h, kx:kx + w, :] for ky in range(kh) for kx in range(kw)]
-    if k_cols > k:
-        views.append(xq.new_zeros((n, h, w, k_cols - k)))
-    cols = torch.cat(views, dim=3)
-    del xp, views
-    return cols.reshape(n * h * w, k_cols)
 
 
 def conv2d_int8_im2col(xq: torch.Tensor, kernel_q: torch.Tensor, kernel_mat: torch.Tensor,

@@ -72,7 +72,7 @@ from collections import OrderedDict
 
 import torch
 
-from ..ops import conv1_core, kernels, pool, quantize
+from ..ops import conv1_core, kernels, nn, pool, quantize
 from ..utils.profiling import annotate
 from . import collectives
 
@@ -83,11 +83,12 @@ WARMUP = 2  # calls of a body before its capture
 # keep_prob regimes side by side, not one per tree it ever saw
 MAX_CAPTURES = 4
 
-# every counted launch: the hand kernels, and the int8 conv's library route
+# every counted launch: the hand kernels, the int8 conv's library route and
+# fc6's GEMM route
 KERNEL_WRAPPERS = (pool.maxpool2x2_nhwc, pool.maxpool2x2_code_nhwc, pool.maxpool2x2_bwd_nhwc,
                    kernels.ce_sum_per_sample, kernels.ce_sum_weighted, kernels.ce_grad,
                    kernels.confusion_matrix_accumulate, conv1_core.conv1_core,
-                   quantize.conv2d_int8_im2col)
+                   quantize.conv2d_int8_im2col, nn.conv2d_im2col)
 
 
 def _launch_counts() -> list[int]:
@@ -403,6 +404,17 @@ class CaptureCache:
         return len(self._entries)
 
 
+def _drop_blas_workspaces() -> None:
+    """Free the cuBLAS workspaces PyTorch keeps, one for every stream a
+    matrix product ran on. A capture warms up and records on side streams of
+    its own, so without this each capture would leave workspaces behind for
+    good, the recording's inside the graph's pool. Dropped before the
+    warm-up and after the recording, as ``torch.compile``'s graphs do: the
+    graph keeps its workspace's memory in its pool, and a later product
+    outside it takes a workspace anew."""
+    torch._C._cuda_clearCublasWorkspaces()
+
+
 @torch.no_grad()
 def _put_back(tensors, saved) -> None:
     for t, s in zip(tensors, saved):
@@ -427,6 +439,7 @@ def capture(body, device: torch.device, *, args=(), restore=(),
             body(*args)
         _put_back(restore, saved)
         return Captured(body, None, None, [0] * len(KERNEL_WRAPPERS), segmented=segmented)
+    _drop_blas_workspaces()
     current = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
     side.wait_stream(current)
@@ -444,6 +457,7 @@ def capture(body, device: torch.device, *, args=(), restore=(),
     try:
         graph, outputs, issued = _capture_segments(body, args, device, gens, segmented)
     finally:
+        _drop_blas_workspaces()
         recorded = [a - b for a, b in zip(_launch_counts(), before)]
         for fn, n in zip(KERNEL_WRAPPERS, before):
             fn.launches = n

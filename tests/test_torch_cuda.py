@@ -1089,3 +1089,104 @@ def test_a_capture_that_syncs_raises_on_the_card(dev):
     t = torch.ones(4, device=dev)
     with pytest.raises(RuntimeError):
         G.capture(lambda: t.sum().item(), dev)
+
+
+# ---------------------------------------------------------------------------
+# fc6's forward as one GEMM over its im2col (ops.nn.conv2d_im2col) at fc6's
+# real shapes: b8's 16x32 map (batch 8 of 512x1024) and predict's 32x64
+# (batch 8 of 1024x2048)
+# ---------------------------------------------------------------------------
+
+FC6_MAPS = [(8, 512, 16, 32), (8, 512, 32, 64)]
+
+
+def _fc6_inputs(dev, shape, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cl = torch.channels_last
+    x = torch.randn(shape, generator=g, device=dev).bfloat16().contiguous(memory_format=cl)
+    w = (torch.randn((4096, 512, 7, 7), generator=g, device=dev) / (512 * 49) ** 0.5)
+    b = torch.randn(4096, generator=g, device=dev)
+    return x, w.bfloat16().contiguous(memory_format=cl), b.bfloat16()
+
+
+@pytest.mark.parametrize("shape", FC6_MAPS)
+def test_fc6_route_is_within_one_bf16_rounding_of_the_fp32_conv(dev, no_tf32, shape):
+    """The bf16 GEMM (fp32 accumulation over K = 25,088, the bias in fp32,
+    one rounding) against cuDNN's fp32 convolution of the same bf16 values:
+    within half a bf16 ulp of each output, plus 1e-4 of the largest for the
+    fp32 sums' order; a channels_last output; one launch counted."""
+    from fcn8s_tensorflow_tpu_torch.ops.nn import conv2d_im2col
+
+    x, w, b = _fc6_inputs(dev, shape)
+    n = conv2d_im2col.launches
+    got = conv2d_im2col(x, w, b)
+    assert conv2d_im2col.launches == n + 1
+    want = F.conv2d(x.float(), w.float(), b.float(), padding=3)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=2.0 ** -126))) - 7)
+    assert bool(((got.float() - want).abs() <= ulp / 2 + 1e-4 * want.abs().max()).all())
+
+
+@pytest.mark.parametrize("shape", FC6_MAPS)
+def test_fc6_route_backward_is_cudnns_bit_for_bit(dev, deterministic, shape):
+    """Under autograd the route's input, weight and bias gradients for a
+    given output gradient are ``conv2d``'s (cuDNN's dgrad and wgrad)."""
+    from fcn8s_tensorflow_tpu_torch.ops.nn import conv2d, conv2d_im2col
+
+    x, w, b = _fc6_inputs(dev, shape, seed=1)
+    g = torch.randn((shape[0], 4096, shape[2], shape[3]), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(2))
+    g = g.bfloat16().contiguous(memory_format=torch.channels_last)
+    grads = []
+    for fn in (conv2d, conv2d_im2col):
+        leaves = [t.detach().clone().requires_grad_() for t in (x, w, b)]
+        fn(*leaves).backward(g)
+        grads.append([t.grad for t in leaves])
+    assert all(torch.equal(a, c) for a, c in zip(*grads))
+
+
+def test_fc6_route_in_full_size_captured_steps_equals_eager(dev, deterministic):
+    """The b8 train step (keep_prob 0.5) and the FCN-32s predict call at
+    full size: the captured steps give the eager steps' loss, state and ids
+    bit for bit, and an eager train step or predict call runs fc6's route
+    once (its forward), as each replay counts it once."""
+    from fcn8s_tensorflow_tpu_torch import bridge
+    from fcn8s_tensorflow_tpu_torch.models.fcn8s import init_fcn8s
+    from fcn8s_tensorflow_tpu_torch.ops.nn import conv2d_im2col
+    from fcn8s_tensorflow_tpu_torch.parallel import steps as S
+
+    tree = init_fcn8s(torch.Generator().manual_seed(6), 20)
+    g = torch.Generator(device=dev).manual_seed(7)
+    ims = torch.randint(0, 256, (2, 8, 512, 1024, 3), generator=g, device=dev, dtype=torch.uint8)
+    lbs = torch.randint(0, 20, (2, 8, 512, 1024), generator=g, device=dev, dtype=torch.uint8)
+    mask = torch.ones(8, device=dev)
+    opt = S.make_optimizer()
+    eager, comp = _train_state(dev, tree, opt), _train_state(dev, tree, opt)
+    step = S.compile_train_step(None, opt, 20, device=dev)
+    for i in range(2):
+        n = conv2d_im2col.launches
+        _, want = S.train_step(eager, ims[i], lbs[i], mask, 9, 1e-4, 1e-4, 0.5, optimizer=opt,
+                               num_classes=20)
+        assert conv2d_im2col.launches == n + 1
+        _, got = step(comp, ims[i], lbs[i], mask, 9, 1e-4, 1e-4, 0.5)
+        assert torch.equal(got, want)
+        if i > 0:  # a replay
+            assert conv2d_im2col.launches == n + 2
+    torch.cuda.synchronize()
+    assert _states_equal(comp, eager)
+    del eager, comp, step, ims, lbs
+
+    run = bridge.cast_params(bridge.to_port(init_fcn8s(torch.Generator().manual_seed(8), 20,
+                                                       variant="fcn32s"), device=dev),
+                             torch.bfloat16)
+    frames = torch.randint(0, 256, (2, 8, 1024, 2048, 3), generator=g, device=dev,
+                           dtype=torch.uint8)
+    predict = S.compile_predict_step(None, id_dtype=torch.uint8, device=dev)
+    for i in range(2):
+        n = conv2d_im2col.launches
+        want = S.predict_step(run, frames[i], id_dtype=torch.uint8)
+        assert conv2d_im2col.launches == n + 1
+        assert torch.equal(predict(run, frames[i]), want)
+        if i > 0:
+            assert conv2d_im2col.launches == n + 2
