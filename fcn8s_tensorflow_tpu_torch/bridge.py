@@ -6,7 +6,13 @@ The port keeps the same nesting with torch tensors:
 
 * a convolution layer holds ``weight`` (OIHW) and ``bias``;
 * a deconv layer keeps its original ``kernel`` (2s, 2s, I, O) and ``bias``:
-  the JAX parameter is what training differentiates.
+  the JAX parameter is what training differentiates;
+* SegFormer's other leaves (``models/segformer.py``) keep their JAX key and
+  layout: dense ``kernel`` s (``(in, out)``; the attention's query
+  ``(C, heads, d)`` and output ``(heads, d, C)``), LayerNorm's and BatchNorm's ``scale``/``bias``, and the part
+  ``batch_stats`` (BatchNorm's running ``mean``/``var``), which is state,
+  not a parameter: ``param_leaves`` leaves it out and ``state_leaves``
+  lists it.
 
 These fp32 tensors are the masters. ``cast_params`` derives what the
 forward reads: compute-dtype copies, and for each deconv the subpixel
@@ -29,8 +35,23 @@ import torch
 from .ops.subpixel import subpixel_weight
 
 
+STATE_PART = "batch_stats"  # the tree part that holds state, not parameters
+_KEY_ORDER = ("kernel", "weight", "scale", "bias", "mean", "var")
+
+
 def _is_deconv(name: str) -> bool:
     return name.endswith("_deconv")
+
+
+def _is_conv_kernel(name: str, key: str, t) -> bool:
+    """A convolution's HWIO ``kernel`` (OIHW ``weight`` in the port)."""
+    return key == "kernel" and len(t.shape) == 4 and not _is_deconv(name)
+
+
+def _ordered(layer: dict) -> list:
+    """A layer's keys, the kernel first and the bias after the scale, as
+    the port orders its leaves whatever order the tree came in."""
+    return sorted(layer, key=lambda k: _KEY_ORDER.index(k) if k in _KEY_ORDER else len(_KEY_ORDER))
 
 
 def _fp32_copy(x) -> torch.Tensor:
@@ -47,12 +68,13 @@ def to_port(tree: dict, *, device="cpu") -> dict:
     for part, layers in tree.items():
         out[part] = {}
         for name, layer in layers.items():
-            kernel = _fp32_copy(layer["kernel"])
-            bias = _fp32_copy(layer["bias"])
-            if _is_deconv(name):
-                entry = {"kernel": kernel, "bias": bias}
-            else:
-                entry = {"weight": kernel.permute(3, 2, 0, 1).contiguous(), "bias": bias}
+            entry = {}
+            for key in _ordered(layer):
+                t = _fp32_copy(layer[key])
+                if _is_conv_kernel(name, key, t):
+                    entry["weight"] = t.permute(3, 2, 0, 1).contiguous()
+                else:
+                    entry[key] = t
             out[part][name] = {k: v.to(device) for k, v in entry.items()}
     return out
 
@@ -76,28 +98,47 @@ def to_numpy(params: dict) -> dict:
     for part, layers in params.items():
         tree[part] = {}
         for name, layer in layers.items():
-            if _is_deconv(name):
-                kernel = layer["kernel"]
-            else:
-                kernel = layer["weight"].permute(2, 3, 1, 0)
-            tree[part][name] = {
-                "kernel": np.array(kernel.detach().float().cpu().numpy(), order="C"),
-                "bias": np.array(layer["bias"].detach().float().cpu().numpy()),
-            }
+            tree[part][name] = {}
+            for key, t in layer.items():
+                if key == "weight":
+                    key, t = "kernel", t.permute(2, 3, 1, 0)
+                tree[part][name][key] = np.array(t.detach().float().cpu().numpy(), order="C")
     return tree
+
+
+def trainable(params: dict) -> dict:
+    """The tree without its state part: what the optimizer trains."""
+    return {part: layers for part, layers in params.items() if part != STATE_PART}
 
 
 def param_leaves(params: dict) -> list[torch.Tensor]:
     """The master tensors of a port tree, in one fixed order (the order of
-    the gradients ``parallel.steps`` computes)."""
-    return [t for layers in params.values() for layer in layers.values() for t in layer.values()]
+    the gradients ``parallel.steps`` computes); BatchNorm's running
+    statistics are not among them (``state_leaves``)."""
+    return [t for layers in trainable(params).values() for layer in layers.values()
+            for t in layer.values()]
+
+
+def state_leaves(params: dict) -> list[torch.Tensor]:
+    """The tree's state that the train step updates in place without a
+    gradient (BatchNorm's running statistics; none in an FCN tree)."""
+    return [t for layer in params.get(STATE_PART, {}).values() for t in layer.values()]
+
+
+def _paths(params: dict) -> list[str]:
+    return [f"{part}/{name}/{'kernel' if key == 'weight' else key}"
+            for part, layers in params.items() for name, layer in layers.items() for key in layer]
 
 
 def jax_leaf_paths(params: dict) -> list[str]:
     """The JAX tree path (``'encoder/conv1_1/kernel'``) of each tensor of
     ``param_leaves(params)``, in that order."""
-    return [f"{part}/{name}/{'bias' if key == 'bias' else 'kernel'}"
-            for part, layers in params.items() for name, layer in layers.items() for key in layer]
+    return _paths(trainable(params))
+
+
+def state_paths(params: dict) -> list[str]:
+    """The JAX tree path of each tensor of ``state_leaves(params)``."""
+    return _paths({STATE_PART: params[STATE_PART]}) if STATE_PART in params else []
 
 
 def jax_order(params: dict) -> list[int]:
@@ -114,13 +155,13 @@ def leaf_to_jax(t: torch.Tensor, path: str) -> torch.Tensor:
     moment) in the JAX layout of ``path``: a view, OIHW -> HWIO for a
     convolution's kernel, as it is otherwise."""
     _, name, key = path.split("/")
-    return t.permute(2, 3, 1, 0) if key == "kernel" and not _is_deconv(name) else t
+    return t.permute(2, 3, 1, 0) if _is_conv_kernel(name, key, t) else t
 
 
 def leaf_from_jax(t: torch.Tensor, path: str) -> torch.Tensor:
     """Inverse of ``leaf_to_jax``: a contiguous tensor in the port's layout."""
     _, name, key = path.split("/")
-    if key == "kernel" and not _is_deconv(name):
+    if _is_conv_kernel(name, key, t):
         t = t.permute(3, 2, 0, 1)
     return t.contiguous()
 
@@ -129,11 +170,17 @@ def cast_params(params: dict, dtype: torch.dtype) -> dict:
     """The tensors the forward reads, in ``dtype``, with 4-D weights in
     channels_last memory (what cuDNN takes with channels_last activations):
     convolutions' ``weight``/``bias``, deconvs' ``subpixel_weight``/
-    ``subpixel_bias`` derived from ``kernel``/``bias``. Differentiable with
-    respect to the masters when autograd records it; the forward's own
-    casts are then no-ops."""
+    ``subpixel_bias`` derived from ``kernel``/``bias``; SegFormer's dense
+    ``kernel`` s too, while its LayerNorm and BatchNorm leaves (those with a
+    ``scale``) stay the fp32 masters and its ``batch_stats`` are the
+    masters' own tensors, which a training-mode forward updates in place.
+    Differentiable with respect to the masters when autograd records it;
+    the forward's own casts are then no-ops."""
     out = {}
     for part, layers in params.items():
+        if part == STATE_PART:
+            out[part] = layers
+            continue
         out[part] = {}
         for name, layer in layers.items():
             if _is_deconv(name):
@@ -141,13 +188,42 @@ def cast_params(params: dict, dtype: torch.dtype) -> dict:
                 w, b = subpixel_weight(layer["kernel"], layer["bias"], stride)
                 derived = {"subpixel_weight": w, "subpixel_bias": b}
             else:
-                derived = {"weight": layer["weight"], "bias": layer["bias"]}
+                derived = layer
             out[part][name] = {}
             for k, t in derived.items():
-                t = t.to(dtype)
+                t = t.to(torch.float32 if "scale" in layer else dtype)
                 out[part][name][k] = (t.contiguous(memory_format=torch.channels_last)
                                       if t.dim() == 4 else t)
     return out
+
+
+def cast_into(run: dict | None, params: dict) -> bool:
+    """Write ``cast_params(params, dtype)`` into the tensors of ``run`` (a
+    cast of ``params`` made before, in ``dtype``) in place, as one
+    multi-tensor copy, where every leaf's cast is its master in another
+    dtype or memory format: no deconv (its subpixel form is derived) and
+    ``run`` of ``params``' keys and shapes. Returns False, having written
+    nothing, otherwise. Same bits as a new cast (``copy_`` rounds as
+    ``to`` does), without allocating one."""
+    if run is None or run.keys() != params.keys():
+        return False
+    dst, src = [], []
+    for part, layers in params.items():
+        if run[part].keys() != layers.keys():
+            return False
+        for name, layer in layers.items():
+            if _is_deconv(name) or run[part][name].keys() != layer.keys():
+                return False
+            for key, t in layer.items():
+                r = run[part][name][key]
+                if r.shape != t.shape:
+                    return False
+                if r is not t:
+                    dst.append(r)
+                    src.append(t)
+    with torch.inference_mode():  # ``run`` may have been made there
+        torch._foreach_copy_(dst, src)
+    return True
 
 
 def quantized_to_port(qtree: dict, compute_dtype: torch.dtype = torch.bfloat16, *,

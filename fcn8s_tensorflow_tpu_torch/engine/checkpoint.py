@@ -19,7 +19,11 @@ and the facade's bookkeeping). The payload:
   for sgd nothing (global-norm clipping and weight decay hold no state).
   The port's ``OptimizerState`` carries the same values;
 * ``ema_leaves``: the EMA average of ``train(ema_decay=...)``, in the
-  params' order and layout (absent when no average is kept).
+  params' order and layout (absent when no average is kept);
+* ``batch_stats_leaves``: a SegFormer tree's BatchNorm running statistics
+  (``bridge.state_leaves``), in JAX's order, named by the manifest's
+  ``batch_stats_paths`` (absent for an FCN tree, which holds none). The
+  EMA average is written without them: a restored one takes the params'.
 
 Writers take the port's ``TrainState`` (or a bare port params tree) and
 convert on the way out; readers return port trees on the CPU.
@@ -113,8 +117,9 @@ def _opt_leaves(opt_state: OptimizerState, params: dict, copy: bool) -> list:
     return leaves
 
 
-def _payload(state, ema, copy: bool) -> tuple[dict, list[str]]:
-    """The payload (tensors still on their device) and its ``param_paths``.
+def _payload(state, ema, copy: bool) -> tuple[dict, tuple]:
+    """The payload (tensors still on their device) and its ``param_paths``
+    with its ``batch_stats_paths`` (None for a tree without state).
     ``state`` is a ``TrainState`` whose ``opt_state`` is an
     ``OptimizerState``, or a bare port params tree; ``ema`` a port tree of
     the params' structure, or None."""
@@ -126,20 +131,32 @@ def _payload(state, ema, copy: bool) -> tuple[dict, list[str]]:
         payload["opt_leaves"] = _opt_leaves(state.opt_state, params, copy)
     if ema is not None:
         payload["ema_leaves"] = _in_jax_order(bridge.param_leaves(ema), params, copy)
+    state_paths = bridge.state_paths(params)
+    if state_paths:
+        order = sorted(range(len(state_paths)), key=lambda i: state_paths[i].split("/"))
+        stats = bridge.state_leaves(params)
+        payload["batch_stats_leaves"] = [stats[i].detach().clone() if copy else stats[i].detach()
+                                         for i in order]
+        metadata_paths = [state_paths[i] for i in order]
+    else:
+        metadata_paths = None
     paths = bridge.jax_leaf_paths(params)
-    return payload, [paths[i] for i in bridge.jax_order(params)]
+    return payload, ([paths[i] for i in bridge.jax_order(params)], metadata_paths)
 
 
-def _write(directory: str, payload: dict, param_paths: list[str], metadata: dict,
+def _write(directory: str, payload: dict, paths: tuple, metadata: dict,
            ready=None) -> None:
     """Write the payload (CUDA tensors streamed to the file, read after the
     event ``ready`` or the caller's current stream) and the manifest."""
     os.makedirs(directory, exist_ok=True)
     with open(os.path.join(directory, PAYLOAD), "wb") as f:
         msgpack.dump(payload, f, ready=ready)
+    param_paths, state_paths = paths
     metadata = dict(metadata)
     metadata["format_version"] = CHECKPOINT_FORMAT_VERSION
     metadata["param_paths"] = param_paths
+    if state_paths:
+        metadata["batch_stats_paths"] = state_paths
     with open(os.path.join(directory, MANIFEST), "w") as f:
         json.dump(metadata, f, indent=2, default=float)
 
@@ -276,8 +293,18 @@ def load_params_tree(directory: str) -> tuple:
     manifest's ``param_paths`` alone — no live model needed. Returns
     ``(params_tree, metadata)``."""
     raw, meta = _read(directory)
-    return _tree_from_paths(directory, meta.get("param_paths"),
-                            _leaf_list(raw["params_leaves"])), meta
+    return _params_tree(directory, raw, meta), meta
+
+
+def _params_tree(directory: str, raw: dict, meta: dict) -> dict:
+    """The JAX-layout tree of a read checkpoint: its params and, where it
+    has them, its ``batch_stats``."""
+    tree = _tree_from_paths(directory, meta.get("param_paths"), _leaf_list(raw["params_leaves"]))
+    if "batch_stats_leaves" in raw:
+        stats = _tree_from_paths(directory, meta.get("batch_stats_paths"),
+                                 _leaf_list(raw["batch_stats_leaves"]))
+        tree[bridge.STATE_PART] = stats[bridge.STATE_PART]
+    return tree
 
 
 def _to_port_leaves(leaves: list, params: dict, jax_paths: list[str], what: str) -> list:
@@ -322,8 +349,7 @@ def load_checkpoint(directory: str, optimizer: Optimizer | None = None) -> dict:
     params' structure, or None, ``'metadata'``: the manifest``}``."""
     raw, meta = _read(directory)
     paths = meta.get("param_paths")
-    tree = _tree_from_paths(directory, paths, _leaf_list(raw["params_leaves"]))
-    params = bridge.to_port(tree)
+    params = bridge.to_port(_params_tree(directory, raw, meta))
     out = {"params": params, "step": None, "opt_state": None, "ema": None, "metadata": meta}
     if "step" in raw:
         out["step"] = int(raw["step"])
@@ -336,7 +362,11 @@ def load_checkpoint(directory: str, optimizer: Optimizer | None = None) -> dict:
             raise ValueError(f"checkpoint has {len(leaves)} EMA leaves but {len(paths)} params")
         ema = iter(_to_port_leaves(leaves, params, paths, "EMA"))
         out["ema"] = {part: {name: {k: next(ema) for k in layer} for name, layer in layers.items()}
-                      for part, layers in params.items()}
+                      for part, layers in bridge.trainable(params).items()}
+        if bridge.STATE_PART in params:
+            out["ema"][bridge.STATE_PART] = {
+                name: {k: t.clone() for k, t in layer.items()}
+                for name, layer in params[bridge.STATE_PART].items()}
     return out
 
 

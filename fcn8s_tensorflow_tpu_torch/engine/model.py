@@ -80,6 +80,7 @@ from ..kernels import resolve_device
 from . import checkpoint as ckpt
 from ..data.prefetch import DevicePrefetcher, host_tensors, to_device
 from ..models.fcn8s import decoder_variant, init_fcn8s
+from ..models.segformer import is_segformer
 from ..ops.augment_device import make_augment_fn
 from ..ops.metrics import empty_metrics_state, finalize_metrics
 from ..ops.quantize import collect_activation_absmax, quantize_fcn8s_params
@@ -363,7 +364,10 @@ class FCN8s:
         ``bridge.to_port``, then on a mesh this rank's shards
         (``parallel.mesh.shard_params``). ``width_mult``/``fc_channels``
         only describe the tree in ``model_config``; the shapes come from the
-        tree. The other arguments are the constructor's."""
+        tree. A SegFormer tree (``models/segformer.py``, told by its head)
+        gives a SegFormer model (``variant`` 'segformer') on the same steps;
+        the paths it does not take raise ``ValueError``. The other arguments
+        are the constructor's."""
         device = resolve_device(device)
         model = cls.__new__(cls)
         model._setup(bridge.to_port(tree), width_mult=width_mult, fc_channels=fc_channels,
@@ -398,9 +402,15 @@ class FCN8s:
         self._writer = mesh.is_writer
         self.device = mesh.device
         self.compute_dtype = compute_dtype
+        if is_segformer(params):
+            if self._tp:
+                raise ValueError("SegFormer does not run tensor_parallel")
+            self.num_classes = int(params["decoder"]["linear_pred"]["bias"].shape[0])
+            self.variant = "segformer"
+        else:
+            self.num_classes = int(params["decoder"]["fc7_1x1"]["bias"].shape[0])
+            self.variant = decoder_variant(params["decoder"])
         self.params = _map_tree(lambda t: t.to(self.device), self._shard(params))
-        self.num_classes = int(self.params["decoder"]["fc7_1x1"]["bias"].shape[0])
-        self.variant = decoder_variant(self.params["decoder"])
         self.remat = remat
         self.ignore_label = ignore_label
         self._train_seed = seed
@@ -464,18 +474,29 @@ class FCN8s:
         self.best_training_loss = 99999999.9
         self.g_step = 0
 
+    def _refuse_segformer(self, what: str, refused: bool = True) -> None:
+        """``ValueError`` for a path that SegFormer does not take (int8,
+        TTA, tensor parallelism, spatial partitioning, the service, the
+        export and the FCN summary)."""
+        if refused and self.variant == "segformer":
+            raise ValueError(f"SegFormer does not run {what}; its model runs train, evaluate "
+                             "and predict, on one card or a data-parallel mesh")
+
     def _refresh_run_params(self) -> None:
         """Cast the current masters into the compute-dtype tree that predict
         and evaluate read, and mark the int8 tree stale. Stale after any
         optimizer step; every change of the masters (``train``,
         ``adopt_ema``, ``load_variables``, ``vgg16_dir`` and
         ``variables_load_dir``) ends here. The cast is written into the
-        tree's own tensors (``_refill``: ``bridge.cast_params``'s bytes),
-        so the compiled steps captured over them replay; a tree of another
-        layout (a relayout of the masters) is built anew."""
+        tree's own tensors (``_refill``: ``bridge.cast_params``'s bytes;
+        ``bridge.cast_into`` without a new cast where no leaf is derived, as
+        in SegFormer's ~1,600), so the compiled steps captured over them
+        replay; a tree of another layout (a relayout of the masters) is
+        built anew."""
         with torch.no_grad():
-            self._run_params = _refill(self._run_params,
-                                       bridge.cast_params(self.params, self.compute_dtype))
+            if not bridge.cast_into(self._run_params, self.params):
+                self._run_params = _refill(self._run_params,
+                                           bridge.cast_params(self.params, self.compute_dtype))
         self._invalidate_quantized()
 
     # ------------------------------------------------------------------
@@ -539,7 +560,7 @@ class FCN8s:
         optimizer's moments) as a tree of the params' structure."""
         it = iter(leaves)
         return {part: {name: {k: next(it) for k in layer} for name, layer in layers.items()}
-                for part, layers in self.params.items()}
+                for part, layers in bridge.trainable(self.params).items()}
 
     def _shard_opt(self, opt_state):
         return _map_opt_leaves(opt_state, lambda ts: bridge.param_leaves(
@@ -681,6 +702,7 @@ class FCN8s:
         tree's shapes, no device work. ``input_hw`` must be multiples of 32."""
         from ..utils.summary import model_summary
 
+        self._refuse_segformer("summary()")
         return model_summary(self._full_shape_params(), input_hw, batch)
 
     # ------------------------------------------------------------------
@@ -690,6 +712,7 @@ class FCN8s:
         (``_invalidate_quantized``), into its own tensors while the
         calibration state is the same (``_refill``), with the calibrated
         static activation scales once ``calibrate_quantization`` has run."""
+        self._refuse_segformer("int8 (quantized)")
         if self._qparams is None or self._qparams_stale:
             # replicated on a mesh, as JAX keeps it: quantized from the whole tree
             self._qparams = _refill(self._qparams, quantize_fcn8s_params(
@@ -708,6 +731,7 @@ class FCN8s:
         tensors on the model's device), also kept on the model. On a mesh
         each rank runs its rows of each chunk through the whole encoder and
         the maxima are taken over 'data'."""
+        self._refuse_segformer("int8 (calibrate_quantization)")
         images = np.asarray(images)
         if images.ndim == 3:
             images = images[None]
@@ -751,6 +775,8 @@ class FCN8s:
         ema = bridge.param_leaves(self._ema)
         torch._foreach_mul_(ema, float(d))
         torch._foreach_add_(ema, bridge.param_leaves(self.params), alpha=float(np.float32(1) - d))
+        for mine, live in zip(bridge.state_leaves(self._ema), bridge.state_leaves(self.params)):
+            mine.copy_(live)  # the average predicts with the live BatchNorm statistics
 
     @property
     def ema_params(self) -> dict:
@@ -859,6 +885,7 @@ class FCN8s:
         next dispatch with this one's D2H (off a mesh). ``params`` overrides
         the live compute-dtype params (the EMA's). ``spatial_partition``:
         the width split over 'model', on replicated params."""
+        self._refuse_segformer("spatial_partition", spatial_partition)
         compact = argmax and overlay_lut is None and self.num_classes <= 255
         padded, _ = self._pad_batch_dim(padded)
         run = self._inference_params(params, quantized)
@@ -963,6 +990,7 @@ class FCN8s:
         probabilities. ``quantized`` and ``use_ema`` as in ``predict``.
         Under a profiler the call is the span ``fcn8s.predict_tta``, with
         ``predict``'s phase names inside (``.step`` once per scale)."""
+        self._refuse_segformer("predict_tta")
         if not scales:
             raise ValueError("predict_tta: scales must be non-empty")
         with annotate("fcn8s.predict_tta"):
@@ -1449,6 +1477,7 @@ class FCN8s:
         input stream), each step's ``.next_batch``, ``.step`` and
         ``.readback`` (the losses to the host), and ``.end`` (the stream
         closed, the params cast for predict)."""
+        self._refuse_segformer("spatial_partition", spatial_partition)
         metrics = set(metrics)  # the reference's default `{}` is a dict literal
         if not metrics <= _ALLOWED_METRICS:
             raise ValueError(f"metrics must be a subset of {_ALLOWED_METRICS}, got {metrics}")
@@ -1729,7 +1758,7 @@ class FCN8s:
         with self._replicas(self._train_spatial):
             was_dirty = self.variables_updated
             state = self.state
-            leaves = bridge.param_leaves(self.params)
+            leaves = bridge.param_leaves(self.params) + bridge.state_leaves(self.params)
             saved_step = state.step
             with torch.no_grad():
                 saved_params = [t.detach().clone() for t in leaves]
@@ -1841,6 +1870,7 @@ class FCN8s:
         (images, label_ids, mask) triples. ``params``: compute-dtype params
         to run instead of the live ones (the EMA's). ``spatial_partition``:
         the width split over 'model', on replicated params."""
+        self._refuse_segformer("spatial_partition", spatial_partition)
         run = self._run_params if params is None else params
         if spatial_partition:  # replicated
             run = self._replicated(run)
@@ -1920,6 +1950,7 @@ class FCN8s:
         average. Returns ``directory``."""
         from .export import export_serving_artifact
 
+        self._refuse_segformer("export_serving")
         return export_serving_artifact(self, directory, input_hw=input_hw, argmax=argmax,
                                        use_ema=use_ema)
 
@@ -2017,18 +2048,21 @@ class FCN8s:
         """Copy the checkpoint's params of the tree parts ``parts`` (e.g.
         ``('encoder',)``, ``vgg16_dir``'s restore) into the masters, matched
         by path (on a mesh, this rank's blocks of them)."""
+        def jkey(key):  # the JAX key of a port key
+            return "kernel" if key == "weight" else key
+
         full = self._full_shape_params()
         example = {}  # JAX-layout shapes, as meta tensors
         for part in parts:
             for name, layer in full[part].items():
                 for key, t in layer.items():
-                    jkey = "bias" if key == "bias" else "kernel"
-                    example.setdefault(part, {}).setdefault(name, {})[jkey] = bridge.leaf_to_jax(
-                        torch.empty_like(t, device="meta"), f"{part}/{name}/{jkey}")
+                    example.setdefault(part, {}).setdefault(name, {})[jkey(key)] = \
+                        bridge.leaf_to_jax(torch.empty_like(t, device="meta"),
+                                           f"{part}/{name}/{jkey(key)}")
         restored = ckpt.load_params_only(path, example)
         values = {part: {name: {key: bridge.leaf_from_jax(
-            torch.from_numpy(restored[part][name]["bias" if key == "bias" else "kernel"]),
-            f"{part}/{name}/{'bias' if key == 'bias' else 'kernel'}") for key in layer}
+            torch.from_numpy(restored[part][name][jkey(key)]),
+            f"{part}/{name}/{jkey(key)}") for key in layer}
             for name, layer in self.params[part].items()} for part in parts}
         shardings = param_sharding_tree(self.mesh, self.params, tensor_parallel=self._tp)
         with torch.no_grad():

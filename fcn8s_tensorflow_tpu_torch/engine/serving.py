@@ -198,6 +198,9 @@ class InferenceService:
     def __init__(self, model, color_map=None, *, quantized: bool = False,
                  tile=None, tile_overlap: int = 128,
                  batch_window_ms: float = 0.0, max_batch: int = 8):
+        if getattr(model, "variant", None) == "segformer":
+            raise ValueError("SegFormer does not run the service (InferenceService); its "
+                             "model runs train, evaluate and predict")
         mesh = getattr(model, "mesh", None)
         self._mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.is_controller = self._mesh is None or self._mesh.rank == 0

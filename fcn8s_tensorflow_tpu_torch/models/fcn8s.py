@@ -188,7 +188,8 @@ def decoder_l2_loss(decoder_params: dict) -> torch.Tensor:
     """TF-style L2 over the decoder's master kernels, biases exempt:
     ``sum(w**2) / 2`` per kernel, summed in fp32 (the caller multiplies the
     rate in). Every FCN variant's kernel set is covered; the sum of squares
-    does not depend on the port's OIHW layout of the 1x1 convs."""
+    does not depend on the port's OIHW layout of the 1x1 convs. A layer
+    without a kernel (SegFormer's BatchNorm) adds nothing."""
     kernels = (layer["kernel"] if "kernel" in layer else layer["weight"]
-               for layer in decoder_params.values())
+               for layer in decoder_params.values() if "kernel" in layer or "weight" in layer)
     return sum(0.5 * torch.sum(w.float() * w.float()) for w in kernels)

@@ -27,6 +27,8 @@ of JAX's lhs-dilated cross-correlation).
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 import torch.nn.functional as F
 
@@ -253,3 +255,97 @@ def dropout(x: torch.Tensor, keep_prob, mask: torch.Tensor) -> torch.Tensor:
         kp = torch.tensor(keep_prob, dtype=torch.float32)  # a 0-d CPU tensor acts as a scalar
     scale = (1.0 / torch.clamp(kp, min=1e-8)).to(x.dtype)
     return torch.where(mask, x * scale, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# the transformer ops of SegFormer (models/segformer.py): token-major linear
+# layers, the attention, LayerNorm, GELU, the strided and depthwise
+# convolutions, the bilinear upsample of its head and training-mode BatchNorm
+# ---------------------------------------------------------------------------
+
+
+def linear(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
+    """``x @ kernel + bias`` over the last dim of token-major ``x`` (any
+    leading dims), ``kernel`` ``(in, out)`` as the JAX layout keeps a dense
+    kernel, in ``x``'s dtype: one GEMM with the bias in its epilogue."""
+    return F.linear(x, kernel.to(x.dtype).t(), None if bias is None else bias.to(x.dtype))
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``softmax(q k^T / sqrt(d)) v`` per head of ``q`` (B, heads, N, d)
+    and ``k``, ``v`` (B, heads, M, d), through
+    ``F.scaled_dot_product_attention`` (the card's fused kernels). Counts
+    the call's ``(B, heads, N, M, d)`` in ``attention.calls``, which a
+    captured step adds to once per replay (``parallel/graphs.py``)."""
+    n_b, heads, n, d = q.shape
+    attention.calls[(n_b, heads, n, k.shape[2], d)] += 1
+    return F.scaled_dot_product_attention(q, k, v)
+
+
+attention.calls = Counter()
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float,
+               out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """LayerNorm over the last dim, computed in fp32 (the input upcast, the
+    fp32 ``scale``/``bias``), the result in ``out_dtype`` (default ``x``'s)."""
+    y = F.layer_norm(x.float(), (x.shape[-1],), scale.float(), bias.float(), eps)
+    return y.to(out_dtype or x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU with the exact erf, in ``x``'s dtype."""
+    return F.gelu(x)
+
+
+def conv2d_strided(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None, stride: int,
+                   padding: int) -> torch.Tensor:
+    """``nn.Conv2d``'s convolution: NCHW x OIHW, ``stride`` and symmetric
+    zero ``padding`` as given, in ``x``'s dtype (a patch embedding, or a
+    spatial reduction with kernel = stride and no padding)."""
+    return F.conv2d(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype),
+                    stride=stride, padding=padding)
+
+
+def depthwise_conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """A 3x3 depthwise convolution with zero padding 1 (``groups`` = the
+    channels), NCHW x ``(C, 1, 3, 3)``, in ``x``'s dtype."""
+    return F.conv2d(x, weight.to(x.dtype), bias.to(x.dtype), padding=1, groups=x.shape[1])
+
+
+def upsample_bilinear(x: torch.Tensor, size_hw) -> torch.Tensor:
+    """Bilinear resize of NCHW ``x`` to ``size_hw`` with half-pixel centres
+    (``align_corners=False``) and no antialiasing, in ``x``'s dtype: the
+    resize of SegFormer's head and of its logits to the input (upsampling
+    only; ``resize_bilinear`` is the antialiased form of the TTA head)."""
+    return F.interpolate(x, size=(int(size_hw[0]), int(size_hw[1])), mode="bilinear",
+                         align_corners=False)
+
+
+def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
+               var: torch.Tensor, *, training: bool, momentum: float = 0.1,
+               eps: float = 1e-5) -> torch.Tensor:
+    """BatchNorm over the channels of NCHW ``x``, in fp32, the result in
+    ``x``'s dtype. ``training``: normalised by the batch's statistics (the
+    biased variance), and the fp32 running ``mean``/``var`` updated IN PLACE
+    with ``momentum`` (the unbiased variance), as ``nn.BatchNorm2d`` does;
+    otherwise normalised by the running statistics."""
+    y = F.batch_norm(x.float(), mean, var, scale.float(), bias.float(), training=training,
+                     momentum=momentum, eps=eps)
+    return y.to(x.dtype)
+
+
+def keep_mask(u: torch.Tensor, keep) -> tuple[torch.Tensor, torch.Tensor]:
+    """The keep-mask ``u < keep`` of fp32 uniforms ``u`` and the scale
+    ``1 / keep`` of the kept entries (``keep`` a float or fp32 tensor that
+    broadcasts against ``u``), both compared and divided in fp32, so a float
+    and a 0-d tensor ``keep`` of the same value give the same bits."""
+    keep = torch.as_tensor(keep, dtype=torch.float32, device=u.device)
+    return u < keep, 1.0 / torch.clamp(keep, min=1e-8)
+
+
+def scale_kept(x: torch.Tensor, mask: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``x * scale`` where ``mask`` holds and exact zeros elsewhere, the
+    scale rounded to ``x``'s dtype first (``mask`` and ``scale`` broadcast
+    against ``x``): inverted dropout with a given mask."""
+    return torch.where(mask, x * scale.to(x.dtype), 0.0)

@@ -24,7 +24,8 @@ addresses and the kernel arguments it recorded, which shapes this module:
   eager execution;
 * a wrapper's ``.launches += 1`` runs while its kernel is recorded, not
   when it is replayed: ``Captured.run`` adds the recorded counts once per
-  replay, so the counters keep counting launches;
+  replay, so the counters keep counting launches; so too the calls that
+  ``SHAPE_COUNTERS`` count by shape (``nn.attention.calls``);
 * ``binding`` names the tensors a capture reads and writes in place (the
   params, the optimizer's moments) by address, and is part of the key of
   a step's ``CaptureCache``: one step keeps captures over several trees
@@ -91,6 +92,11 @@ KERNEL_WRAPPERS = (pool.maxpool2x2_nhwc, pool.maxpool2x2_code_nhwc, pool.maxpool
                    quantize.conv2d_int8_im2col, nn.conv2d_im2col)
 
 
+# calls counted by shape (``collections.Counter``), added per replay like
+# the launches
+SHAPE_COUNTERS = (nn.attention.calls,)
+
+
 def _launch_counts() -> list[int]:
     return [fn.launches for fn in KERNEL_WRAPPERS]
 
@@ -109,8 +115,12 @@ def tensors_of(tree) -> list[torch.Tensor]:
 
 def binding(tensors) -> tuple:
     """What a capture over ``tensors`` depends on: each one's address,
-    shape, strides and dtype."""
-    return tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype) for t in tensors)
+    rank, shape, strides and dtype, in one flat tuple. Flat, because a key
+    is built at every call: a tuple a tensor would keep thousands of
+    containers alive while it is built (a tree of ~1,000 leaves with its
+    two moments), and so set off the cyclic collector at every step."""
+    return tuple(x for t in tensors
+                 for x in (t.data_ptr(), t.dim(), *t.shape, *t.stride(), t.dtype))
 
 
 def signature(tensors) -> tuple:
@@ -309,8 +319,9 @@ class Captured:
     ``run``, each the span ``fcn8s.step.replay`` under a profiler."""
 
     def __init__(self, body, graph, outputs, launches, *, segmented: bool = False,
-                 halo_bytes: int = 0, issued=()):
+                 halo_bytes: int = 0, issued=(), shapes=()):
         self.body, self.graph, self.outputs, self.launches = body, graph, outputs, launches
+        self.shapes = list(shapes)  # per SHAPE_COUNTERS: what one replay counts
         self.segmented, self.halo_bytes, self.issued = segmented, halo_bytes, list(issued)
         self.replays = 0
 
@@ -332,6 +343,8 @@ class Captured:
             self.graph.replay()
         for fn, n in zip(KERNEL_WRAPPERS, self.launches):
             fn.launches += n
+        for counter, recorded in zip(SHAPE_COUNTERS, self.shapes):
+            counter.update(recorded)
         collectives.halo_exchange.bytes += self.halo_bytes
         return self.outputs
 
@@ -454,6 +467,7 @@ def capture(body, device: torch.device, *, args=(), restore=(),
                            "CUDA graph (CUDAGraph.register_generator_state)")
     gens = generators.all() if generators is not None else []
     before, halo = _launch_counts(), collectives.halo_exchange.bytes
+    shapes_before = [counter.copy() for counter in SHAPE_COUNTERS]
     try:
         graph, outputs, issued = _capture_segments(body, args, device, gens, segmented)
     finally:
@@ -461,10 +475,14 @@ def capture(body, device: torch.device, *, args=(), restore=(),
         recorded = [a - b for a, b in zip(_launch_counts(), before)]
         for fn, n in zip(KERNEL_WRAPPERS, before):
             fn.launches = n
+        shapes = [counter - b for counter, b in zip(SHAPE_COUNTERS, shapes_before)]
+        for counter, b in zip(SHAPE_COUNTERS, shapes_before):
+            counter.clear()
+            counter.update(b)
         halo_bytes = collectives.halo_exchange.bytes - halo
         collectives.halo_exchange.bytes = halo
     return Captured(body, graph, outputs, recorded, segmented=segmented, halo_bytes=halo_bytes,
-                    issued=issued)
+                    issued=issued, shapes=shapes)
 
 
 def _capture_segments(body, args, device: torch.device, generators: list, cut: bool):

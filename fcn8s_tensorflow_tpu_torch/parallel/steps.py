@@ -55,6 +55,7 @@ import torch
 from .. import bridge
 from ..kernels import resolve_device
 from ..models.fcn8s import apply_fcn8s, decoder_l2_loss
+from ..models.segformer import apply_segformer, is_segformer
 from ..ops.augment_device import transform_seed
 from ..ops.kernels import softmax_cross_entropy
 from ..ops.losses import class_pixel_weights, valid_pixel_weights
@@ -126,11 +127,35 @@ class Optimizer:
 
     def __init__(self, name: str, clip_norm: float | None, hyper: dict):
         self.name, self.clip_norm, self.hyper = name, clip_norm, hyper
+        self._mults = None  # (the tree's leaf count, its multipliers), from ``multipliers``
+
+    def multipliers(self, params: dict):
+        """Each leaf's ``(lr_mult, decay_mult)`` under adamw's
+        ``custom_keys`` (aligned with ``bridge.param_leaves(params)``), or
+        None without them. A leaf takes the first key found in its JAX path
+        (``'decoder/linear_c1/kernel'``), the keys tried longest first and
+        then alphabetically, as mmcv's ``paramwise_cfg`` tries them; a key's
+        missing multiplier is 1. Worked out once a tree, at ``init`` or at
+        the first update of a state ``init`` did not make (a checkpoint's),
+        and kept while the tree has as many leaves."""
+        keys = self.hyper.get("custom_keys")
+        if not keys:
+            return None
+        n = len(bridge.param_leaves(params))
+        if self._mults is None or self._mults[0] != n:
+            order = sorted(sorted(keys), key=len, reverse=True)
+            out = []
+            for path in bridge.jax_leaf_paths(params):
+                rule = next((keys[k] for k in order if k in path), {})
+                out.append((float(rule.get("lr_mult", 1.0)), float(rule.get("decay_mult", 1.0))))
+            self._mults = n, out
+        return self._mults[1]
 
     def init(self, params: dict, device=None) -> OptimizerState:
         """Zeroed state for the leaves of ``params`` (on ``device``, by
         default theirs)."""
         leaves = bridge.param_leaves(params)
+        self.multipliers(params)
 
         def zeros():
             return [torch.zeros_like(t, device=device) for t in leaves]
@@ -164,7 +189,7 @@ class Optimizer:
 
     def lr_scale(self, count: int) -> float:
         """``scale_by_adam_tf1``'s ``sqrt(1 - b2^t) / (1 - b1^t)`` at ``t =
-        count``, computed in fp32 as JAX computes it (``_adam_tf1``)."""
+        count``, computed in fp32 as JAX computes it (``_adam``)."""
         b1, b2 = self.hyper.get("b1", 0.9), self.hyper.get("b2", 0.999)
         t = torch.tensor(float(count), dtype=torch.float32)
         f32 = dict(dtype=torch.float32)
@@ -194,11 +219,9 @@ class Optimizer:
             keep = g_norm < self.clip_norm
             grads = [torch.where(keep, g, (g / g_norm) * self.clip_norm) for g in grads]
         if self.name in ("adam", "adamw"):
-            updates = self._adam_tf1(grads, state, lr_scale)
-            if self.name == "adamw":  # optax.add_decayed_weights
-                wd = self.hyper.get("weight_decay", 1e-4)
-                updates = [u.add_(p * wd) for u, p in zip(updates, leaves)]
-        elif self.name == "momentum":  # optax.trace: t = g + decay * t
+            self._adam(leaves, grads, state, learning_rate, lr_scale, self.multipliers(params))
+            return
+        if self.name == "momentum":  # optax.trace: t = g + decay * t
             decay = self.hyper.get("momentum", 0.9)
             for t, g in zip(state, grads):
                 t.mul_(decay).add_(g)
@@ -210,23 +233,69 @@ class Optimizer:
         for p, u in zip(leaves, updates):
             p.add_(u * lr)
 
-    def _adam_tf1(self, grads: list, state: ScaleByAdamTF1State, lr_scale) -> list:
-        """``scale_by_adam_tf1``: TF1's ``AdamOptimizer`` rule, written out
-        because ``torch.optim.Adam`` (like optax) adds eps to the
-        bias-corrected sqrt(v_hat), which fails the one-step TF parity:
+    def _adam(self, leaves: list, grads: list, state: ScaleByAdamTF1State, learning_rate,
+              lr_scale, mults) -> None:
+        """``scale_by_adam_tf1``, adamw's decoupled decay
+        (``optax.add_decayed_weights``) and the step, as multi-tensor ops
+        over every leaf, in a few dozen kernels whatever the leaf count.
+        TF1's ``AdamOptimizer`` rule is written out because
+        ``torch.optim.Adam`` (like optax) adds eps to the bias-corrected
+        sqrt(v_hat), which fails the one-step TF parity:
 
             lr_scale = sqrt(1 - b2^t) / (1 - b1^t)
             update   = lr_scale * m_t / (sqrt(v_t) + eps)
 
-        ``lr_scale`` comes from ``lr_scale`` (fp32, as JAX computes it)."""
+        ``lr_scale`` comes from ``lr_scale`` (fp32, as JAX computes it).
+        Each op is the elementwise op a per-leaf loop would make, in the
+        same order, so each leaf gets the loop's bits. The multipliers group
+        the leaves by value; a ``decay_mult`` of 0 adds nothing. A
+        multi-tensor op takes its one-kernel route only where every tensor
+        has its partner's strides, so a gradient autograd left channels_last
+        (a convolution's) is made contiguous, as the moments and the masters
+        are."""
         b1, b2 = self.hyper.get("b1", 0.9), self.hyper.get("b2", 0.999)
         eps = self.hyper.get("eps", 1e-8)
-        updates = []
-        for m, v, g in zip(state.mu, state.nu, grads):
-            m.mul_(b1).add_(g * (1 - b1))
-            v.mul_(b2).add_(g * (1 - b2) * g)
-            updates.append((m * lr_scale) / (v.sqrt() + eps))
-        return updates
+        grads = [g.contiguous() for g in grads]
+        torch._foreach_mul_(state.mu, b1)
+        torch._foreach_add_(state.mu, torch._foreach_mul(grads, 1 - b1))
+        sq = torch._foreach_mul(grads, 1 - b2)
+        torch._foreach_mul_(sq, grads)
+        torch._foreach_mul_(state.nu, b2)
+        torch._foreach_add_(state.nu, sq)
+        del sq
+        updates = torch._foreach_mul(state.mu, lr_scale)
+        den = torch._foreach_sqrt(state.nu)
+        torch._foreach_add_(den, eps)
+        torch._foreach_div_(updates, den)
+        del den
+        mults = mults or [(1.0, 1.0)] * len(leaves)
+        if self.name == "adamw":
+            wd = self.hyper.get("weight_decay", 1e-4)
+            for dm, idx in _groups(m[1] for m in mults).items():
+                if dm:
+                    torch._foreach_add_([updates[i] for i in idx],
+                                        torch._foreach_mul([leaves[i] for i in idx], wd * dm))
+        lr = -learning_rate  # optax.scale_by_learning_rate, then apply_updates
+        for lm, idx in _groups(m[0] for m in mults).items():
+            step = lr if lm == 1.0 else _scaled_lr(lr, lm)
+            torch._foreach_add_([leaves[i] for i in idx],
+                                torch._foreach_mul([updates[i] for i in idx], step))
+
+
+def _groups(values) -> dict:
+    """The positions of each distinct value, in order of first appearance."""
+    out: dict = {}
+    for i, v in enumerate(values):
+        out.setdefault(v, []).append(i)
+    return out
+
+
+def _scaled_lr(lr, mult: float):
+    """``lr * mult`` rounded to fp32, for a float ``lr`` as for a 0-d fp32
+    tensor (a captured step's), so both give the same bits."""
+    if isinstance(lr, torch.Tensor):
+        return lr * mult
+    return float(np.float32(lr) * np.float32(mult))
 
 
 def make_optimizer(name: str = "adam", clip_norm: float | None = None, **hyper) -> Optimizer:
@@ -235,19 +304,27 @@ def make_optimizer(name: str = "adam", clip_norm: float | None = None, **hyper) 
     ``weight_decay``, default 1e-4, scaled by the learning rate),
     ``"momentum"`` (``momentum`` default 0.9, ``nesterov`` default False:
     ``accum = momentum * accum + g; w -= lr * accum``) or ``"sgd"``.
-    ``clip_norm`` clips the raw gradient's global norm first. Unknown names
-    and kwargs raise ``ValueError``."""
+    ``clip_norm`` clips the raw gradient's global norm first. adamw takes
+    ``custom_keys``, per-leaf multipliers in mmcv's form (``{'decoder':
+    {'lr_mult': 10.0}, 'norm': {'decay_mult': 0.0}}``,
+    ``Optimizer.multipliers``): a leaf's learning rate is the rate times its
+    ``lr_mult``, and its decay ``weight_decay`` times its ``decay_mult``.
+    Unknown names and kwargs raise ``ValueError``."""
     name = name.lower()
     if name not in OPTIMIZERS:
         raise ValueError(f"unknown optimizer '{name}'; one of {OPTIMIZERS}")
     allowed = {"adam": {"b1", "b2", "eps"},
-               "adamw": {"b1", "b2", "eps", "weight_decay"},
+               "adamw": {"b1", "b2", "eps", "weight_decay", "custom_keys"},
                "momentum": {"momentum", "nesterov"},
                "sgd": set()}[name]
     if not set(hyper) <= allowed:
         raise ValueError(
             f"unknown kwargs for optimizer '{name}': "
             f"{sorted(set(hyper) - allowed)} (accepted: {sorted(allowed)})")
+    for key, rule in (hyper.get("custom_keys") or {}).items():
+        if not set(rule) <= {"lr_mult", "decay_mult"}:
+            raise ValueError(f"custom_keys[{key!r}] takes lr_mult and decay_mult, got "
+                             f"{sorted(rule)}")
     return Optimizer(name, clip_norm, hyper)
 
 
@@ -284,6 +361,25 @@ def augment_key(seed: int, step: int) -> np.random.SeedSequence:
     slot), and dropout's keys carry none, so no augmentation key is ever a
     dropout key, of any step or grad-accum microbatch."""
     return np.random.SeedSequence([seed, step], spawn_key=(AUGMENT_STREAM,))
+
+
+def apply_model(params: dict, images: torch.Tensor, *, train: bool = False, mesh=None,
+                tensor_parallel: bool = False, split=None, remat: bool = False,
+                packed_final: bool = False, **kwargs) -> torch.Tensor:
+    """The forward of the model the tree holds: ``apply_fcn8s`` with every
+    argument as given, or ``apply_segformer`` (``models/segformer.py``),
+    whose BatchNorm runs in training mode when ``train``; its logits are
+    never packed, and it takes no tensor parallelism, width split or
+    remat, which raise ``ValueError``. On a data-parallel mesh SegFormer's
+    BatchNorm is local: each rank normalises by its own rows."""
+    if not is_segformer(params):
+        return apply_fcn8s(params, images, mesh=mesh, tensor_parallel=tensor_parallel,
+                           split=split, remat=remat, packed_final=packed_final, **kwargs)
+    if split is not None or (mesh is not None and mesh.tensor_parallel(tensor_parallel)):
+        raise ValueError("SegFormer does not run tensor_parallel or spatial_partition")
+    if remat:
+        raise ValueError("SegFormer does not run with remat")
+    return apply_segformer(params, images, train_bn=train, **kwargs)
 
 
 def loss_and_grads(params: dict, images: torch.Tensor, label_ids: torch.Tensor,
@@ -330,7 +426,7 @@ def loss_and_grads(params: dict, images: torch.Tensor, label_ids: torch.Tensor,
 
     def loss_for(im, lb, mk, generator, denominator):
         run = bridge.cast_params(params, compute_dtype)  # inside autograd, every call
-        logits = apply_fcn8s(run, im, keep_prob=keep_prob, generator=generator,
+        logits = apply_model(run, im, train=True, keep_prob=keep_prob, generator=generator,
                              deterministic=False, compute_dtype=compute_dtype,
                              logits_dtype=compute_dtype, remat=remat, mesh=fwd_mesh,
                              tensor_parallel=tensor_parallel, split=split)
@@ -492,7 +588,7 @@ def eval_step(params: dict, metrics_state: dict, images: torch.Tensor, label_ids
     pps = label_ids.shape[1] * label_ids.shape[2]  # a sample's pixels, the whole width's
     if split is not None:
         images, label_ids = split.columns(images, 2), split.columns(label_ids, 2)
-    logits = apply_fcn8s(params, images, compute_dtype=compute_dtype,
+    logits = apply_model(params, images, compute_dtype=compute_dtype,
                          logits_dtype=compute_dtype, mesh=mesh, tensor_parallel=tensor_parallel,
                          split=split)
     if class_weights is not None:
@@ -530,7 +626,7 @@ def _forward(params: dict, images: torch.Tensor, quantized: bool, mesh, tensor_p
     on a mesh, as JAX keeps it), else the compute-dtype model."""
     if quantized:
         return apply_fcn8s_int8(params, images, mesh=mesh, split=split, **kwargs)
-    return apply_fcn8s(params, images, mesh=mesh, tensor_parallel=tensor_parallel, split=split,
+    return apply_model(params, images, mesh=mesh, tensor_parallel=tensor_parallel, split=split,
                        **kwargs)
 
 
@@ -568,14 +664,16 @@ def _predict_rows(params, images, argmax, compute_dtype, id_dtype, overlay_lut, 
     """``predict_step`` on this rank's rows (its columns of them under a
     width ``split``)."""
     want_ids = argmax or overlay_lut is not None
+    packed = want_ids and not is_segformer(params)  # SegFormer's logits are never packed
     logits = _forward(params, images, quantized, mesh, tensor_parallel, split,
                       compute_dtype=compute_dtype, logits_dtype=compute_dtype,
-                      packed_final=want_ids)
+                      packed_final=packed)
     if not want_ids:
         return torch.softmax(logits.float(), dim=-1)
-    pred = torch.argmax(logits, dim=-1)  # (n, H/s, W/s, s, s)
-    n, h, w, s, _ = pred.shape
-    pred = pred.permute(0, 1, 3, 2, 4).reshape(n, h * s, w * s)
+    pred = torch.argmax(logits, dim=-1)  # (n, H/s, W/s, s, s) when packed
+    if packed:
+        n, h, w, s, _ = pred.shape
+        pred = pred.permute(0, 1, 3, 2, 4).reshape(n, h * s, w * s)
     if overlay_lut is None:
         return pred.to(id_dtype)
     lut = np.asarray(overlay_lut, np.float32)
@@ -714,7 +812,10 @@ class _CompiledTrain(_CompiledStep):
         inner = state.opt_state.inner
         if isinstance(inner, ScaleByAdamTF1State):
             inner = [inner.mu, inner.nu]
-        return bridge.param_leaves(state.params) + tensors_of(inner)
+        # and the state the step updates in place without a gradient (SegFormer's
+        # BatchNorm statistics), put back after the warm-up like the rest
+        return (bridge.param_leaves(state.params) + tensors_of(inner)
+                + bridge.state_leaves(state.params))
 
     def __call__(self, state: TrainState, images, label_ids, sample_mask, seed: int,
                  learning_rate: float, l2_rate: float, keep_prob: float):

@@ -1146,6 +1146,32 @@ def test_fc6_route_backward_is_cudnns_bit_for_bit(dev, deterministic, shape):
     assert all(torch.equal(a, c) for a, c in zip(*grads))
 
 
+def test_fcn8s_adam_update_is_the_per_leaf_rule_at_full_size_on_the_card(dev, deterministic):
+    """FCN-8s at full size, two b8 steps of 512x1024 with keep_prob 0.5:
+    the optimizer's multi-tensor TF1 Adam gives the per-leaf loop's params
+    and moments bit for bit (``tests/per_leaf_adam.py``), so FCN's numbers
+    are the loop's."""
+    from fcn8s_tensorflow_tpu_torch.models.fcn8s import init_fcn8s
+    from fcn8s_tensorflow_tpu_torch.parallel import steps as S
+    from tests.per_leaf_adam import PerLeafAdam
+
+    tree = init_fcn8s(torch.Generator().manual_seed(6), 20)
+    g = torch.Generator(device=dev).manual_seed(7)
+    ims = torch.randint(0, 256, (2, 8, 512, 1024, 3), generator=g, device=dev, dtype=torch.uint8)
+    lbs = torch.randint(0, 20, (2, 8, 512, 1024), generator=g, device=dev, dtype=torch.uint8)
+    mask = torch.ones(8, device=dev)
+    opt, loop = S.make_optimizer(), PerLeafAdam("adam")
+    fused, looped = _train_state(dev, tree, opt), _train_state(dev, tree, loop)
+    for i in range(2):
+        _, want = S.train_step(looped, ims[i], lbs[i], mask, 9, 1e-4, 1e-4, 0.5, optimizer=loop,
+                               num_classes=20)
+        _, got = S.train_step(fused, ims[i], lbs[i], mask, 9, 1e-4, 1e-4, 0.5, optimizer=opt,
+                              num_classes=20)
+        assert torch.equal(got, want)
+    torch.cuda.synchronize()
+    assert _states_equal(fused, looped)
+
+
 def test_fc6_route_in_full_size_captured_steps_equals_eager(dev, deterministic):
     """The b8 train step (keep_prob 0.5) and the FCN-32s predict call at
     full size: the captured steps give the eager steps' loss, state and ids
@@ -1190,3 +1216,73 @@ def test_fc6_route_in_full_size_captured_steps_equals_eager(dev, deterministic):
         assert torch.equal(predict(run, frames[i]), want)
         if i > 0:
             assert conv2d_im2col.launches == n + 2
+
+
+def _segformer_b5(seed):
+    from fcn8s_tensorflow_tpu_torch.models.segformer import init_segformer
+
+    return init_segformer(torch.Generator().manual_seed(seed), 20)
+
+
+def test_segformer_b5_captured_steps_equal_eager_on_the_card(dev, deterministic):
+    """SegFormer-B5 at its published widths, batch 1 of 512x512, keep_prob
+    0.9 (DropPath and the head's channel dropout drawn), AdamW with the
+    head's and the norms' multipliers: two replays of the captured train
+    step give the eager steps' losses, params, moments and BatchNorm
+    statistics bit for bit, the multi-tensor update TF1 AdamW's per-leaf
+    loop (``tests/per_leaf_adam.py``), and the compiled predict step the
+    eager ids."""
+    from fcn8s_tensorflow_tpu_torch import bridge
+    from fcn8s_tensorflow_tpu_torch.parallel import steps as S
+    from tests.per_leaf_adam import PerLeafAdam
+
+    tree = _segformer_b5(11)
+    g = torch.Generator(device=dev).manual_seed(12)
+    ims = torch.randint(0, 256, (3, 1, 512, 512, 3), generator=g, device=dev, dtype=torch.uint8)
+    lbs = torch.randint(0, 20, (3, 1, 512, 512), generator=g, device=dev, dtype=torch.uint8)
+    mask = torch.ones(1, device=dev)
+    keys = {"decoder": {"lr_mult": 10.0}, "norm": {"decay_mult": 0.0}}
+    opt = S.make_optimizer("adamw", weight_decay=0.01, custom_keys=keys)
+    loop = PerLeafAdam("adamw", weight_decay=0.01, custom_keys=keys)
+    eager, comp = _train_state(dev, tree, opt), _train_state(dev, tree, opt)
+    looped = _train_state(dev, tree, loop)
+    step = S.compile_train_step(None, opt, 20, device=dev)
+    for i in range(3):
+        _, want = S.train_step(eager, ims[i], lbs[i], mask, 9, 6e-5, 0.0, 0.9, optimizer=opt,
+                               num_classes=20)
+        _, got = step(comp, ims[i], lbs[i], mask, 9, 6e-5, 0.0, 0.9)
+        assert torch.equal(got, want)
+        _, by_loop = S.train_step(looped, ims[i], lbs[i], mask, 9, 6e-5, 0.0, 0.9,
+                                  optimizer=loop, num_classes=20)
+        assert torch.equal(by_loop, want)
+    torch.cuda.synchronize()
+    assert _states_equal(comp, eager) and _states_equal(looped, eager)
+    assert all(torch.equal(a, b) for a, b in zip(bridge.state_leaves(comp.params),
+                                                 bridge.state_leaves(eager.params)))
+    run = bridge.cast_params(eager.params, torch.bfloat16)
+    predict = S.compile_predict_step(None, id_dtype=torch.uint8, device=dev)
+    with torch.no_grad():
+        want = S.predict_step(run, ims[0], id_dtype=torch.uint8)
+        assert torch.equal(predict(run, ims[0]), want)
+        assert torch.equal(predict(run, ims[0]), want)
+
+
+def test_segformer_attention_kernels_match_the_roofline_readers_names(dev):
+    """The fused attention's forward and backward kernels on the card, at
+    SegFormer's bf16 shapes (head dim 64), are what the benchmark's
+    ``attention_*`` readers match by name, and nothing else is."""
+    from portbench.metrics.arith.segformer import is_attention_kernel
+
+    q = torch.randn(2, 1, 4096, 64, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    kv = torch.randn(2, 2, 1, 256, 64, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        o = torch.nn.functional.scaled_dot_product_attention(q, kv[0], kv[1])
+        o.float().sum().backward()
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+    matched = sorted(n for n in names if is_attention_kernel(n))
+    print("attention kernels:", matched)
+    assert any(k in n.lower() for n in matched for k in ("bwd", "bprop", "backward")), names
+    assert len(matched) >= 2, names
+    assert not any(is_attention_kernel(n) for n in names
+                   if "elementwise" in n or "reduce" in n.lower())
